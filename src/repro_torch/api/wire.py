@@ -1,0 +1,139 @@
+"""Wire middleware applied at the cut (port of `repro/api/wire.py`).
+
+A `WireTransform` is a named pair of functions:
+
+  apply(t, name, direction) -> t'  — applied to every value the moment
+      it crosses the client/server boundary;
+  bytes_fn(shape, dtype, nbytes) -> nbytes'  — what the transform does
+      to the physical byte count of one payload.
+
+`quantize_int8()` fake-quantizes in plain torch; `quantize_int8(
+physical=True)` makes the crossing value the packed `(int8, fp32 row
+scales)` payload through the wire kernels, and `WireTape` then derives
+the metered bytes from the payload's real tensors and checks them
+against the `bytes_fn` claim (`WireAccountingError` on drift).
+
+This slice carries what serving needs.  `dp_noise`, `leakage_probe` and
+the p2p weight handoff belong to the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+from repro_torch.core.wire_compress import (_fake_quant_int8, as_dense,
+                                            pack_int8, payload_nbytes,
+                                            wire_bytes)
+
+
+class WireAccountingError(AssertionError):
+    """Metered wire bytes drifted from the physical payload's nbytes."""
+
+
+@dataclasses.dataclass(frozen=True)
+class WireTransform:
+    """One middleware layer on the cut wire."""
+    name: str
+    apply: Callable          # (t, name, direction) -> t
+    bytes_fn: Callable       # (shape, dtype, nbytes) -> nbytes
+    physical: bool = False   # True: apply() emits the packed payload
+
+
+def quantize_int8(*, physical: bool = False) -> WireTransform:
+    """Per-row symmetric int8 quantization of everything that crosses.
+    physical=False fake-quants (float values, int8 information content);
+    physical=True packs through the wire kernels.  Both ship 1 byte per
+    element + one fp32 scale per last-axis row."""
+    if physical:
+        apply = lambda t, name, direction: pack_int8(as_dense(t))
+    else:
+        apply = lambda t, name, direction: _fake_quant_int8(as_dense(t))
+    return WireTransform(
+        name="quantize_int8", apply=apply,
+        bytes_fn=lambda shape, dtype, nbytes: wire_bytes(
+            shape, quantized=True, base_dtype=dtype),
+        physical=physical)
+
+
+def parse_wire(spec) -> tuple:
+    """'quantize_int8' / 'quantize_int8:physical' -> transform tuple.
+    Also takes a built `WireStack`, a sequence of `WireTransform`s, or
+    None / "" (the empty stack)."""
+    if spec is None:
+        return ()
+    if isinstance(spec, WireStack):
+        return spec.transforms
+    if not isinstance(spec, str):
+        return tuple(spec)
+    out = []
+    for tok in filter(None, spec.split(",")):
+        name, _, arg = tok.partition(":")
+        if name == "quantize_int8":
+            if arg not in ("", "physical", "fake"):
+                raise ValueError(f"quantize_int8:{arg}? (physical|fake)")
+            out.append(quantize_int8(physical=arg == "physical"))
+        elif name in ("dp_noise", "leakage_probe"):
+            raise NotImplementedError(
+                f"wire transform {name!r} is not ported yet: it comes with "
+                "the training slice of the port")
+        else:
+            raise ValueError(f"unknown wire transform {name!r}")
+    return tuple(out)
+
+
+class WireStack:
+    """An ordered stack of `WireTransform`s, applied at every crossing."""
+
+    def __init__(self, transforms: Sequence[WireTransform]):
+        self.transforms = tuple(transforms)
+
+    def __bool__(self):
+        return bool(self.transforms)
+
+    @property
+    def physical(self) -> bool:
+        return any(tr.physical for tr in self.transforms)
+
+    def apply(self, t, name: str, direction: str):
+        for tr in self.transforms:
+            t = tr.apply(t, name, direction)
+        return t
+
+    def wire_bytes(self, shape, dtype) -> int:
+        """Physical bytes of one payload after the whole stack — the
+        `bytes_fn` claim."""
+        n = 1
+        for s in shape:
+            n *= s
+        nbytes = n * dtype.itemsize
+        for tr in self.transforms:
+            nbytes = tr.bytes_fn(tuple(shape), dtype, nbytes)
+        return int(nbytes)
+
+
+class WireTape(list):
+    """A `WireRecord` list that `core.split.record` recognises: values are
+    transformed and records priced at the stack's physical wire bytes."""
+
+    def __init__(self, stack: WireStack):
+        super().__init__()
+        self.stack = stack
+
+    def transform(self, t, name: str, direction: str):
+        return self.stack.apply(t, name, direction)
+
+    def payload_bytes(self, t) -> tuple:
+        """(bytes, physical) for the transformed wire value `t`; with a
+        physical stack the bytes come from the payload's tensors and must
+        equal the `bytes_fn` claim."""
+        predicted = self.stack.wire_bytes(tuple(t.shape), t.dtype)
+        if self.stack.physical:
+            actual = payload_nbytes(t)
+            if actual != predicted:
+                raise WireAccountingError(
+                    f"metered wire bytes drifted from the physical "
+                    f"payload: bytes_fn claims {predicted}, the packed "
+                    f"payload holds {actual} (shape {tuple(t.shape)}, "
+                    f"dtype {t.dtype})")
+            return actual, True
+        return predicted, False

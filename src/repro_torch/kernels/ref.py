@@ -1,0 +1,48 @@
+"""Plain-torch copies of the reference's oracles (`repro.kernels.ref`) for
+the kernels this slice ports.
+
+The quantizer's two constants are the float32 values the reference uses
+(`f32(1/127)` and `f32(1e-12)`), held as Python floats that are exact in
+float32, so the products and the comparison round the same whatever
+precision torch computes a scalar operand in.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+INV127 = float(np.float32(1.0 / 127.0))
+EPS = float(np.float32(1e-12))
+
+
+def wire_quant_ref(x: torch.Tensor):
+    """Per-last-axis-row symmetric int8 quantize + pack -> (q int8,
+    fp32 row scales (..., 1)).  `torch.round` rounds half to even, as
+    the reference's `jnp.round` does."""
+    xf = x.float()
+    scale = torch.amax(xf.abs(), dim=-1, keepdim=True) * INV127
+    scale = torch.clamp_min(scale, EPS)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def wire_dequant_ref(q: torch.Tensor, scale: torch.Tensor,
+                     dtype=torch.float32):
+    return (q.float() * scale).to(dtype)
+
+
+def splitcat_linear_ref(parts: list, w: torch.Tensor, b=None):
+    """concat(parts, -1) @ w (+ b) — the vertical-split server entry op."""
+    x = torch.cat(parts, dim=-1)
+    y = x.float() @ w.float()
+    if b is not None:
+        y = y + b.float()
+    return y.to(parts[0].dtype)
+
+
+def splitcat_linear_q8_ref(qs: list, scales: list, w: torch.Tensor, b=None,
+                           out_dtype=torch.float32):
+    """Dequant + concat + matmul over packed int8 payloads — the
+    reference's oracle for the fused q8 kernel (dequantizes first)."""
+    parts = [wire_dequant_ref(q, s) for q, s in zip(qs, scales)]
+    return splitcat_linear_ref(parts, w, b).to(out_dtype)

@@ -1,0 +1,228 @@
+"""Decoder-only LM for split serving (port of `repro/models/lm.py`).
+
+Model params:
+    {"embed": {"table"}, "groups": [g0, ...], "final_norm": {"scale"},
+     ["head"]: {"w"}}
+
+A group is a homogeneous run of layers (`GroupSpec`).  Where the
+reference stacks a group's layer params along a leading axis and scans,
+the port keeps a list with one entry per repeat, each a dict from the
+spec index ("0", ...) to that layer's params, and loops in Python.
+Caches follow the same layout.
+
+Split hooks: `split_params(params, cut)` gives the client the embedding
+and layers [0, cut) and the server the rest plus the final norm and the
+head; each half prefills and decodes against its own caches, so only
+the cut activation crosses.  This slice builds the dense family.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.nn import attention as A
+from repro_torch.nn import layers as L
+from repro_torch.nn import transformer as T
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    specs: tuple                  # tuple[BlockSpec]; len>1 = composite
+    n_repeat: int
+
+    @property
+    def layers_per_repeat(self) -> int:
+        return len(self.specs)
+
+    @property
+    def n_layers(self) -> int:
+        return self.n_repeat * len(self.specs)
+
+
+def _attn_cfg(cfg: ArchConfig, *, window=None) -> A.AttnConfig:
+    return A.AttnConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
+        rope_fraction=cfg.rope_fraction, rope_theta=cfg.rope_theta,
+        window=window, dtype=cfg.dtype)
+
+
+def make_groups(cfg: ArchConfig) -> list[GroupSpec]:
+    """The dense family: one group of identical attn + MLP blocks."""
+    if (cfg.family != "dense" or cfg.pattern or cfg.n_experts
+            or cfg.attn_kind != "gqa" or cfg.norm != "rmsnorm"
+            or cfg.mlp != "swiglu" or cfg.encdec):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): the port builds the dense GQA + "
+            "SwiGLU family so far; MoE, MLA, SSM, hybrid, VLM and audio "
+            "models come with later slices")
+    spec = T.BlockSpec(d_model=cfg.d_model, mixer="attn", mlp=cfg.mlp,
+                       d_ff=cfg.dense_d_ff or cfg.d_ff,
+                       attn=_attn_cfg(cfg, window=cfg.window),
+                       norm=cfg.norm, dtype=cfg.dtype)
+    return [GroupSpec((spec,), cfg.n_layers)]
+
+
+# ---------------------------------------------------------------------------
+# Groups: init / cache / prefill / decode
+# ---------------------------------------------------------------------------
+
+def group_init(gen, g: GroupSpec, device=None) -> list:
+    return [{str(i): T.block_init(gen, spec, device)
+             for i, spec in enumerate(g.specs)}
+            for _ in range(g.n_repeat)]
+
+
+def group_init_cache(g: GroupSpec, batch: int, max_len: int,
+                     device=None) -> list:
+    return [{str(i): T.block_init_cache(spec, batch, max_len, device)
+             for i, spec in enumerate(g.specs)}
+            for _ in range(g.n_repeat)]
+
+
+def group_decode(params: list, g: GroupSpec, x, caches: list):
+    for layer_params, cache in zip(params, caches):
+        for i, spec in enumerate(g.specs):
+            x, _ = T.block_decode(layer_params[str(i)], spec, x,
+                                  cache[str(i)])
+    return x, caches
+
+
+def group_prefill(params: list, g: GroupSpec, x, caches: list):
+    for layer_params, cache in zip(params, caches):
+        for i, spec in enumerate(g.specs):
+            x, _ = T.block_prefill(layer_params[str(i)], spec, x,
+                                   cache[str(i)])
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# The LM
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LM:
+    cfg: ArchConfig
+    groups: tuple                 # tuple[GroupSpec]
+
+    def init(self, gen: torch.Generator, device=None):
+        """Random params drawn from `gen` (a generator on `device`)."""
+        c = self.cfg
+        kw = dict(dtype=c.dtype, device=device)
+        p = {"embed": L.embedding_init(gen, c.vocab, c.d_model, **kw),
+             "groups": [group_init(gen, g, device) for g in self.groups],
+             "final_norm": L.rmsnorm_init(c.d_model, **kw)}
+        if not c.tie_embeddings:
+            p["head"] = L.dense_init(gen, c.d_model, c.vocab, **kw)
+        return p
+
+    def flat_layers(self) -> int:
+        return sum(g.n_layers for g in self.groups)
+
+    def split_params(self, params, cut: int):
+        """Client: embed + layers [0, cut).  Server: layers [cut, L) +
+        final norm + head.  With tied embeddings the server's head is the
+        client's embedding table, SHARED (the same tensor, not a copy):
+        both halves run in one process here, and a deployment would hold
+        a copy on the server, as the reference notes."""
+        client = {"embed": params["embed"]}
+        server = {"final_norm": params["final_norm"]}
+        if "head" in params:
+            server["head"] = params["head"]
+        else:
+            server["tied_head"] = params["embed"]
+        cg, sg = [], []
+        seen = 0
+        for g, gp in zip(self.groups, params["groups"]):
+            lo, hi = seen, seen + g.n_layers
+            seen = hi
+            if hi <= cut:
+                cg.append(gp)
+            elif lo >= cut:
+                sg.append(gp)
+            else:
+                k = cut - lo
+                if k % g.layers_per_repeat:
+                    raise ValueError(f"cut {cut} splits a composite "
+                                     "super-block")
+                r = k // g.layers_per_repeat
+                cg.append(gp[:r])
+                sg.append(gp[r:])
+        client["groups"] = cg
+        server["groups"] = sg
+        return client, server
+
+    def _groups_for_range(self, cut: int, side: str) -> list[GroupSpec]:
+        out, seen = [], 0
+        for g in self.groups:
+            lo, hi = seen, seen + g.n_layers
+            seen = hi
+            if side == "client":
+                if hi <= cut:
+                    out.append(g)
+                elif lo < cut:
+                    out.append(dataclasses.replace(
+                        g, n_repeat=(cut - lo) // g.layers_per_repeat))
+            else:
+                if lo >= cut:
+                    out.append(g)
+                elif hi > cut:
+                    out.append(dataclasses.replace(
+                        g, n_repeat=(hi - cut) // g.layers_per_repeat))
+        return out
+
+    def server_head(self, server_params, x):
+        """Final norm + unembedding on the server side of a split."""
+        x = L.rmsnorm_apply(server_params["final_norm"], x)
+        if "head" in server_params:
+            return L.dense_apply(server_params["head"], x)
+        return L.embedding_attend(server_params["tied_head"], x)
+
+    # ---- split serving (each half owns its own caches) ----
+    def init_cache_split(self, batch: int, max_len: int, cut: int,
+                         device=None):
+        """(client_caches, server_caches) for [0, cut) and [cut, L)."""
+        client = [group_init_cache(g, batch, max_len, device)
+                  for g in self._groups_for_range(cut, "client")]
+        server = [group_init_cache(g, batch, max_len, device)
+                  for g in self._groups_for_range(cut, "server")]
+        return client, server
+
+    def prefill_client(self, client_params, batch, cut: int, caches):
+        """Teacher-forced client half: embed + layers [0, cut).  Returns
+        (cut activation (B, S, D), caches)."""
+        x = L.embedding_apply(client_params["embed"], batch["tokens"])
+        for g, gp, c in zip(self._groups_for_range(cut, "client"),
+                            client_params["groups"], caches):
+            x, _ = group_prefill(gp, g, x, c)
+        return x, caches
+
+    def prefill_server(self, server_params, act, cut: int, caches):
+        """Teacher-forced server half.  Returns (logits (B, S, V), caches)."""
+        x = act
+        for g, gp, c in zip(self._groups_for_range(cut, "server"),
+                            server_params["groups"], caches):
+            x, _ = group_prefill(gp, g, x, c)
+        return self.server_head(server_params, x), caches
+
+    def decode_step_client(self, client_params, tokens, cut: int, caches):
+        """tokens (B, 1) -> (cut activation (B, 1, D), caches)."""
+        x = L.embedding_apply(client_params["embed"], tokens)
+        for g, gp, c in zip(self._groups_for_range(cut, "client"),
+                            client_params["groups"], caches):
+            x, _ = group_decode(gp, g, x, c)
+        return x, caches
+
+    def decode_step_server(self, server_params, act, cut: int, caches):
+        """act (B, 1, D) -> (logits (B, 1, V), caches)."""
+        x = act
+        for g, gp, c in zip(self._groups_for_range(cut, "server"),
+                            server_params["groups"], caches):
+            x, _ = group_decode(gp, g, x, c)
+        return self.server_head(server_params, x), caches
+
+
+def build_lm(cfg: ArchConfig) -> LM:
+    return LM(cfg=cfg, groups=tuple(make_groups(cfg)))

@@ -14,6 +14,11 @@ def pytest_configure(config):
         "slow: long-running system/perf tests excluded from the CI tier-1 "
         'lane (run with -m "not slow"); the full suite stays available '
         "locally via plain pytest")
+    config.addinivalue_line(
+        "markers",
+        "gpu: runs the port's CUDA kernels; skips where no CUDA GPU is "
+        "visible (run on the card with: python -m pytest -m gpu "
+        "tests/test_torch_*.py)")
 
 
 @pytest.fixture(scope="session")
