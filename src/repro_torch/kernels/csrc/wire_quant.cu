@@ -17,19 +17,35 @@
 // What bounds it on an H100 SXM (3.35 TB/s): bytes.  On the serving path
 // the logits row (4, 1, 200064) bf16 moves 1.6 MB in and 0.8 MB out,
 // about 0.7 us at the memory rate; the cut activation (4, 1, 3072) moves
-// 37 KB and is bound by launch latency instead.  The design is the simple
-// one: one block per row, the absmax reduced with warp shuffles and a
-// shared-memory pass, then a second pass over the row (mostly from L2)
-// that writes q.  A few wide rows occupy only a few SMs, so the logits
-// quantize runs far from the memory rate; spreading a row over a
-// cluster is later work.  Dequantize is an elementwise grid over
-// (columns, rows) with no integer division.
+// 37 KB and is bound by launch latency instead.
+//
+// Design.  The TPU kernel holds a whole block of rows in VMEM; here a
+// batch of four 200,064-wide rows would leave one block per row on four
+// SMs, each reading 400 KB twice through one load per thread in flight
+// (measured 45 us).  So a row is spread over a thread-block cluster of up
+// to 8 blocks, one per 8K elements (a row that fits one block is
+// launched without a cluster): each block reduces its slice's absmax,
+// the cluster combines the partial maxima through distributed shared
+// memory (no partial value goes to device memory and no second launch),
+// every block derives the same scale, and each quantizes its own slice,
+// re-read mostly from L2.  Rows whose start is 16-byte aligned
+// and whose width is a multiple of the vector are read with 16-byte loads
+// and written with 8- or 4-byte stores; others take a scalar loop.
+// Dequantize is an elementwise grid over (columns, rows) with no integer
+// division.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxCluster = 8;          // portable cluster size
+constexpr int64_t kSliceTarget = 8192;  // elements per block of a row
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -45,24 +61,75 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename T, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-quant_rows(const T* __restrict__ x, int8_t* __restrict__ q,
-           float* __restrict__ scale, int64_t k, float inv127, float eps) {
-  static_assert(THREADS % 32 == 0 && THREADS <= 1024, "block shape");
-  constexpr int WARPS = THREADS / 32;
-  __shared__ float warp_max[WARPS];
-  __shared__ float row_scale;
+// 16 bytes of input as floats; the matching packed int8 store
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  using Store = uint32_t;
+  __device__ __forceinline__ static void load(const float* p, float (&f)[4]) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  using Store = uint2;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float (&f)[8]) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 t = __bfloat1622float2(h[j]);
+      f[2 * j] = t.x;
+      f[2 * j + 1] = t.y;
+    }
+  }
+};
 
-  const int64_t row = blockIdx.x;
+__device__ __forceinline__ int8_t quant_one(float v, float s) {
+  const float r = rintf(__fdiv_rn(v, s));
+  return static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
+}
+
+// grid: rows * cluster blocks, cluster (cluster, 1, 1); block `rank` of a
+// row's cluster owns elements [rank * slice, (rank + 1) * slice).  A row
+// that fits one block (kCluster false) is launched without a cluster.
+template <typename T, bool kVector, bool kCluster>
+__global__ void __launch_bounds__(kThreads)
+quant_rows(const T* __restrict__ x, int8_t* __restrict__ q,
+           float* __restrict__ scale, int64_t k, int64_t slice, float inv127,
+           float eps) {
+  constexpr int N = Vec<T>::N;
+  __shared__ float warp_max[kThreads / 32];
+  __shared__ float block_max;
+
+  const unsigned rank = kCluster ? cg::this_cluster().block_rank() : 0;
+  const unsigned n_blocks = kCluster ? cg::this_cluster().num_blocks() : 1;
+  const int64_t row = blockIdx.x / n_blocks;
+  const int64_t lo = rank * slice;
+  const int64_t hi = lo + slice < k ? lo + slice : k;
   const T* xr = x + row * k;
   int8_t* qr = q + row * k;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
   float amax = 0.f;
-  for (int64_t i = threadIdx.x; i < k; i += THREADS) {
-    amax = fmaxf(amax, fabsf(to_f32(xr[i])));
+  if (kVector) {        // slice and row start are multiples of N elements
+#pragma unroll 4
+    for (int64_t i = lo + threadIdx.x * N; i < hi; i += kThreads * N) {
+      float f[N];
+      Vec<T>::load(xr + i, f);
+#pragma unroll
+      for (int j = 0; j < N; ++j) amax = fmaxf(amax, fabsf(f[j]));
+    }
+  } else {
+    for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) {
+      amax = fmaxf(amax, fabsf(to_f32(xr[i])));
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -70,30 +137,51 @@ quant_rows(const T* __restrict__ x, int8_t* __restrict__ q,
   }
   if (lane == 0) warp_max[warp] = amax;
   __syncthreads();
-  if (warp == 0) {
-    float m = lane < WARPS ? warp_max[lane] : 0.f;
+  if (threadIdx.x == 0) {
+    float m = warp_max[0];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    }
-    if (lane == 0) {
-      const float s = fmaxf(__fmul_rn(m, inv127), eps);
-      row_scale = s;
-      scale[row] = s;
-    }
+    for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, warp_max[w]);
+    block_max = m;
   }
-  __syncthreads();
+  float m;
+  if (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();     // every block's partial max is visible cluster-wide
+    m = 0.f;
+    for (unsigned r = 0; r < n_blocks; ++r) {
+      m = fmaxf(m, *cluster.map_shared_rank(&block_max, r));
+    }
+    cluster.sync();     // no block exits while a peer still reads it
+  } else {
+    __syncthreads();
+    m = block_max;
+  }
+  const float s = fmaxf(__fmul_rn(m, inv127), eps);
+  if (rank == 0 && threadIdx.x == 0) scale[row] = s;
 
-  const float s = row_scale;
-  for (int64_t i = threadIdx.x; i < k; i += THREADS) {
-    float r = rintf(__fdiv_rn(to_f32(xr[i]), s));
-    r = fminf(fmaxf(r, -127.f), 127.f);
-    qr[i] = static_cast<int8_t>(r);
+  if (kVector) {
+    using Store = typename Vec<T>::Store;
+#pragma unroll 4
+    for (int64_t i = lo + threadIdx.x * N; i < hi; i += kThreads * N) {
+      float f[N];
+      Vec<T>::load(xr + i, f);
+      union {
+        int8_t b[N];
+        Store v;
+      } out;
+#pragma unroll
+      for (int j = 0; j < N; ++j) out.b[j] = quant_one(f[j], s);
+      *reinterpret_cast<Store*>(qr + i) = out.v;
+    }
+  } else {
+    for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) {
+      qr[i] = quant_one(to_f32(xr[i]), s);
+    }
   }
 }
 
 template <typename OutT>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads)
 dequant_rows(const int8_t* __restrict__ q, const float* __restrict__ scale,
              OutT* __restrict__ out, int64_t rows, int64_t k) {
   for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
@@ -107,28 +195,62 @@ dequant_rows(const int8_t* __restrict__ q, const float* __restrict__ scale,
   }
 }
 
+template <typename T, bool kVector>
+cudaError_t launch_quant(const T* x, int8_t* q, float* scale, int64_t rows,
+                         int64_t k, int cluster, int64_t slice, float inv127,
+                         float eps, cudaStream_t stream) {
+  if (cluster == 1) {
+    quant_rows<T, kVector, false><<<static_cast<unsigned>(rows), kThreads, 0,
+                                    stream>>>(x, q, scale, k, slice, inv127,
+                                              eps);
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * cluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, quant_rows<T, kVector, true>, x, q, scale,
+                            k, slice, inv127, eps);
+}
+
 template <typename T>
-void launch_quant(const void* x, void* q, void* scale, int64_t rows,
+cudaError_t quant(const void* x, void* q, void* scale, int64_t rows,
                   int64_t k, float inv127, float eps, cudaStream_t stream) {
+  constexpr int N = Vec<T>::N;
+  int64_t cluster = (k + kSliceTarget - 1) / kSliceTarget;
+  if (cluster > kMaxCluster) cluster = kMaxCluster;
+  if (cluster < 1) cluster = 1;
+  if (rows * cluster > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int64_t slice = (k + cluster - 1) / cluster;
+  const bool vec = k % N == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % sizeof(
+                       typename Vec<T>::Store) == 0;
   const T* xp = static_cast<const T*>(x);
   int8_t* qp = static_cast<int8_t*>(q);
   float* sp = static_cast<float*>(scale);
-  if (k <= 4096) {
-    quant_rows<T, 256><<<(unsigned)rows, 256, 0, stream>>>(xp, qp, sp, k,
-                                                          inv127, eps);
-  } else {
-    quant_rows<T, 1024><<<(unsigned)rows, 1024, 0, stream>>>(xp, qp, sp, k,
-                                                            inv127, eps);
+  if (vec) {
+    slice = (slice + N - 1) / N * N;
+    return launch_quant<T, true>(xp, qp, sp, rows, k, (int)cluster, slice,
+                                 inv127, eps, stream);
   }
+  return launch_quant<T, false>(xp, qp, sp, rows, k, (int)cluster, slice,
+                                inv127, eps, stream);
 }
 
 template <typename OutT>
 void launch_dequant(const void* q, const void* scale, void* out,
                     int64_t rows, int64_t k, cudaStream_t stream) {
-  const int64_t col_blocks = (k + 255) / 256;
+  const int64_t col_blocks = (k + kThreads - 1) / kThreads;
   dim3 grid((unsigned)(col_blocks < 4096 ? col_blocks : 4096),
             (unsigned)(rows < 65535 ? rows : 65535));
-  dequant_rows<OutT><<<grid, 256, 0, stream>>>(
+  dequant_rows<OutT><<<grid, kThreads, 0, stream>>>(
       static_cast<const int8_t*>(q), static_cast<const float*>(scale),
       static_cast<OutT*>(out), rows, k);
 }
@@ -136,16 +258,16 @@ void launch_dequant(const void* q, const void* scale, void* out,
 }  // namespace
 
 // x (rows, k) float32 (x_bf16 = 0) or bfloat16 (x_bf16 = 1), contiguous
-// -> q (rows, k) int8 and scale (rows,) float32.  Returns cudaGetLastError().
+// -> q (rows, k) int8 and scale (rows,) float32.  Returns the launch's
+// error, else cudaGetLastError().
 extern "C" int wire_quant_launch(const void* x, void* q, void* scale,
                                  long long rows, long long k, int x_bf16,
                                  float inv127, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    launch_quant<__nv_bfloat16>(x, q, scale, rows, k, inv127, eps, st);
-  } else {
-    launch_quant<float>(x, q, scale, rows, k, inv127, eps, st);
-  }
+  const cudaError_t err =
+      x_bf16 ? quant<__nv_bfloat16>(x, q, scale, rows, k, inv127, eps, st)
+             : quant<float>(x, q, scale, rows, k, inv127, eps, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -74,7 +74,6 @@ def main(argv=None):
     ap.add_argument("--fused-entry", action="store_true",
                     help="server entry QKV reads the packed int8 payload")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not args.split:
         raise SystemExit("monolithic serving is not ported yet; pass --split")
@@ -91,11 +90,11 @@ def main(argv=None):
                      max_len=args.prompt_len + args.gen + 1,
                      fused_entry=args.fused_entry)
     try:
-        sess = ServeSession(plan, args.seed, device=device)
+        sess = ServeSession(plan, 0, device=device)
     except ValueError as e:
         raise SystemExit(str(e))
     gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed + 1)
+    gen.manual_seed(1)
     prompt = torch.randint(0, cfg.vocab, (B, args.prompt_len),
                            generator=gen, device=device)
     summary = serve_split(sess, prompt, args.gen)

@@ -70,9 +70,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
 # ---------------------------------------------------------------------------
 
 def causal_mask(q_len: int, kv_len: int, *, window: int | None = None,
-                q_offset: int = 0, device=None) -> torch.Tensor:
+                device=None) -> torch.Tensor:
     """(q_len, kv_len) boolean: True = attend."""
-    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    q_pos = torch.arange(q_len, device=device)[:, None]
     k_pos = torch.arange(kv_len, device=device)[None, :]
     m = k_pos <= q_pos
     if window is not None:

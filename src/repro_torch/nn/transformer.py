@@ -26,7 +26,6 @@ class BlockSpec:
     d_ff: int = 0
     attn: A.AttnConfig | None = None
     norm: str = "rmsnorm"
-    mlp_bias: bool = False
     dtype: Any = torch.float32
 
 

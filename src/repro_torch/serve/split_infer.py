@@ -75,8 +75,7 @@ class ServePlan:
     max_len     — KV ring length (prompt + generation budget);
     fused_entry — the server's entry QKV reads the packed payload through
                   the fused q8 kernel (allclose, not bitwise, to the
-                  unfused order of operations, hence opt-in);
-    reduced     — shrink a string `arch` via `cfg.reduced()` (CPU runs).
+                  unfused order of operations, hence opt-in).
     """
     arch: Any
     cut: int | None = None
@@ -84,16 +83,11 @@ class ServePlan:
     max_batch: int = 1
     max_len: int = 256
     fused_entry: bool = False
-    reduced: bool = False
 
     def config(self) -> ArchConfig:
         if isinstance(self.arch, ArchConfig):
             return self.arch
-        cfg = get_config(self.arch)
-        return cfg.reduced(vocab=256) if self.reduced else cfg
-
-    def session(self, seed_or_params, *, device=None) -> "ServeSession":
-        return ServeSession(self, seed_or_params, device=device)
+        return get_config(self.arch)
 
 
 class ServeSession:

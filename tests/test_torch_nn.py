@@ -104,8 +104,8 @@ def test_rope_mask_and_grouped_attention(fraction):
                          fraction=fraction))
     for window in (None, 3):
         assert np.array_equal(
-            TA.causal_mask(S, S + 2, window=window, q_offset=2).numpy(),
-            np.asarray(JA.causal_mask(S, S + 2, window=window, q_offset=2)))
+            TA.causal_mask(S, S + 2, window=window).numpy(),
+            np.asarray(JA.causal_mask(S, S + 2, window=window)))
     q, k, v = _x(3, (B, S, 4, 32)), _x(4, (B, S, 2, 32)), _x(5, (B, S, 2, 32))
     mask = TA.causal_mask(S, S)
     _close(TA.grouped_attention(*map(torch.from_numpy, (q, k, v)), mask,

@@ -197,7 +197,7 @@ def test_session_defaults_to_the_gpu_and_never_falls_back(setup):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeSession(plan, params_t)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        plan.session(0)
+        ServeSession(plan, 0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tlaunch.main(["--reduced", "--split"])
 
