@@ -337,10 +337,12 @@ def profile_decode(torch, sess, tok, step_s: float, steps: int = 4):
             tok = sess.decode_step(tok)
         torch.cuda.synchronize()
     by_name: dict = {}
+    n_kernels = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             us = e.time_range.end - e.time_range.start
             by_name[e.name] = by_name.get(e.name, 0.0) + us
+            n_kernels += 1
     busy_ms = sum(by_name.values()) / 1e3 / steps
     if busy_ms == 0.0:
         print("decode step device time: not measured (the profiler "
@@ -348,7 +350,8 @@ def profile_decode(torch, sess, tok, step_s: float, steps: int = 4):
         return
     print(f"decode step: wall {step_s * 1e3:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / (step_s * 1e3):.1f}%), "
-          f"{len(by_name)} kernel names; top by device time per step:")
+          f"{n_kernels / steps:.0f} device kernels per step under "
+          f"{len(by_name)} names; top by device time per step:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / steps / 1e3:8.4f} ms  {name[:100]}")
 
@@ -419,25 +422,26 @@ def main():
          "replaces": "src/repro/kernels/wire_quant.py:57",
          "launches": run["launches"]["wire_quant"], "max_abs_err": 0.0,
          "ms": kq[0], "plain_ms": kq[1], "bound_ms": kq[2][0],
-         "bound_by": kq[2][1], "library_ms": None,
-         "shape": "(4,1,200064) bf16"},
+         "bound_by": kq[2][1], "library_ms": None},
         {"name": "wire_dequant", "route": "cuda",
          "source": src + "wire_quant.cu",
          "replaces": "src/repro/kernels/wire_quant.py:89",
          "launches": run["launches"]["wire_dequant"], "max_abs_err": 0.0,
          "ms": kq[3], "plain_ms": kq[4], "bound_ms": kq[5][0],
-         "bound_by": kq[5][1], "library_ms": None,
-         "shape": "(4,1,200064) int8 -> bf16"},
+         "bound_by": kq[5][1], "library_ms": None},
         {"name": "splitcat_linear_q8", "route": "cuda",
          "source": src + "splitcat_linear_q8.cu",
          "replaces": "src/repro/kernels/splitcat_linear.py:62",
          "launches": run["launches"]["splitcat_linear_q8"],
          "max_abs_err": sc_err, "ms": t, "plain_ms": t_plain,
-         "bound_ms": b[0], "bound_by": b[1], "library_ms": t_lib,
-         "shape": "(4,1,3072) int8 x (3072,5120) bf16 -> bf16"},
+         "bound_ms": b[0], "bound_by": b[1], "library_ms": t_lib},
     ]
-    print(json.dumps({"kernels": kernels, "main_path": {
-        k: v for k, v in run.items() if k != "launches"}}))
+    print("kernel times above are at the decode step's shapes: wire_quant "
+          "and wire_dequant on the (4,1,200064) bf16 logits, "
+          "splitcat_linear_q8 on the (4,1,3072) x (3072,5120) bf16 entry")
+    print("main path: " + json.dumps(
+        {k: v for k, v in run.items() if k != "launches"}))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

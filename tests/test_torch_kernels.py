@@ -126,8 +126,8 @@ def _q8_inputs(seed, widths, lead, cols, bias):
     for k in widths:
         x = _payload(int(rng.integers(1 << 30)), lead + (k,))
         q, s = jref.wire_quant_ref(jnp.asarray(x))
-        qs.append(np.asarray(q))
-        ss.append(np.asarray(s))
+        qs.append(np.array(q))
+        ss.append(np.array(s))
     w = (rng.standard_normal((sum(widths), cols)) / 16).astype(np.float32)
     b = rng.standard_normal((cols,)).astype(np.float32) if bias else None
     return qs, ss, w, b
