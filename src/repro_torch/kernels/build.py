@@ -78,7 +78,7 @@ def build(names=None) -> dict:
         if proc.returncode != 0:
             failed.append(f"--- {n} (exit {proc.returncode}) ---\n{log}")
             continue
-        os.replace(tmp, out)           # atomic: parallel builders agree
+        os.replace(tmp, out)           # atomic: parallel builds agree
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return seconds

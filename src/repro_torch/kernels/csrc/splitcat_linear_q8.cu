@@ -20,7 +20,7 @@
 // not need): a block of 128 threads owns a tile of 4 rows by 2 column
 // vectors (16 bf16 or 8 fp32 columns, 320 blocks for the entry QKV, all
 // resident at once); each thread reads one 16-byte vector of W per K
-// row, 64 K rows per block step, and issues the loads of 8 steps before
+// row, 64 K rows per block step, and starts the loads of 8 steps before
 // it uses any of them, so 16 KB of W per block are in flight.  (A first
 // version with one load in flight per thread took 259 us, a second with
 // a 4-way unrolled loop the compiler did not pipeline 76 us.)  The int8

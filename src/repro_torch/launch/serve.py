@@ -1,4 +1,5 @@
-"""Split-serving driver (port of `repro/launch/serve.py`, split mode).
+"""Split-serving entry point (port of `repro/launch/serve.py`, split
+mode).
 
 Serves a model split at the cut through `serve.ServeSession`: prefill,
 then greedy decode, with `--wire quantize_int8:physical` shipping the
