@@ -10,19 +10,31 @@ Phases, each of which ends the run with a nonzero exit on any error:
 1. The card's name and power limit (nvidia-smi), then the build of every
    CUDA kernel from `src/repro_torch/kernels/csrc` (one nvcc per source,
    all at once), with the build seconds and ptxas's register report.
-2. Each kernel against its plain torch version on the card, at the
-   serving path's shapes (batch 4): the wire quantize and dequantize
-   bitwise, the fused q8 entry matmul within the stated tolerance; each
-   kernel's median time beside the plain version's, its bound and, where
-   one PyTorch call computes the same function, that call's time.
-3. The main path: phi4-mini-3.8B at full width (all 32 layers, bf16,
-   random weights from a seeded generator), split at layer 4, served
-   through `ServeSession` over the physical int8 wire with the fused
-   entry: batch 4, prompt 128, 32 generated tokens.  Launch counters are
-   zeroed just before and read just after; every kernel must have run,
-   the wire must carry the analytic bytes per token, the physical wire's
-   tokens must equal the fake wire's, and a reduced model on the card
-   must generate what the plain CPU path generates.
+2. Each kernel against its plain torch version on the card, at the main
+   paths' shapes: the wire quantize and dequantize bitwise, the fused q8
+   entry matmul and the dense splitcat entry within the stated
+   tolerances; each kernel's median time beside the plain version's, its
+   bound and, where one PyTorch call computes the same function, that
+   call's time.
+3. Serving: phi4-mini-3.8B at full width (all 32 layers, bf16, random
+   weights from a seeded generator), split at layer 4, served through
+   `ServeSession` over the physical int8 wire with the fused entry:
+   batch 4, prompt 128, 32 generated tokens.  Launch counters are zeroed
+   just before and read just after; every kernel must have run, the wire
+   must carry the analytic bytes per token, the physical wire's tokens
+   must equal the fake wire's, and a reduced model on the card must
+   generate what the plain CPU path generates.
+3b. Training: the vertical (multi-modal) split of two VGG-16 branches
+   (13 convs + FC1 each, full width, fp32, random weights from a seeded
+   generator) into a dense trunk, `Plan(mode="vertical")` with AdamW
+   over the physical int8 wire, 128 rows per modality, 30 rounds of
+   `Session.fit` with launch counters zeroed just before and read after
+   the rounds and the fused evaluation.  The loss must fall and the
+   evaluation accuracy exceed three times chance, each round must launch
+   the wire kernels 4 times each and bill 264,192 wire bytes, the fused
+   splitcat evaluation must match the concat trunk, the physical wire
+   must train bitwise like the fake wire, and a reduced model trained on
+   the card must match the plain CPU path.
 4. A `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
@@ -31,6 +43,7 @@ Exits nonzero, printing no result, without a GPU or outside a checkout.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -123,10 +136,14 @@ def check_wire(torch, gen) -> tuple:
 
     cases = [((4, 128, 3072), torch.bfloat16), ((4, 1, 3072), torch.bfloat16),
              ((4, 1, 200064), torch.bfloat16), ((4, 1, 3072), torch.float32),
-             ((4, 128, 3072), torch.float32)]
+             ((4, 128, 3072), torch.float32), ((128, 512), torch.float32)]
+    # the training path's payload draws from its own generator, so the
+    # other cases (and the checks after this one) see the inputs they
+    # always have
+    own = {(128, 512): torch.Generator(device="cuda").manual_seed(512)}
     timings = {}
     for shape, dtype in cases:
-        x = _payload(torch, shape, dtype, gen)
+        x = _payload(torch, shape, dtype, own.get(shape, gen))
         q, s = wire_quant(x)
         q_ref, s_ref = ref.wire_quant_ref(x)
         torch.cuda.synchronize()
@@ -159,7 +176,13 @@ def check_wire(torch, gen) -> tuple:
 
 
 def _bf16_ulp(torch, ref32):
-    mag = ref32.abs().clamp_min(2.0 ** -126)
+    """One bf16 ulp of each fp32 reference value.  Below 1/256 of the
+    outputs' rms the ulp is taken at that level: where a sum cancels to
+    near zero, two fp32 summation orders differ by more than a bf16 ulp
+    of the tiny result, and that is the accumulation's error, not the
+    output rounding the check is about."""
+    floor = max(2.0 ** -126, ref32.square().mean().sqrt().item() / 256)
+    mag = ref32.abs().clamp_min(floor)
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
@@ -226,6 +249,72 @@ def check_splitcat(torch, gen) -> tuple:
     return max_err, (t, t_plain, t_lib, b)
 
 
+def check_splitcat_dense(torch, gen) -> tuple:
+    """The dense splitcat entry against its plain version: fp32 at
+    rtol = atol = 1e-5 on three shapes, bf16 within 1 bf16 ulp of the
+    fp32-accumulated plain result.  Returns (max abs err, timings of the
+    vertical evaluation's shape)."""
+    from repro_torch.kernels.splitcat_linear import (splitcat_linear,
+                                                     splitcat_linear_plain)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")
+                ).to(dtype)
+
+    cases = [
+        ("vertical eval (512,512)|(512,512)x(1024,10)+b",
+         [randn(512, 512).relu(), randn(512, 512).relu()],
+         randn(1024, 10, scale=1024 ** -0.5), randn(10)),
+        ("kernel bench (4,64,256)|(4,64,128)x(384,512)",
+         [randn(4, 64, 256), randn(4, 64, 128)],
+         randn(384, 512, scale=384 ** -0.5), None),
+        ("ragged (3,17,96)|(3,17,33)|(3,17,7)x(136,131)+b",
+         [randn(3, 17, 96), randn(3, 17, 33), randn(3, 17, 7)],
+         randn(136, 131, scale=136 ** -0.5), randn(131)),
+    ]
+    max_err, timings = 0.0, {}
+    for tag, parts, w, b in cases:
+        y = splitcat_linear(parts, w, b)
+        want = splitcat_linear_plain(parts, w, b)
+        torch.cuda.synchronize()
+        err = (y - want).abs().max().item()
+        if not torch.allclose(y, want, rtol=1e-5, atol=1e-5):
+            fail(f"splitcat_linear {tag}: max abs err {err:.3e} against "
+                 "the plain version (rtol=atol=1e-5)")
+        max_err = max(max_err, err)
+        cat = lambda: torch.cat(parts, -1)
+        lib = ((lambda: torch.addmm(b, cat().reshape(-1, w.shape[0]), w))
+               if b is not None else (lambda: cat() @ w))
+        t = time_ms(torch, [lambda: splitcat_linear(parts, w, b)])
+        t_plain = time_ms(torch, [lambda: splitcat_linear_plain(parts, w, b)])
+        t_lib = time_ms(torch, [lib])
+        rows, k = y.numel() // w.shape[1], w.shape[0]
+        bd = bound_ms(nbytes(*parts, w, y) + (nbytes(b) if b is not None
+                                              else 0),
+                      2.0 * rows * k * w.shape[1], "fp32")
+        print(f"splitcat_linear {tag} fp32: allclose 1e-5, max abs err "
+              f"{err:.3e}; kernel {t:.4f} ms, plain {t_plain:.4f} ms, "
+              f"library {t_lib:.4f} ms, bound {bd[0]:.5f} ms ({bd[1]})")
+        timings[tag] = (t, t_plain, t_lib, bd)
+
+    # bf16 parts and W: one rounding of the fp32 sum
+    parts = [randn(512, 512, dtype=torch.bfloat16),
+             randn(512, 512, dtype=torch.bfloat16)]
+    w = randn(1024, 10, scale=1024 ** -0.5, dtype=torch.bfloat16)
+    b = randn(10, dtype=torch.bfloat16)
+    y = splitcat_linear(parts, w, b)
+    y32 = splitcat_linear_plain([p.float() for p in parts], w.float(),
+                                b.float())
+    torch.cuda.synchronize()
+    beyond = int(((y.float() - y32).abs() > _bf16_ulp(torch, y32)).sum())
+    if beyond:
+        fail(f"splitcat_linear bf16: {beyond} outputs beyond 1 bf16 ulp of "
+             "the fp32-accumulated plain result")
+    print("splitcat_linear (512,512)|(512,512)x(1024,10)+b bf16: within 1 "
+          "bf16 ulp of the fp32 plain result")
+    return max_err, timings[cases[0][0]]
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -289,7 +378,12 @@ def main_path(torch) -> dict:
         if launches[name] != n:
             fail(f"kernel {name}: {launches[name]} launches, expected {n}")
 
-    profile_decode(torch, fused, rest[:, -1:], t_decode / (GEN - 1))
+    tok = rest[:, -1:]
+
+    def step():
+        nonlocal tok
+        tok = fused.decode_step(tok)
+    profile_device(torch, "decode step", step, t_decode / (GEN - 1))
     if tuple(toks_fused.shape) != (B, GEN):
         fail(f"generated shape {tuple(toks_fused.shape)} != {(B, GEN)}")
     if not bool(((toks_fused >= 0) & (toks_fused < cfg.vocab)).all()):
@@ -323,18 +417,17 @@ def main_path(torch) -> dict:
             "wire_bytes_per_token": per_tok}
 
 
-def profile_decode(torch, sess, tok, step_s: float, steps: int = 4):
-    """Where a decode step's time goes: device kernel time by kernel from
-    torch.profiler over `steps` more steps, against the unprofiled wall
-    time per step `step_s` (past `max_len` the KV ring wraps, which costs
-    the same)."""
+def profile_device(torch, label: str, fn, step_s: float, steps: int = 4):
+    """Where one step's time goes: device kernel time by kernel from
+    torch.profiler over `steps` more calls of `fn`, against the
+    unprofiled wall time per step `step_s`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            tok = sess.decode_step(tok)
+            fn()
         torch.cuda.synchronize()
     by_name: dict = {}
     n_kernels = 0
@@ -345,15 +438,16 @@ def profile_decode(torch, sess, tok, step_s: float, steps: int = 4):
             n_kernels += 1
     busy_ms = sum(by_name.values()) / 1e3 / steps
     if busy_ms == 0.0:
-        print("decode step device time: not measured (the profiler "
-              "recorded no device activity)")
-        return
-    print(f"decode step: wall {step_s * 1e3:.3f} ms, device busy "
+        print(f"{label} device time: not measured (the profiler recorded "
+              "no device activity)")
+        return None
+    print(f"{label}: wall {step_s * 1e3:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / (step_s * 1e3):.1f}%), "
           f"{n_kernels / steps:.0f} device kernels per step under "
           f"{len(by_name)} names; top by device time per step:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / steps / 1e3:8.4f} ms  {name[:100]}")
+    return busy_ms
 
 
 def reduced_against_cpu(torch):
@@ -376,6 +470,233 @@ def reduced_against_cpu(torch):
         fail(f"reduced model: card tokens {on_card.tolist()} != CPU tokens "
              f"{on_cpu.tolist()}")
     print(f"reduced model, card == CPU plain path: {on_cpu.tolist()}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the training path
+# ---------------------------------------------------------------------------
+
+TB, ROUNDS, EVAL_B, N_CLASSES = 128, 30, 512, 10
+WIRE_BYTES_PER_ROUND = 4 * (TB * 512 + TB * 4)     # 2 acts up, 2 grads down
+# AdamW's learning rate: at the reference's default 1e-3 the first steps
+# move every weight of these 16-layer branches (no batch norm) by about
+# its own scale, the loss spikes and the features die, so the run stays
+# at chance; 1e-4 trains (PERF.md, Findings)
+LR = 1e-4
+
+
+def _vertical_plan(cfg, n_feat: int, wire):
+    """`Plan(mode="vertical")` over two VGG branches cut after FC1 and a
+    dense trunk over the concatenated features."""
+    from repro_torch import optim
+    from repro_torch.api import Plan
+    from repro_torch.core.split import Branch
+    from repro_torch.nn import convnets as C
+    from repro_torch.nn import layers as L
+
+    to = len(cfg.plan) + 1                        # 13 convs, 5 pools, FC1
+    branch = Branch(init=lambda g: C.vgg_init(g, cfg)[:to],
+                    apply=lambda p, x: C.vgg_apply(p, cfg, x, to_layer=to))
+    trunk = (lambda g: L.dense_init(g, 2 * n_feat, cfg.n_classes, bias=True),
+             L.dense_apply)
+    return branch, Plan(mode="vertical", branch=branch, trunk=trunk,
+                        n_clients=2, optimizer=optim.adamw(LR), wire=wire)
+
+
+def _modality_batches(torch, gen, n: int, rows: int, n_classes: int,
+                      hw: int = 32):
+    """`n` two-modality batches {"x": (2, rows, hw, hw, 3), "labels"}: per
+    modality a fixed template per class (seeds 1234 + i) plus 0.6 noise,
+    the recipe of data/synthetic.py:image_batch, with labels shared."""
+    dev = gen.device
+    temps = [torch.randn((n_classes, hw, hw, 3), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             1234 + i)) for i in range(2)]
+    out = []
+    for _ in range(n):
+        labels = torch.randint(0, n_classes, (rows,), generator=gen,
+                               device=dev)
+        x = torch.stack([t[labels] + 0.6 * torch.randn(
+            (rows, hw, hw, 3), generator=gen, device=dev) for t in temps])
+        out.append({"x": x, "labels": labels})
+    return out
+
+
+def train_path(torch) -> dict:
+    from repro_torch.api import leakage_probe, quantize_int8
+    from repro_torch.configs.vgg_cifar10 import CONFIG
+    from repro_torch.engine import copy_tree, tree_at
+    from repro_torch.kernels import ops
+    from repro_torch.nn import layers as L
+    from repro_torch.nn.module import param_count, tree_leaves
+
+    print(f"training path: vertical split, 2 x VGG-16 branches ({CONFIG.name}"
+          f", 13 convs + FC1, fp32) -> dense trunk 1024 -> 10, batch {TB} "
+          f"per modality, {ROUNDS} rounds, AdamW({LR}), physical int8 wire")
+    phys = [quantize_int8(physical=True), leakage_probe()]
+    branch, plan = _vertical_plan(CONFIG, 512, phys)
+    sess = plan.compile()
+    sess.init(seed=SEED)
+    print(f"  branch params {param_count(tree_at(sess.state['clients'], 0))}"
+          f" per client; trunk {param_count(sess.state['server'])}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    batches = _modality_batches(torch, gen, ROUNDS + 5, TB, N_CLASSES)
+    ev = _modality_batches(torch, gen, 1, EVAL_B, N_CLASSES)[0]
+
+    report = sess.wire_report(batches[0])      # the meta probe, no kernels
+    for r in report:
+        print(f"  wire {r['name']} {r['direction']} {r['shape']} "
+              f"{r['dtype']}: {r['bytes']} B physical={r['physical']}")
+    if sum(r["bytes"] for r in report) != WIRE_BYTES_PER_ROUND or not all(
+            r["physical"] for r in report):
+        fail(f"wire_report bills {sum(r['bytes'] for r in report)} B per "
+             f"round, expected {WIRE_BYTES_PER_ROUND}, all physical")
+
+    # the first round also loads every cuDNN/cuBLAS kernel the round uses
+    # (lazily, at first call): it is timed on its own, and the per-round
+    # time is that of rounds 2..ROUNDS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    losses = sess.fit(lambda r: batches[r], rounds=1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses += sess.fit(lambda r: batches[r + 1], rounds=ROUNDS - 1)
+    end.record()
+    end.synchronize()
+    wall_s = time.perf_counter() - t0
+    round_ms = start.elapsed_time(end) / (ROUNDS - 1)
+    fit_launches = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  losses: first 5 {[round(x, 4) for x in losses[:5]]}, last 5 "
+          f"{[round(x, 4) for x in losses[-5:]]}")
+    print(f"  first round {first_s:.3f} s; then {round_ms:.3f} ms per round "
+          f"(CUDA events over rounds 2-{ROUNDS}, host "
+          f"{wall_s / (ROUNDS - 1) * 1e3:.3f} ms), "
+          f"{TB / round_ms * 1e3:.1f} examples/s ({TB} rows x 2 modalities "
+          f"per round), peak {peak_gib:.2f} GiB")
+    print(f"  launches over the {ROUNDS} rounds: {fit_launches}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite training loss: {losses}")
+    if not statistics.mean(losses[-5:]) < statistics.mean(losses[:5]):
+        fail(f"loss did not fall: {losses}")
+    for name in ("wire_quant", "wire_dequant"):
+        if fit_launches[name] != 4 * ROUNDS:
+            fail(f"{name}: {fit_launches[name]} launches in {ROUNDS} rounds, "
+                 f"expected 4 per round")
+    meter = sess.engine.meter
+    billed = sum(meter.bytes_up) + sum(meter.bytes_down)
+    print(f"  meter: {billed} wire B over {ROUNDS} rounds = "
+          f"{billed / ROUNDS:.0f} B per round (fp32 wire "
+          f"{4 * 4 * TB * 512} B); {sess.meter()}")
+    if billed != ROUNDS * WIRE_BYTES_PER_ROUND:
+        fail(f"meter billed {billed} B, expected "
+             f"{ROUNDS * WIRE_BYTES_PER_ROUND}")
+
+    # the example's evaluation: the joint accuracy, then the server's trunk
+    # over both branches' features through the fused splitcat entry
+    acc = float(sess.evaluate(ev))
+    st = sess.state
+    with torch.no_grad():
+        feats = [branch.apply(tree_at(st["clients"], i), ev["x"][i])
+                 for i in range(2)]
+        n_before = ops.launch_counts()["splitcat_linear"]
+        logits = ops.splitcat_linear(feats, st["server"]["w"],
+                                     st["server"]["b"])
+        fused_launches = ops.launch_counts()["splitcat_linear"] - n_before
+        want = L.dense_apply(st["server"], torch.cat(feats, -1))
+    launches = ops.launch_counts()
+    acc_fused = float((logits.argmax(-1) == ev["labels"]).float().mean())
+    err = (logits - want).abs().max().item()
+    print(f"  evaluate ({EVAL_B} rows): accuracy {acc:.4f}; fused splitcat "
+          f"entry accuracy {acc_fused:.4f}, logits max abs err {err:.3e} "
+          f"against the concat trunk; launches on the path {launches}")
+    if acc <= 3 / N_CLASSES:
+        fail(f"evaluation accuracy {acc} after {ROUNDS} rounds: the branches "
+             f"did not learn the class templates (chance is "
+             f"{1 / N_CLASSES})")
+    if fused_launches != 1:
+        fail(f"the fused evaluation launched splitcat_linear "
+             f"{fused_launches} times, expected 1")
+    if not torch.allclose(logits, want, rtol=1e-5, atol=1e-5) or \
+            acc != acc_fused:
+        fail("fused splitcat evaluation disagrees with the concat trunk")
+    if tuple(logits.shape) != (EVAL_B, N_CLASSES):
+        fail(f"logits shape {tuple(logits.shape)}")
+    leak = [sess.leakage_report(ev, client=c) for c in (0, 1)]
+    print(f"  leakage (distance correlation, raw vs wire): {leak}")
+
+    # where a round's time goes (one round per profiled step)
+    it = iter(range(ROUNDS, ROUNDS + 4))
+    busy_ms = profile_device(torch, "training round",
+                             lambda: sess.run_round(batches[next(it)]),
+                             round_ms / 1e3)
+
+    # the physical wire trains bitwise like the fake wire
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs = {}
+    for name, wire in (("physical", phys), ("fake", [quantize_int8()])):
+        s2 = _vertical_plan(CONFIG, 512, wire)[1].compile()
+        s2.state = copy_tree(st)
+        runs[name] = (s2.fit(lambda r: batches[r], rounds=5), s2.state)
+    torch.backends.cudnn.deterministic = False
+    (lp, sp_), (lf, sf) = runs["physical"], runs["fake"]
+    same_state = all(torch.equal(a, b) for a, b in
+                     zip(tree_leaves(sp_), tree_leaves(sf)))
+    if lp != lf or not same_state:
+        fail(f"physical wire losses {lp} != fake wire losses {lf} "
+             f"(states equal: {same_state})")
+    print(f"  physical wire == fake wire over 5 rounds, deterministic cuDNN: "
+          f"losses and final state bitwise ({lp})")
+    del sess, runs, st
+    torch.cuda.empty_cache()
+    return {"launches": launches, "first_round_s": first_s,
+            "round_ms": round_ms,
+            "examples_per_s": TB / round_ms * 1e3,
+            "busy_ms": busy_ms, "peak_gib": peak_gib,
+            "wire_bytes_per_round": billed // ROUNDS,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "eval_accuracy": acc}
+
+
+def reduced_training_against_cpu(torch):
+    """SMOKE VGG branches, batch 8, 3 rounds over the physical wire, from
+    the same weights on the card (kernels) and on the CPU (plain
+    versions): losses and final parameters allclose."""
+    from repro_torch.api import quantize_int8
+    from repro_torch.configs.vgg_cifar10 import SMOKE
+    from repro_torch.nn.module import tree_leaves, tree_map
+
+    rtol, atol = 1e-4, 1e-5
+    wire = [quantize_int8(physical=True)]
+    on_cpu = _vertical_plan(SMOKE, 128, wire)[1].compile(device="cpu")
+    on_card = _vertical_plan(SMOKE, 128, wire)[1].compile()
+    on_cpu.init(seed=3)
+    on_card.state = tree_map(lambda t: t.to("cuda"), on_cpu.state)
+    gen = torch.Generator().manual_seed(4)
+    batches = _modality_batches(torch, gen, 3, 8, SMOKE.n_classes, hw=16)
+    l_card = on_card.fit(lambda r: batches[r], rounds=3)
+    l_cpu = on_cpu.fit(lambda r: batches[r], rounds=3)
+    pairs = list(zip(tree_leaves(on_card.state["clients"])
+                     + tree_leaves(on_card.state["server"]),
+                     tree_leaves(on_cpu.state["clients"])
+                     + tree_leaves(on_cpu.state["server"])))
+    worst = max((a.cpu() - b).abs().max().item() for a, b in pairs)
+    print(f"reduced training, card vs CPU plain path: losses {l_card} vs "
+          f"{l_cpu}; largest parameter difference {worst:.3e}")
+    if not all(math.isclose(a, b, rel_tol=rtol, abs_tol=atol)
+               for a, b in zip(l_card, l_cpu)):
+        fail("reduced training: card losses differ from the CPU's")
+    if not all(torch.allclose(a.cpu(), b, rtol=rtol, atol=atol)
+               for a, b in pairs):
+        fail(f"reduced training: final parameters differ beyond rtol "
+             f"{rtol}, atol {atol}")
 
 
 # ---------------------------------------------------------------------------
@@ -409,38 +730,57 @@ def main():
     gen.manual_seed(1234)
     wire = check_wire(torch, gen)
     sc_err, (t, t_plain, t_lib, b) = check_splitcat(torch, gen)
+    dn_err, (td, td_plain, td_lib, bd) = check_splitcat_dense(torch, gen)
 
-    # phase 3: the main path, then the small-input reference check
+    # phase 3: each main path, then its small-input reference check
     run = main_path(torch)
     reduced_against_cpu(torch)
+    train = train_path(torch)
+    reduced_training_against_cpu(torch)
 
-    # phase 4: the record
+    # phase 4: the record; launches are the two main paths' together
     kq = wire[((4, 1, 200064), torch.bfloat16)]
     src = "src/repro_torch/kernels/csrc/"
+    by_path = {name: {"serving": run["launches"][name],
+                      "training": train["launches"][name]}
+               for name in run["launches"]}
+    n = {name: sum(v.values()) for name, v in by_path.items()}
     kernels = [
         {"name": "wire_quant", "route": "cuda", "source": src + "wire_quant.cu",
          "replaces": "src/repro/kernels/wire_quant.py:57",
-         "launches": run["launches"]["wire_quant"], "max_abs_err": 0.0,
+         "launches": n["wire_quant"], "max_abs_err": 0.0,
          "ms": kq[0], "plain_ms": kq[1], "bound_ms": kq[2][0],
          "bound_by": kq[2][1], "library_ms": None},
         {"name": "wire_dequant", "route": "cuda",
          "source": src + "wire_quant.cu",
          "replaces": "src/repro/kernels/wire_quant.py:89",
-         "launches": run["launches"]["wire_dequant"], "max_abs_err": 0.0,
+         "launches": n["wire_dequant"], "max_abs_err": 0.0,
          "ms": kq[3], "plain_ms": kq[4], "bound_ms": kq[5][0],
          "bound_by": kq[5][1], "library_ms": None},
         {"name": "splitcat_linear_q8", "route": "cuda",
          "source": src + "splitcat_linear_q8.cu",
          "replaces": "src/repro/kernels/splitcat_linear.py:62",
-         "launches": run["launches"]["splitcat_linear_q8"],
+         "launches": n["splitcat_linear_q8"],
          "max_abs_err": sc_err, "ms": t, "plain_ms": t_plain,
          "bound_ms": b[0], "bound_by": b[1], "library_ms": t_lib},
+        {"name": "splitcat_linear", "route": "cuda",
+         "source": src + "splitcat_linear.cu",
+         "replaces": "src/repro/kernels/splitcat_linear.py:128",
+         "launches": n["splitcat_linear"], "max_abs_err": dn_err,
+         "ms": td, "plain_ms": td_plain, "bound_ms": bd[0],
+         "bound_by": bd[1], "library_ms": td_lib},
     ]
-    print("kernel times above are at the decode step's shapes: wire_quant "
+    for k in kernels:
+        k["launches_by_path"] = by_path[k["name"]]
+    print("kernel times above are at the main paths' shapes: wire_quant "
           "and wire_dequant on the (4,1,200064) bf16 logits, "
-          "splitcat_linear_q8 on the (4,1,3072) x (3072,5120) bf16 entry")
-    print("main path: " + json.dumps(
+          "splitcat_linear_q8 on the (4,1,3072) x (3072,5120) bf16 entry, "
+          "splitcat_linear on the (512,512)|(512,512) x (1024,10)+b fp32 "
+          "evaluation entry")
+    print("serving path: " + json.dumps(
         {k: v for k, v in run.items() if k != "launches"}))
+    print("training path: " + json.dumps(
+        {k: v for k, v in train.items() if k != "launches"}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,17 +13,22 @@ scales)` payload through the wire kernels, and `WireTape` then derives
 the metered bytes from the payload's real tensors and checks them
 against the `bytes_fn` claim (`WireAccountingError` on drift).
 
-This slice carries what serving needs.  `dp_noise`, `leakage_probe` and
-the p2p weight handoff belong to the training slice.
+`leakage_probe()` is the identity on the wire; it marks the stack so
+`Session.leakage_report` measures the distance correlation between raw
+client inputs and what crosses after the other transforms.  `with_wire`
+routes a topology's grad paths through a stack.  `dp_noise` and the p2p
+weight handoff come with later slices (ROADMAP).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Sequence
 
+from repro_torch.core.privacy import distance_correlation
 from repro_torch.core.wire_compress import (_fake_quant_int8, as_dense,
                                             pack_int8, payload_nbytes,
                                             wire_bytes)
+from repro_torch.engine.topology import Topology
 
 
 class WireAccountingError(AssertionError):
@@ -36,7 +41,12 @@ class WireTransform:
     name: str
     apply: Callable          # (t, name, direction) -> t
     bytes_fn: Callable       # (shape, dtype, nbytes) -> nbytes
+    probe: bool = False      # True: offline-probe-only (identity on wire)
     physical: bool = False   # True: apply() emits the packed payload
+
+
+def _identity_bytes(shape, dtype, nbytes):
+    return nbytes
 
 
 def quantize_int8(*, physical: bool = False) -> WireTransform:
@@ -55,8 +65,19 @@ def quantize_int8(*, physical: bool = False) -> WireTransform:
         physical=physical)
 
 
+def leakage_probe() -> WireTransform:
+    """Identity on the wire; marks the stack so `Session.leakage_report`
+    computes the distance correlation between raw client inputs and
+    what crosses AFTER the other transforms.  Kept out of the training
+    round: the O(B^2) dcor matrices belong in an offline probe."""
+    return WireTransform(name="leakage_probe",
+                         apply=lambda t, name, direction: t,
+                         bytes_fn=_identity_bytes, probe=True)
+
+
 def parse_wire(spec) -> tuple:
-    """'quantize_int8' / 'quantize_int8:physical' -> transform tuple.
+    """'quantize_int8' / 'quantize_int8:physical' / 'leakage_probe',
+    comma-separated -> transform tuple.
     Also takes a built `WireStack`, a sequence of `WireTransform`s, or
     None / "" (the empty stack)."""
     if spec is None:
@@ -72,10 +93,12 @@ def parse_wire(spec) -> tuple:
             if arg not in ("", "physical", "fake"):
                 raise ValueError(f"quantize_int8:{arg}? (physical|fake)")
             out.append(quantize_int8(physical=arg == "physical"))
-        elif name in ("dp_noise", "leakage_probe"):
+        elif name == "leakage_probe":
+            out.append(leakage_probe())
+        elif name == "dp_noise":
             raise NotImplementedError(
-                f"wire transform {name!r} is not ported yet: it comes with "
-                "the training slice of the port")
+                "wire transform 'dp_noise' is not ported yet: it comes "
+                "with a later training slice (see ROADMAP.md)")
         else:
             raise ValueError(f"unknown wire transform {name!r}")
     return tuple(out)
@@ -110,6 +133,20 @@ class WireStack:
             nbytes = tr.bytes_fn(tuple(shape), dtype, nbytes)
         return int(nbytes)
 
+    # ---- probes ------------------------------------------------------------
+
+    def pre_probe(self, t, name: str = "probe", direction: str = "up"):
+        """Apply only the non-probe transforms (what the wire carries
+        when the offline leakage probe inspects it), densified for the
+        dcor math."""
+        for tr in self.transforms:
+            if not tr.probe:
+                t = tr.apply(t, name, direction)
+        return as_dense(t)
+
+    def leakage(self, x_raw, wire_value) -> float:
+        return float(distance_correlation(x_raw, wire_value))
+
 
 class WireTape(list):
     """A `WireRecord` list that `core.split.record` recognises: values are
@@ -137,3 +174,30 @@ class WireTape(list):
                     f"dtype {t.dtype})")
             return actual, True
         return predicted, False
+
+
+def with_wire(topology: Topology, stack: WireStack) -> Topology:
+    """Wrap a branch fan-in topology so its grad paths run every
+    boundary value through `stack`: the training `round_grads` (a fresh
+    tape per call; records discarded, values transformed) and the
+    metering `turn_grads_wires` (the caller's list receives the
+    stack-priced records).  The turn kinds' paths come with the vanilla
+    slice (ROADMAP)."""
+    if not stack:
+        return topology
+    if topology.round_grads is None:
+        raise NotImplementedError(
+            f"with_wire over the {topology.kind} topology is not ported "
+            "yet: this slice wires the branch fan-in kinds (ROADMAP.md)")
+    fn = topology.turn_grads_wires
+
+    def wired(*args):
+        *head, wires = args
+        tape = WireTape(stack)
+        out = fn(*head, tape)
+        wires.extend(tape)
+        return out
+
+    return dataclasses.replace(
+        topology, turn_grads_wires=wired,
+        round_grads=lambda *args: fn(*args, WireTape(stack)))

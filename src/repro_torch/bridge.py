@@ -1,12 +1,19 @@
-"""Move LM parameters between the reference's layout and the port's.
+"""Move parameters and training state between the reference's layout
+and the port's.
 
-The reference (`repro.models.lm`) keeps each group's layers stacked along
-a leading axis, `{"0": {..., leaf (n_repeat, ...)}}`; the port keeps a
-list with one `{"0": {..., leaf (...)}}` per repeat.  Every other leaf
-keeps its layout, so dense weights stay `(in, out)`.  Arrays cross as
-numpy: the caller turns the reference's tree into numpy arrays
-(`jax.tree_util.tree_map(np.asarray, params)`) and hands it here, so this
-module imports no JAX.
+* LM params: the reference (`repro.models.lm`) keeps each group's layers
+  stacked along a leading axis, `{"0": {..., leaf (n_repeat, ...)}}`;
+  the port keeps a list with one `{"0": {..., leaf (...)}}` per repeat
+  (`params_from_jax` / `params_to_numpy`).
+* Everything else has the same layout in both packages, leaf for leaf:
+  the CNN list-of-dict trees (HWIO conv and `(in, out)` dense weights)
+  and a whole engine state — stacked `clients`, `server`, `opt_c`,
+  `opt_s` (with int32 `step`s) and `last_trained`
+  (`tree_from_jax` / `tree_to_numpy`).
+
+Arrays cross as numpy: the caller turns the reference's tree into numpy
+arrays (`jax.tree_util.tree_map(np.asarray, tree)`) and hands it here,
+so this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -15,21 +22,18 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import make_groups
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+from repro_torch.nn.module import tree_map as _map
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
+    """One numpy leaf as a tensor on `device`; float leaves cast to
+    `dtype` (None keeps theirs), others keep their type."""
     a = np.array(a, copy=True)
     if a.dtype.name == "bfloat16":           # numpy has no bf16 of its own
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    if t.is_floating_point():
+    if t.is_floating_point() and dtype is not None:
         t = t.to(dtype)
     return t.to(device)
 
@@ -69,3 +73,14 @@ def _map_stack(reps: list):
     if isinstance(first, dict):
         return {k: _map_stack([r[k] for r in reps]) for k in first}
     return np.stack(reps)
+
+
+def tree_from_jax(np_tree, device="cpu", dtype=None):
+    """A reference tree of numpy arrays (CNN params, an optimizer state,
+    a whole engine state) -> the same tree of tensors on `device`."""
+    return _map(lambda a: _tensor(a, dtype, device), np_tree)
+
+
+def tree_to_numpy(tree):
+    """Inverse of `tree_from_jax` (bf16 leaves come back as float32)."""
+    return _map(_array, tree)

@@ -1,13 +1,28 @@
-"""The cut's wire records (port of `repro/core/split.py:54-99`).
+"""The cut: its wire records and the split training gradients (port of
+`repro/core/split.py:54-99, 189-220`).
 
-Only the serving slice's part: `WireRecord` and `record`.  The split
-training topologies come with the training slice.
+The only tensors that cross the boundary are the cut activations (up)
+and the cut gradients (down), each through `record`, so the wire is a
+first-class value: middleware transforms it and the meter prices it.
+Each side runs its own autograd graph: the server differentiates with
+respect to a fresh leaf made from what it RECEIVED, and each client
+backpropagates the gradient it received, so no gradient flows through
+the wire's pack/unpack (as in the reference, whose vjps start from the
+received values).
+
+This slice ports the vertical (multi-modal) split; the vanilla,
+u-shaped, multi-hop, multi-task and extended-vanilla grads follow
+(ROADMAP).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
+
+from repro_torch.core.wire_compress import as_dense
+from repro_torch.nn.module import tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -49,3 +64,59 @@ def record(wires: list, name: str, t, direction: str):
     wires.append(WireRecord(name, tuple(t.shape), t.dtype, direction,
                             payload, physical))
     return t
+
+
+def _leaf_params(params):
+    """A copy of `params` whose tensors are fresh autograd leaves sharing
+    the original storage."""
+    return tree_map(lambda t: t.detach().requires_grad_(), params)
+
+
+def _grads(outputs, params, grad_outputs=None):
+    """d outputs / d params as a tree shaped like `params` (zeros where a
+    leaf does not reach the outputs)."""
+    leaves = tree_leaves(params)
+    gs = torch.autograd.grad(outputs, leaves, grad_outputs=grad_outputs,
+                             allow_unused=True)
+    it = iter([torch.zeros_like(p) if g is None else g
+               for p, g in zip(leaves, gs)])
+    return tree_map(lambda _: next(it), params)
+
+
+# ---------------------------------------------------------------------------
+# Vertical (multi-modal) split: K client branches -> concat -> server trunk
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Branch:
+    """A per-modality client-side feature network."""
+    init: Callable                    # generator -> params
+    apply: Callable                   # (params, x) -> features (B, f)
+
+
+def vertical_split_grads(branches: list, params_branches, trunk_apply,
+                         params_trunk, xs: list, labels, loss_fn,
+                         wires: list | None = None):
+    """xs[i] is modality i held by client i.  The concat happens on the
+    server.  Returns (loss, [g_branch_i], g_trunk, wires); the loss is
+    detached."""
+    wires = wires if wires is not None else []
+    with torch.enable_grad():
+        acts, owned = [], []
+        for i, (br, pb, x) in enumerate(zip(branches, params_branches, xs)):
+            pb = _leaf_params(pb)
+            a = br.apply(pb, x)
+            acts.append(record(wires, f"branch_{i}_act", a.detach(), "up"))
+            owned.append((pb, a))
+
+        pt = _leaf_params(params_trunk)
+        recv = [as_dense(a).detach().requires_grad_() for a in acts]
+        loss = loss_fn(trunk_apply(pt, torch.cat(recv, dim=-1)), labels)
+        g_all = _grads(loss, (pt, recv))
+        g_trunk, g_acts = g_all
+
+        g_branches = []
+        for i, ((pb, a), ga) in enumerate(zip(owned, g_acts)):
+            ga = record(wires, f"branch_{i}_grad", ga, "down")
+            g_branches.append(_grads(a, pb, as_dense(ga)))
+    return loss.detach(), g_branches, g_trunk, wires

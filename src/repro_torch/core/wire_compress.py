@@ -102,14 +102,13 @@ def stack_packed(parts: list, dim: int = 0):
 
 def splitcat_linear_packed(parts: list, w: torch.Tensor, b=None,
                            out_dtype=None) -> torch.Tensor:
-    """Server entry layer over a list of packed wire payloads, through the
-    fused q8 kernel (the float activation never exists).  The reference's
-    dense branch runs `splitcat_linear_pallas`, which is not ported yet."""
-    if not parts or not all(isinstance(p, PackedInt8) for p in parts):
-        raise NotImplementedError(
-            "splitcat_linear_packed over dense parts needs the dense "
-            "splitcat kernel, which a later slice ports")
-    dt = out_dtype or parts[0].orig_dtype
-    return ops.splitcat_linear_q8([p.q for p in parts],
-                                  [p.scale for p in parts], w, b,
-                                  out_dtype=dt)
+    """Server entry layer over a list of wire payloads: packed parts go
+    through the fused q8 kernel (the float activation never exists);
+    dense parts, and mixed lists after densifying, through the dense
+    splitcat kernel."""
+    if parts and all(isinstance(p, PackedInt8) for p in parts):
+        dt = out_dtype or parts[0].orig_dtype
+        return ops.splitcat_linear_q8([p.q for p in parts],
+                                      [p.scale for p in parts], w, b,
+                                      out_dtype=dt)
+    return ops.splitcat_linear([as_dense(p) for p in parts], w, b)

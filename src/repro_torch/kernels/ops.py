@@ -30,6 +30,12 @@ def wire_dequantize(q: torch.Tensor, scale: torch.Tensor,
     return _wq.wire_dequant(q, scale, dtype)
 
 
+def splitcat_linear(parts, w, b=None):
+    """Fused concat + matmul over dense parts, `concat(parts) @ w (+ b)`
+    without the concat — the vertical split's server entry."""
+    return _sc.splitcat_linear(parts, w, b)
+
+
 def splitcat_linear_q8(qs, scales, w, b=None, *, out_dtype=torch.float32):
     """Fused dequant + concat + matmul over packed int8 payloads — the
     server entry layer reading the physical wire directly."""

@@ -1,15 +1,22 @@
-"""Fused dequant + concat + matmul over packed int8 payloads: the CUDA
-kernel and its plain version.
+"""Fused concat + matmul over the parts of a split activation: the CUDA
+kernels and their plain versions.
 
-`splitcat_linear_q8(qs, scales, w, b, out_dtype)` computes
-`y = sum_i (q_i @ W_i) * s_i (+ b)` in float32 with `W` row-split at the
-part boundaries, and replaces `repro/kernels/splitcat_linear.py`'s
-`splitcat_linear_q8_pallas` (source in `csrc/splitcat_linear_q8.cu`).
-The server's fused entry QKV reads the int8 wire payload through it.
+* `splitcat_linear(parts, w, b)` computes `y = sum_i part_i @ W_i (+ b)`
+  over dense float32/bf16 parts with float32 accumulation and `W`
+  row-split at the part boundaries, in the parts' type.  It replaces
+  `repro/kernels/splitcat_linear.py`'s `splitcat_linear_pallas` (source
+  in `csrc/splitcat_linear.cu`); the vertical split's server entry reads
+  the branches' features through it without forming their concat.
+* `splitcat_linear_q8(qs, scales, w, b, out_dtype)` computes
+  `y = sum_i (q_i @ W_i) * s_i (+ b)` over packed int8 payloads and
+  replaces `splitcat_linear_q8_pallas` (source in
+  `csrc/splitcat_linear_q8.cu`).  The server's fused entry QKV reads the
+  int8 wire payload through it.
 
 A CUDA tensor launches the kernel (or raises); a CPU or meta tensor
-takes `splitcat_linear_q8_plain`, which keeps the kernel's association
-(the scale multiplies each part's product, the bias comes after).
+takes the plain version, which keeps the kernel's association (each
+part's product in turn, the q8 scale on each part's product, the bias
+last).  Both kernels are forward only, as the reference's are.
 `launches` counts kernel launches.
 """
 from __future__ import annotations
@@ -20,9 +27,16 @@ import torch
 
 from repro_torch.kernels import build
 
-launches = {"splitcat_linear_q8": 0}
+launches = {"splitcat_linear_q8": 0, "splitcat_linear": 0}
 
-MAX_PARTS = 8       # kMaxParts in the CUDA source
+MAX_PARTS = 8       # kMaxParts in both CUDA sources
+_DENSE_SIGNATURES = {
+    "splitcat_launch": [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p],
+}
 _SIGNATURES = {
     "splitcat_q8_launch": [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
                            ctypes.POINTER(ctypes.c_void_p),
@@ -118,4 +132,90 @@ def splitcat_linear_q8(qs: list, scales: list, w: torch.Tensor, b=None,
             torch.cuda.current_stream(w.device).cuda_stream)
     build.check(err, "splitcat_linear_q8")
     launches["splitcat_linear_q8"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dense parts
+# ---------------------------------------------------------------------------
+
+def splitcat_linear_plain(parts: list, w: torch.Tensor, b=None):
+    """The kernel's arithmetic in plain torch: float32 products of each
+    part with its W row block, summed part by part, then the bias."""
+    ws = _row_split(w, [p.shape[-1] for p in parts])
+    acc = None
+    for p, wi in zip(parts, ws):
+        part = p.float() @ wi.float()
+        acc = part if acc is None else acc + part
+    if b is not None:
+        acc = acc + b.float()
+    return acc.to(parts[0].dtype)
+
+
+def _check_dense(parts, w, b):
+    dev = w.device
+    if not parts:
+        raise ValueError("splitcat_linear: needs at least one part")
+    if len(parts) > MAX_PARTS:
+        raise ValueError(f"splitcat_linear: at most {MAX_PARTS} parts")
+    dtype = parts[0].dtype
+    if dtype not in _TYPES or w.dtype not in _TYPES:
+        raise TypeError(f"splitcat_linear: parts and w must be float32 or "
+                        f"bfloat16, got {dtype} and {w.dtype}")
+    if w.ndim != 2 or not w.is_contiguous():
+        raise ValueError("splitcat_linear: w must be a contiguous "
+                         "(sum K_i, C) matrix")
+    if b is not None and (b.dtype != w.dtype or tuple(b.shape)
+                          != (w.shape[1],) or b.device != dev):
+        raise ValueError("splitcat_linear: b must be (C,) of w's type on "
+                         "w's device")
+    lead = tuple(parts[0].shape[:-1])
+    for p in parts:
+        if p.dtype != dtype:
+            raise TypeError("splitcat_linear: all parts of one type")
+        if p.device != dev:
+            raise ValueError("splitcat_linear: all inputs on one device")
+        if tuple(p.shape[:-1]) != lead:
+            raise ValueError("splitcat_linear: parts disagree on their rows")
+        if not p.is_contiguous():
+            raise ValueError("splitcat_linear: parts must be contiguous")
+    if sum(p.shape[-1] for p in parts) != w.shape[0]:
+        raise ValueError(f"sum K_i {sum(p.shape[-1] for p in parts)} != "
+                         f"w rows {w.shape[0]}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (*parts, w, b)):
+        raise ValueError("splitcat_linear: the kernel is forward only; "
+                         "call it under torch.no_grad()")
+    return lead
+
+
+def splitcat_linear(parts: list, w: torch.Tensor, b=None) -> torch.Tensor:
+    """parts[i] (..., K_i), w (sum K_i, C), b (C,) or None -> (..., C) in
+    the parts' type."""
+    parts = list(parts)
+    if w.device.type in ("cpu", "meta"):
+        return splitcat_linear_plain(parts, w, b)
+    if w.device.type != "cuda":
+        raise ValueError(f"no splitcat_linear kernel for {w.device}")
+    lead = _check_dense(parts, w, b)
+    rows = 1
+    for d in lead:
+        rows *= d
+    cols = w.shape[1]
+    out = torch.empty((*lead, cols), dtype=parts[0].dtype, device=w.device)
+    if rows == 0 or cols == 0:
+        return out
+    n = len(parts)
+    ptrs = (ctypes.c_void_p * n)(*[p.data_ptr() for p in parts])
+    ks = (ctypes.c_int * n)(*[p.shape[-1] for p in parts])
+    lib = build.load("splitcat_linear", _DENSE_SIGNATURES)
+    with torch.cuda.device(w.device):
+        err = lib.splitcat_launch(
+            n, ptrs, ks, w.data_ptr(), None if b is None else b.data_ptr(),
+            out.data_ptr(), rows, cols,
+            int(parts[0].dtype == torch.bfloat16),
+            int(w.dtype == torch.bfloat16),
+            torch.cuda.current_stream(w.device).cuda_stream)
+    build.check(err, "splitcat_linear")
+    launches["splitcat_linear"] += 1
     return out

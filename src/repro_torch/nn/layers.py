@@ -1,23 +1,18 @@
-"""Primitive layers (port of `repro/nn/layers.py:14-66, 141-153`).
+"""Primitive layers (port of `repro/nn/layers.py:14-66, 87-135, 141-153`).
 
 Parameters are plain dicts of tensors in the reference's layouts: a
-dense weight is `(in, out)` and applied as `x @ w`.  Init draws from an
-explicit `torch.Generator` on the target device; its numbers differ from
+dense weight is `(in, out)` and applied as `x @ w`; a conv weight is HWIO
+over NHWC activations.  Init draws from an explicit `torch.Generator`
+(on `device`, default the generator's); its numbers differ from
 `jax.random`'s, so parity tests bridge the reference's parameters over
 (`repro_torch.bridge`).
 """
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
-
-def _normal(gen, shape, std, dtype, device):
-    w = torch.randn(shape, generator=gen, device=device,
-                    dtype=torch.float32)
-    return (w * std).to(dtype)
+from repro_torch.nn.module import lecun_init, normal_init
 
 
 # ---------------------------------------------------------------------------
@@ -27,8 +22,8 @@ def _normal(gen, shape, std, dtype, device):
 def dense_init(gen, in_dim: int, out_dim: int, *, bias: bool = False,
                dtype=torch.float32, device=None):
     """LeCun-normal `(in, out)` weight, zero bias."""
-    p = {"w": _normal(gen, (in_dim, out_dim), 1.0 / math.sqrt(max(1, in_dim)),
-                      dtype, device)}
+    device = gen.device if device is None else device
+    p = {"w": lecun_init(gen, (in_dim, out_dim), dtype, in_dim, device)}
     if bias:
         p["b"] = torch.zeros((out_dim,), dtype=dtype, device=device)
     return p
@@ -47,7 +42,7 @@ def dense_apply(params, x):
 
 def embedding_init(gen, vocab: int, dim: int, *, dtype=torch.float32,
                    device=None):
-    return {"table": _normal(gen, (vocab, dim), 0.02, dtype, device)}
+    return {"table": normal_init(gen, (vocab, dim), dtype, 0.02, device)}
 
 
 def embedding_apply(params, token_ids):
@@ -74,6 +69,62 @@ def rmsnorm_apply(params, x, *, eps: float = 1e-6):
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Conv2D and pooling (VGG), NHWC activations and HWIO weights
+# ---------------------------------------------------------------------------
+
+def conv2d_init(gen, in_ch: int, out_ch: int, ksize: int, *,
+                bias: bool = True, dtype=torch.float32, device=None):
+    device = gen.device if device is None else device
+    w = lecun_init(gen, (ksize, ksize, in_ch, out_ch), dtype,
+                   in_ch * ksize * ksize, device)
+    p = {"w": w}
+    if bias:
+        p["b"] = torch.zeros((out_ch,), dtype=dtype, device=device)
+    return p
+
+
+def _same_pad(size: int, k: int, stride: int) -> tuple:
+    """XLA's SAME padding of one spatial axis: (low, high), the odd pixel
+    going high."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_apply(params, x, *, stride: int = 1, padding: str = "SAME"):
+    """x: (B, H, W, C).  The NHWC tensor viewed as NCHW is channels-last
+    in memory, so cuDNN reads it in place; the tree keeps HWIO."""
+    w = params["w"]
+    kh, kw = w.shape[0], w.shape[1]
+    xc = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        (pt, pb), (pl, pr) = (_same_pad(x.shape[1], kh, stride),
+                              _same_pad(x.shape[2], kw, stride))
+        if pt == pb and pl == pr:
+            pad = (pt, pl)
+        else:
+            xc, pad = F.pad(xc, (pl, pr, pt, pb)), 0
+    elif padding == "VALID":
+        pad = 0
+    else:
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    y = F.conv2d(xc, w.permute(3, 2, 0, 1), params.get("b"), stride=stride,
+                 padding=pad)
+    return y.permute(0, 2, 3, 1)
+
+
+def maxpool2d(x, window: int = 2, stride: int = 2):
+    """VALID max pool over NHWC (the reference's `-inf` init: no padding
+    ever enters a window)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def avgpool_global(x):
+    return x.mean(dim=(1, 2))
 
 
 # ---------------------------------------------------------------------------

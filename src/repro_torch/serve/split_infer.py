@@ -34,21 +34,11 @@ from repro_torch.core.accounting import TurnCost
 from repro_torch.core.split import record
 from repro_torch.core.wire_compress import (PackedInt8, as_dense,
                                             splitcat_linear_packed)
+from repro_torch.device import resolve_device
 from repro_torch.models import build_model, supports_split_serving
 from repro_torch.models.lm import group_decode
 from repro_torch.nn import attention as A
 from repro_torch.nn import transformer as T
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device`, defaulting to the GPU; raises if that is CUDA and no GPU
-    is visible (no quiet fallback to the CPU)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is visible: the port serves on the GPU by "
-            "default; pass device='cpu' to serve on the CPU")
-    return dev
 
 
 def _tree_map(fn, tree):

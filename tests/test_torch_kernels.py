@@ -9,7 +9,11 @@ inputs:
   and bf16, ragged rows, rows of zeros and 0-d leaves;
 * the fused q8 entry matmul: allclose at rtol=atol=1e-4 (the sums run in
   another order), for 1 and 2 parts, with and without a bias, at odd
-  widths.
+  widths;
+* the dense splitcat entry: on `tests/test_kernels.py`'s shapes (1, 2
+  and 3 parts, ragged K, with and without a bias) allclose at 1e-5 in
+  fp32 and at bf16's own tolerance in bf16, and `splitcat_linear_packed`
+  over dense parts equal to the reference's.
 
 Tests marked `gpu` run the CUDA kernels against the plain versions and
 skip where no GPU is visible.
@@ -24,7 +28,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import wire_compress as twc
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.splitcat_linear import splitcat_linear_q8_plain
+from repro_torch.kernels.splitcat_linear import (splitcat_linear_plain,
+                                                 splitcat_linear_q8_plain)
 
 
 def _payload(seed, shape, *, zero_rows=()):
@@ -183,10 +188,14 @@ def test_cpu_and_meta_tensors_launch_nothing():
     q, s = ops.wire_quantize(x)
     ops.wire_dequantize(q, s)
     ops.splitcat_linear_q8([q], [s], torch.ones(8, 3))
+    ops.splitcat_linear([x, x], torch.ones(16, 3))
     m = ops.wire_quantize(x.to("meta"))
     assert m[0].device.type == "meta" and tuple(m[1].shape) == (2, 1)
+    y = ops.splitcat_linear([x.to("meta")], torch.ones(8, 3, device="meta"))
+    assert y.device.type == "meta" and tuple(y.shape) == (2, 3)
     assert ops.launch_counts() == {"wire_quant": 0, "wire_dequant": 0,
-                                   "splitcat_linear_q8": 0}
+                                   "splitcat_linear_q8": 0,
+                                   "splitcat_linear": 0}
 
 
 def test_build_targets_sm90a_without_fast_math():
@@ -197,6 +206,74 @@ def test_build_targets_sm90a_without_fast_math():
         text = (build.CSRC / src).read_text()
         assert "Replaces the TPU kernel" in text
         assert "roundf(" not in text            # rintf: half to even
+
+
+# ---------------------------------------------------------------------------
+# the dense splitcat entry
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py's sweep: part widths and d_out
+SPLITCAT_DIMS = [((128,), 256), ((128, 128), 256), ((192, 64, 128), 384),
+                 ((256, 256), 128), ((96, 33, 7), 131)]
+# fp32: the sums run in another order; bf16: the reference's own
+# tolerance for its bf16 sweep (one rounding of the output)
+SPLITCAT_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+                "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _splitcat_inputs(seed, part_dims, d_out, dtype, bias):
+    rng = np.random.default_rng(seed)
+    parts = [0.5 * rng.standard_normal((3, 17, d)).astype(np.float32)
+             for d in part_dims]
+    w = 0.05 * rng.standard_normal((sum(part_dims), d_out)).astype(np.float32)
+    b = rng.standard_normal((d_out,)).astype(np.float32) if bias else None
+    pairs = [_pair(p, dtype) for p in parts]
+    w_t, w_j = _pair(w, dtype)
+    b_t, b_j = _pair(b, dtype) if bias else (None, None)
+    return ([t for t, _ in pairs], w_t, b_t), ([j for _, j in pairs], w_j,
+                                               b_j)
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", SPLITCAT_DIMS,
+                         ids=["x".join(map(str, d[0])) + f"-c{d[1]}"
+                              for d in SPLITCAT_DIMS])
+def test_splitcat_linear_vs_reference(dims, dtype, bias):
+    (parts, w, b), jargs = _splitcat_inputs(8, *dims, dtype, bias)
+    y = ops.splitcat_linear(parts, w, b)
+    assert y.dtype == parts[0].dtype and tuple(y.shape) == (3, 17, dims[1])
+    y_int = jops.splitcat_linear(*jargs, interpret=True)
+    y_ref = jref.splitcat_linear_ref(*jargs)
+    for want in (y_int, y_ref):
+        np.testing.assert_allclose(_np(y), _np(want), **SPLITCAT_TOL[dtype])
+    # the torch copy of the oracle (one concat, one matmul) agrees too
+    np.testing.assert_allclose(_np(ref.splitcat_linear_ref(parts, w, b)),
+                               _np(y), **SPLITCAT_TOL[dtype])
+
+
+def test_splitcat_packed_over_dense_parts_matches_reference():
+    (parts, w, b), (pj, wj, bj) = _splitcat_inputs(9, (40, 24), 12,
+                                                   "float32", True)
+    y = twc.splitcat_linear_packed(parts, w, b)
+    y_j = jwc.splitcat_linear_packed(pj, wj, bj)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), rtol=1e-5,
+                               atol=1e-5)
+    # a mixed list densifies first, as the reference does
+    packed = twc.pack_int8(parts[0])
+    mixed = twc.splitcat_linear_packed([packed, parts[1]], w, b)
+    mixed_j = jwc.splitcat_linear_packed(
+        [jwc.pack_int8(pj[0]), pj[1]], wj, bj)
+    np.testing.assert_allclose(mixed.numpy(), np.asarray(mixed_j),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_splitcat_linear_checks_its_inputs():
+    x = torch.ones(2, 4)
+    with pytest.raises(ValueError, match="sum K_i"):
+        ops.splitcat_linear([x, x], torch.ones(7, 3))
+    assert torch.equal(splitcat_linear_plain([x, 2 * x], torch.ones(8, 3)),
+                       torch.full((2, 3), 12.0))
 
 
 # ---------------------------------------------------------------------------
@@ -237,3 +314,25 @@ def test_splitcat_q8_kernel_on_card(cuda, widths, lead, cols, bias):
     y = ops.splitcat_linear_q8(*args)
     torch.testing.assert_close(y, splitcat_linear_q8_plain(*args),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", SPLITCAT_DIMS,
+                         ids=["x".join(map(str, d[0])) + f"-c{d[1]}"
+                              for d in SPLITCAT_DIMS])
+def test_splitcat_kernel_on_card(cuda, dims, dtype):
+    (parts, w, b), _ = _splitcat_inputs(10, *dims, dtype, True)
+    parts = [p.to(cuda) for p in parts]
+    w, b = w.to(cuda), b.to(cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    y = ops.splitcat_linear(parts, w, b)
+    want = splitcat_linear_plain(parts, w, b)
+    if dtype == "float32":
+        torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+    else:   # one rounding of the fp32 sum: within 1 bf16 ulp of it
+        y32 = splitcat_linear_plain([p.float() for p in parts], w.float(),
+                                    b.float())
+        ulp = torch.exp2(torch.floor(torch.log2(
+            y32.abs().clamp_min(2.0 ** -126))) - 7)
+        assert bool(((y.float() - y32).abs() <= ulp).all())

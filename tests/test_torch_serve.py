@@ -213,9 +213,10 @@ def test_wire_grammar_and_accounting():
     assert parse_wire("") == () and parse_wire(None) == ()
     (t,) = parse_wire("quantize_int8:physical")
     assert t.physical and not parse_wire("quantize_int8")[0].physical
-    for spec in ("dp_noise:0.1", "leakage_probe"):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            parse_wire(spec)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        parse_wire("dp_noise:0.1")
+    (probe,) = parse_wire("leakage_probe")
+    assert probe.probe and not probe.physical
     with pytest.raises(ValueError, match="unknown"):
         parse_wire("gzip")
     # a physical transform whose byte claim drifts from its payload
