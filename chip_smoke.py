@@ -12,15 +12,16 @@ Phases, each of which ends the run with a nonzero exit on any error:
    all at once), with the build seconds and ptxas's register report.
 2. Each kernel against its plain torch version on the card, at the main
    paths' shapes: the wire quantize and dequantize bitwise, the fused q8
-   entry matmul and the dense splitcat entry within the stated
-   tolerances; each kernel's median time beside the plain version's, its
-   bound and, where one PyTorch call computes the same function, that
-   call's time.
+   entry matmul, the dense splitcat entry, rmsnorm and the SSD scan
+   within the stated tolerances; each kernel's median time beside the
+   plain version's, its bound and, where one PyTorch call computes the
+   same function, that call's time.
 3. Serving: phi4-mini-3.8B at full width (all 32 layers, bf16, random
    weights from a seeded generator), split at layer 4, served through
    `ServeSession` over the physical int8 wire with the fused entry:
    batch 4, prompt 128, 32 generated tokens.  Launch counters are zeroed
-   just before and read just after; every kernel must have run, the wire
+   just before and read just after; every kernel of the path must have
+   run as often as the code implies (rmsnorm too), the wire
    must carry the analytic bytes per token, the physical wire's tokens
    must equal the fake wire's, and a reduced model on the card must
    generate what the plain CPU path generates.
@@ -35,6 +36,18 @@ Phases, each of which ends the run with a nonzero exit on any error:
    splitcat evaluation must match the concat trunk, the physical wire
    must train bitwise like the fake wire, and a reduced model trained on
    the card must match the plain CPU path.
+3c. SSM serving: Mamba2-130M at full width (24 layers, d_model 768,
+   24 SSD heads of 64, state 128, dense conv 4 x 1792 x 1792, vocab
+   50,280, tied head, bf16, random weights from a seeded generator),
+   split at layer 4 over the physical int8 wire: batch 4, prompt 512 (two
+   chunks of 256), 32 generated tokens.  Launch counters are zeroed just
+   before and read just after; every launch count must equal what the
+   code implies (rmsnorm 49 per forward, ssd_scan once per layer at
+   prefill, the wire kernels twice per forward), the wire must bill
+   772 + 50,284 B per token per row, the physical wire's tokens must
+   equal the fake wire's, and a reduced SSM model on the card must
+   generate what the plain CPU path generates at a prompt that is not a
+   multiple of the chunk.
 4. A `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
@@ -315,6 +328,148 @@ def check_splitcat_dense(torch, gen) -> tuple:
     return max_err, timings[cases[0][0]]
 
 
+def check_rmsnorm(torch) -> tuple:
+    """rmsnorm against its plain version: float32 at rtol 1e-5 (atol
+    1e-6), bf16 within 1 bf16 ulp of the float32 plain result on the
+    same inputs (the kernel sums in another order and rsqrtf is within 2
+    ulp).  Timed at each shape; returns (max abs err against the plain
+    output in the same type, timings at the Mamba2 prefill's
+    (4,512,768) bf16)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    gen = torch.Generator(device="cuda").manual_seed(768)
+    shapes = [(4, 512, 768), (4, 1, 768), (4, 512, 1536), (4, 1, 3072)]
+    max_err, timings = 0.0, {}
+    for shape in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            sc = (1 + 0.1 * torch.randn(shape[-1:], generator=gen,
+                                        device="cuda")).to(dtype)
+            y = rmsnorm(x, sc)
+            want = ref.rmsnorm_ref(x, sc)
+            y32 = ref.rmsnorm_ref(x.float(), sc.float())
+            torch.cuda.synchronize()
+            err = (y.float() - want.float()).abs().max().item()
+            max_err = max(max_err, err)
+            tag = f"{shape} {str(dtype).replace('torch.', '')}"
+            if dtype == torch.float32:
+                if not torch.allclose(y, y32, rtol=1e-5, atol=1e-6):
+                    fail(f"rmsnorm {tag}: max abs err {err:.3e} against the "
+                         "plain version (rtol 1e-5, atol 1e-6)")
+            else:
+                beyond = int(((y.float() - y32).abs()
+                              > _bf16_ulp(torch, y32)).sum())
+                if beyond:
+                    fail(f"rmsnorm {tag}: {beyond} outputs beyond 1 bf16 ulp "
+                         "of the float32 plain result")
+            t = time_ms(torch, [lambda: rmsnorm(x, sc)])
+            t_plain = time_ms(torch, [lambda: ref.rmsnorm_ref(x, sc)])
+            t_lib = (time_ms(torch, [lambda: F.rms_norm(
+                x.float(), shape[-1:], sc.float(), 1e-6).to(dtype)])
+                if hasattr(F, "rms_norm") else None)
+            bd = bound_ms(nbytes(x, sc, y), 4.0 * x.numel(), "fp32")
+            lib = f"{t_lib:.4f} ms" if t_lib is not None else "none"
+            held = "rtol 1e-5" if dtype == torch.float32 else "1 bf16 ulp"
+            print(f"rmsnorm {tag}: {held}, max abs err {err:.3e}; kernel "
+                  f"{t:.4f} ms, plain "
+                  f"{t_plain:.4f} ms, library {lib}, bound {bd[0]:.5f} ms "
+                  f"({bd[1]})")
+            timings[(shape, dtype)] = (t, t_plain, t_lib, bd)
+    return max_err, timings[((4, 512, 768), torch.bfloat16)]
+
+
+SSD_TILE = 64           # kQ in csrc/ssd_scan.cu
+
+
+def ssd_bound(b, s, h, p, n, in_bytes, out_bytes) -> tuple:
+    """The SSD's least time at the kernel's 64-row tile: per (batch,
+    head, tile) the lower triangle of C B^T (N-deep) and of its product
+    with xd (P wide), the carried state's product with C, and the state
+    update, in float32; against each input read and each output written
+    once."""
+    n_ops = 0.0
+    for t0 in range(0, s, SSD_TILE):
+        q = min(SSD_TILE, s - t0)
+        tri = q * (q + 1) / 2
+        n_ops += 2 * tri * n + 2 * tri * p + 4 * q * p * n
+    return bound_ms(in_bytes + out_bytes, b * h * n_ops, "fp32")
+
+
+def check_ssd(torch) -> tuple:
+    """The SSD scan against its plain version (the reference's chunked
+    form) at the Mamba2 prefill's full-width shape, from a zero and from a
+    carried state, and at a ragged length.  Tolerance: y and the state
+    within 1e-3 x their rms + 1e-4 x |value| of the float32 plain result
+    (the two tile the sequence differently, 64 rows against the model's
+    chunk of 256, so their decays round differently; the plain form at
+    the two tiles, and a float64 evaluation, agree within it on the CPU:
+    tests/test_torch_kernels.py::test_ssd_chunk_length_changes_only_rounding),
+    plus one bf16 ulp for a bf16 y.
+    Returns (max abs err, timings at the zero-state prefill shape)."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked_plain, ssd_scan
+
+    gen = torch.Generator(device="cuda").manual_seed(512)
+    b, s, h, p, n = 4, 512, 24, 64, 128
+    x = (0.5 * torch.randn((b, s, h, p), generator=gen, device="cuda")
+         ).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen,
+                                                  device="cuda"))
+    A = -torch.linspace(1.0, 16.0, h, device="cuda")   # the model's init
+    Bm, Cm = ((0.3 * torch.randn((b, s, 1, n), generator=gen, device="cuda")
+               ).to(torch.bfloat16) for _ in range(2))
+    init = torch.randn((b, h, p, n), generator=gen, device="cuda")
+
+    def within(got, want, what, ulp=False):
+        rms = want.square().mean().sqrt().item()
+        tol = 1e-3 * rms + 1e-4 * want.abs()
+        if ulp:
+            tol = tol + _bf16_ulp(torch, want)
+        err = (got.float() - want).abs()
+        if bool((err > tol).any()):
+            fail(f"ssd_scan {what}: {int((err > tol).sum())} values beyond "
+                 f"1e-3 rms + 1e-4 |v|{' + 1 bf16 ulp' if ulp else ''} of "
+                 f"the float32 plain result (max abs err "
+                 f"{err.max().item():.3e}, rms {rms:.3f})")
+        return err.max().item()
+
+    max_err, timed = 0.0, None
+    for tag, length, chunk, state in (
+            ("prefill (4,512,24,64) bf16, zero state", 512, 256, None),
+            ("prefill (4,512,24,64) bf16, carried state", 512, 256, init),
+            ("ragged (4,300,24,64) bf16, carried state", 300, 300, init)):
+        args = [t[:, :length] if t.ndim > 1 else t for t in (x, dt, A, Bm,
+                                                            Cm)]
+        y, st = ssd_scan(*args, chunk=chunk, initial_state=state,
+                         return_state=True)
+        y_p, st_p = ssd_chunked_plain(*[a.float() for a in args], chunk=chunk,
+                                      initial_state=state, return_state=True)
+        torch.cuda.synchronize()
+        e_y = within(y, y_p, tag + " y", ulp=True)
+        e_s = within(st, st_p, tag + " state")
+        # against the plain version in the inputs' own types
+        y_same = ssd_chunked_plain(*args, chunk=chunk, initial_state=state)
+        e_same = (y.float() - y_same.float()).abs().max().item()
+        max_err = max(max_err, e_same)
+        t = time_ms(torch, [lambda: ssd_scan(*args, chunk=chunk,
+                                             initial_state=state)],
+                    calls=8, reps=9)
+        t_plain = time_ms(torch, [lambda: ssd_chunked_plain(
+            *args, chunk=chunk, initial_state=state)], calls=4, reps=5)
+        bd = ssd_bound(b, length, h, p, n,
+                       nbytes(*args) + (nbytes(state) if state is not None
+                                        else 0), nbytes(y))
+        print(f"ssd_scan {tag}: y max abs err {e_y:.3e} against the float32 "
+              f"plain result, {e_same:.3e} against the bf16 plain output; "
+              f"state {e_s:.3e}; kernel {t:.4f} ms, plain {t_plain:.4f} ms, "
+              f"library none, bound {bd[0]:.4f} ms ({bd[1]})")
+        if timed is None:
+            timed = (t, t_plain, None, bd)
+    return max_err, timed
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -370,13 +525,13 @@ def main_path(torch) -> dict:
           f"{t_decode:.4f} s = {B * (GEN - 1) / t_decode:.1f} tok/s; "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"launches on the main path: {launches}")
+    # rmsnorm: 2 per layer and the final norm at prefill; at decode the
+    # fused entry folds the server's first norm into the payload's scales
     want = {"wire_quant": 2 + 2 * (GEN - 1), "wire_dequant": 2 + 2 * (GEN - 1),
-            "splitcat_linear_q8": GEN - 1}
-    for name, n in want.items():
-        if launches[name] == 0:
-            fail(f"kernel {name} never launched on the main path")
-        if launches[name] != n:
-            fail(f"kernel {name}: {launches[name]} launches, expected {n}")
+            "splitcat_linear_q8": GEN - 1, "splitcat_linear": 0,
+            "rmsnorm": (2 * cfg.n_layers + 1) + (GEN - 1) * 2 * cfg.n_layers,
+            "ssd_scan": 0}
+    hold_launches(launches, want)
 
     tok = rest[:, -1:]
 
@@ -415,6 +570,16 @@ def main_path(torch) -> dict:
     return {"launches": launches, "prefill_s": t_prefill,
             "decode_tok_per_s": B * (GEN - 1) / t_decode,
             "wire_bytes_per_token": per_tok}
+
+
+def hold_launches(launches: dict, want: dict):
+    """Every kernel's launches on a path equal what the code implies."""
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"kernel {name}: {launches[name]} launches on the path, "
+                 f"expected {n}")
+    if set(launches) != set(want):
+        fail(f"launch counters {sorted(launches)} != {sorted(want)}")
 
 
 def profile_device(torch, label: str, fn, step_s: float, steps: int = 4):
@@ -700,6 +865,146 @@ def reduced_training_against_cpu(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: SSM serving
+# ---------------------------------------------------------------------------
+
+SB, SPROMPT, SGEN = 4, 512, 32
+
+
+def ssm_path(torch) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import param_count
+    from repro_torch.serve import ServePlan, ServeSession
+
+    cfg = get_config("mamba2_130m")
+    print(f"SSM path: {cfg.name} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim}"
+          f" SSD heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}, vocab {cfg.vocab}, {cfg.dtype}, cut "
+          f"{cfg.default_cut}, batch {SB}, prompt {SPROMPT}, generate {SGEN}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(gen, "cuda")
+    torch.cuda.synchronize()
+    print(f"init on the card: {time.perf_counter() - t0:.2f} s, "
+          f"{param_count(params)} parameters")
+    gen.manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (SB, SPROMPT), generator=gen,
+                            device="cuda")
+
+    def session(wire):
+        return ServeSession(ServePlan(arch=cfg, wire=wire, max_batch=SB,
+                                      max_len=SPROMPT + SGEN + 1), params,
+                            device="cuda")
+
+    phys = session("quantize_int8:physical")
+    phys.generate(prompts, 2)                    # warmup
+    torch.cuda.synchronize()
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tok0 = phys.prefill(prompts)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rest = phys.decode(tok0, SGEN - 1)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    toks = torch.cat([tok0, rest], dim=1)
+    print(f"prefill {t_prefill:.4f} s; decode {SGEN - 1} steps "
+          f"{t_decode:.4f} s = {SB * (SGEN - 1) / t_decode:.1f} tok/s; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"launches on the SSM path: {launches}")
+    # rmsnorm: each layer's block norm and gated norm, and the final norm,
+    # at prefill and at every decode step; ssd_scan: one call per layer at
+    # prefill (512 is two whole chunks, no remainder call), none at decode
+    # (ssd_decode_step); the wire kernels once per hop each way
+    per_forward = 2 * cfg.n_layers + 1
+    want = {"rmsnorm": per_forward * SGEN, "ssd_scan": cfg.n_layers,
+            "wire_quant": 2 * SGEN, "wire_dequant": 2 * SGEN,
+            "splitcat_linear_q8": 0, "splitcat_linear": 0}
+    hold_launches(launches, want)
+
+    tok = rest[:, -1:]
+
+    def step():
+        nonlocal tok
+        tok = phys.decode_step(tok)
+    busy_ms = profile_device(torch, "SSM decode step", step,
+                             t_decode / (SGEN - 1))
+    if tuple(toks.shape) != (SB, SGEN):
+        fail(f"generated shape {tuple(toks.shape)} != {(SB, SGEN)}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        fail("generated tokens outside the vocabulary")
+
+    per_tok = phys.bytes_per_token()
+    cost = phys.decode_cost(batch=SB)
+    up, down = cfg.d_model + 4, cfg.vocab + 4
+    dense = session("").bytes_per_token()
+    print(f"wire bytes per generated token per row: {per_tok} "
+          f"(up {cost.bytes_up // SB}, down {cost.bytes_down // SB}); bf16 "
+          f"wire {dense}")
+    if per_tok != up + down or per_tok != 51056 or \
+            cost.bytes_up + cost.bytes_down != SB * per_tok:
+        fail(f"wire bytes per token {per_tok} != analytic {up + down}")
+    if dense != cfg.dtype.itemsize * (cfg.d_model + cfg.vocab):
+        fail(f"bf16 wire bytes per token {dense}")
+
+    # the physical and the fake wire, from the same weights and prompts
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t_phys = session("quantize_int8:physical").generate(prompts, SGEN)
+    t_fake = session("quantize_int8").generate(prompts, SGEN)
+    torch.backends.cudnn.deterministic = False
+    if not torch.equal(t_phys, t_fake):
+        fail("SSM physical-wire tokens differ from fake-wire tokens:\n"
+             f"{t_phys.tolist()}\n{t_fake.tolist()}")
+    print(f"physical wire == fake wire tokens: bitwise ({SB}x{SGEN}); "
+          f"{int((t_phys == toks).sum())}/{SB * SGEN} shared with the timed "
+          "run")
+    del phys, params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_s": t_prefill,
+            "decode_tok_per_s": SB * (SGEN - 1) / t_decode,
+            "decode_step_ms": t_decode / (SGEN - 1) * 1e3,
+            "busy_ms": busy_ms, "wire_bytes_per_token": per_tok}
+
+
+def reduced_ssm_against_cpu(torch):
+    """A reduced fp32 Mamba2 served on the card (kernels) and on the CPU
+    (plain versions) from the same weights over the physical wire, at a
+    prompt of 11 (a chunk of 8, then a remainder of 3 from the carried
+    state), must generate the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServePlan, ServeSession
+
+    cfg = get_config("mamba2_130m").reduced(vocab=97)
+    gen = torch.Generator().manual_seed(0)
+    params = build_model(cfg).init(gen, "cpu")
+    prompts = torch.randint(0, cfg.vocab, (2, 11), generator=gen)
+    plan = ServePlan(arch=cfg, wire="quantize_int8:physical", max_batch=2,
+                     max_len=20)
+    on_cpu = ServeSession(plan, params, device="cpu").generate(prompts, 6)
+    ops.reset_launches()
+    on_card = ServeSession(plan, params, device="cuda").generate(prompts, 6)
+    n_ssd = ops.launch_counts()["ssd_scan"]
+    if n_ssd != 2 * cfg.n_layers:
+        fail(f"reduced SSM model: {n_ssd} ssd_scan launches, expected "
+             f"{2 * cfg.n_layers} (a chunk and a remainder per layer)")
+    if not torch.equal(on_cpu, on_card.cpu()):
+        fail(f"reduced SSM model: card tokens {on_card.tolist()} != CPU "
+             f"tokens {on_cpu.tolist()}")
+    print(f"reduced SSM model, prompt 11, card == CPU plain path: "
+          f"{on_cpu.tolist()}")
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -731,18 +1036,23 @@ def main():
     wire = check_wire(torch, gen)
     sc_err, (t, t_plain, t_lib, b) = check_splitcat(torch, gen)
     dn_err, (td, td_plain, td_lib, bd) = check_splitcat_dense(torch, gen)
+    rn_err, rn_t = check_rmsnorm(torch)
+    ssd_err, ssd_t = check_ssd(torch)
 
     # phase 3: each main path, then its small-input reference check
     run = main_path(torch)
     reduced_against_cpu(torch)
     train = train_path(torch)
     reduced_training_against_cpu(torch)
+    ssm = ssm_path(torch)
+    reduced_ssm_against_cpu(torch)
 
-    # phase 4: the record; launches are the two main paths' together
+    # phase 4: the record; launches are the three main paths' together
     kq = wire[((4, 1, 200064), torch.bfloat16)]
     src = "src/repro_torch/kernels/csrc/"
     by_path = {name: {"serving": run["launches"][name],
-                      "training": train["launches"][name]}
+                      "training": train["launches"][name],
+                      "ssm_serving": ssm["launches"][name]}
                for name in run["launches"]}
     n = {name: sum(v.values()) for name, v in by_path.items()}
     kernels = [
@@ -769,6 +1079,16 @@ def main():
          "launches": n["splitcat_linear"], "max_abs_err": dn_err,
          "ms": td, "plain_ms": td_plain, "bound_ms": bd[0],
          "bound_by": bd[1], "library_ms": td_lib},
+        {"name": "rmsnorm", "route": "cuda", "source": src + "rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:24",
+         "launches": n["rmsnorm"], "max_abs_err": rn_err,
+         "ms": rn_t[0], "plain_ms": rn_t[1], "bound_ms": rn_t[3][0],
+         "bound_by": rn_t[3][1], "library_ms": rn_t[2]},
+        {"name": "ssd_scan", "route": "cuda", "source": src + "ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:66",
+         "launches": n["ssd_scan"], "max_abs_err": ssd_err,
+         "ms": ssd_t[0], "plain_ms": ssd_t[1], "bound_ms": ssd_t[3][0],
+         "bound_by": ssd_t[3][1], "library_ms": None},
     ]
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
@@ -776,11 +1096,15 @@ def main():
           "and wire_dequant on the (4,1,200064) bf16 logits, "
           "splitcat_linear_q8 on the (4,1,3072) x (3072,5120) bf16 entry, "
           "splitcat_linear on the (512,512)|(512,512) x (1024,10)+b fp32 "
-          "evaluation entry")
+          "evaluation entry, rmsnorm on the Mamba2 prefill's (4,512,768) "
+          "bf16 block norm, ssd_scan on the Mamba2 prefill's "
+          "(4,512,24,64) bf16 scan from a zero state")
     print("serving path: " + json.dumps(
         {k: v for k, v in run.items() if k != "launches"}))
     print("training path: " + json.dumps(
         {k: v for k, v in train.items() if k != "launches"}))
+    print("SSM serving path: " + json.dumps(
+        {k: v for k, v in ssm.items() if k != "launches"}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,12 @@ and the port's.
 * LM params: the reference (`repro.models.lm`) keeps each group's layers
   stacked along a leading axis, `{"0": {..., leaf (n_repeat, ...)}}`;
   the port keeps a list with one `{"0": {..., leaf (...)}}` per repeat
-  (`params_from_jax` / `params_to_numpy`).
+  (`params_from_jax` / `params_to_numpy`).  Float leaves take the model's
+  dtype, except Mamba2's `A_log`, `D` and `dt_bias`, which stay float32
+  in a bf16 model as in the reference (`repro/nn/ssm.py:155-157`).
+* Split-serving caches of the SSM family (`{"conv", "ssm"}` per layer),
+  stacked the same way (`caches_from_jax` / `caches_to_numpy`); each
+  leaf keeps its dtype (the conv window the model's, the state float32).
 * Everything else has the same layout in both packages, leaf for leaf:
   the CNN list-of-dict trees (HWIO conv and `(in, out)` dense weights)
   and a whole engine state — stacked `clients`, `server`, `opt_c`,
@@ -21,8 +26,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.lm import make_groups
+from repro_torch.nn.module import tree_leaves
 from repro_torch.nn.module import tree_map as _map
+
+# float32 leaves of a bf16 model (the reference's Mamba2 init)
+FP32_KEYS = ("A_log", "D", "dt_bias")
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -45,15 +53,36 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _cast(tree, dtype, device):
+    """A numpy tree as tensors, float leaves in `dtype` except those
+    under `FP32_KEYS`."""
+    if isinstance(tree, dict):
+        return {k: (_tensor(v, torch.float32, device) if k in FP32_KEYS
+                    else _cast(v, dtype, device)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast(v, dtype, device) for v in tree)
+    return _tensor(tree, dtype, device)
+
+
+def _unstack(group) -> list:
+    """A stacked group tree -> one tree per repeat (leading axis)."""
+    n = len(tree_leaves(group)[0])
+    return [_map(lambda a, r=r: a[r], group) for r in range(n)]
+
+
+def _stack(groups: list) -> list:
+    """Inverse of `_unstack` over a list of groups, as numpy arrays."""
+    return [_map_stack([_map(_array, rep) for rep in g]) for g in groups]
+
+
 def params_from_jax(np_tree: dict, cfg: ArchConfig, device="cpu") -> dict:
     """The reference's LM param tree (as numpy arrays) -> the port's
-    params on `device`, float leaves in `cfg.dtype`."""
-    conv = lambda tree: _map(lambda a: _tensor(a, cfg.dtype, device), tree)
-    out = {k: conv(v) for k, v in np_tree.items() if k != "groups"}
-    out["groups"] = []
-    for g, gp in zip(make_groups(cfg), np_tree["groups"]):
-        out["groups"].append([conv(_map(lambda a, r=r: a[r], gp))
-                              for r in range(g.n_repeat)])
+    params on `device`, float leaves in `cfg.dtype` (`FP32_KEYS` in
+    float32)."""
+    out = {k: _cast(v, cfg.dtype, device)
+           for k, v in np_tree.items() if k != "groups"}
+    out["groups"] = [[_cast(rep, cfg.dtype, device) for rep in _unstack(gp)]
+                     for gp in np_tree["groups"]]
     return out
 
 
@@ -61,11 +90,21 @@ def params_to_numpy(params: dict) -> dict:
     """Inverse of `params_from_jax`: the reference's layout as numpy
     arrays (bf16 leaves come back as float32, which holds them exactly)."""
     out = {k: _map(_array, v) for k, v in params.items() if k != "groups"}
-    out["groups"] = []
-    for gp in params["groups"]:
-        reps = [_map(_array, rep) for rep in gp]
-        out["groups"].append(_map_stack(reps))
+    out["groups"] = _stack(params["groups"])
     return out
+
+
+def caches_from_jax(np_caches: list, device="cpu") -> list:
+    """One side's split-serving caches from the reference
+    (`init_cache_split`'s list of stacked group caches, as numpy) -> the
+    port's list of per-repeat caches, each leaf in its own dtype."""
+    return [[_map(lambda a: _tensor(a, None, device), rep)
+             for rep in _unstack(gc)] for gc in np_caches]
+
+
+def caches_to_numpy(caches: list) -> list:
+    """Inverse of `caches_from_jax`."""
+    return _stack(caches)
 
 
 def _map_stack(reps: list):

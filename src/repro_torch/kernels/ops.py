@@ -4,14 +4,20 @@ Each wrapper dispatches by the device of the tensor it is given — a CUDA
 tensor launches the hand-written kernel, a CPU or meta tensor takes the
 plain version — so there is no mode switch and no fallback.  This module
 adds the 0-d leaf path of `repro/kernels/ops.py:127-149` and the launch
-counters' reset.
+counters' reset.  Like the reference (`repro/kernels/ops.py:179-191`),
+`ssd_scan`'s G state groups reach the H heads as head h -> group
+h // (H/G); the kernel indexes the group in place.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import splitcat_linear as _sc
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import wire_quant as _wq
+
+_COUNTERS = (_wq.launches, _sc.launches, _rn.launches, _ssd.launches)
 
 
 def wire_quantize(x: torch.Tensor):
@@ -42,12 +48,28 @@ def splitcat_linear_q8(qs, scales, w, b=None, *, out_dtype=torch.float32):
     return _sc.splitcat_linear_q8(qs, scales, w, b, out_dtype)
 
 
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """x * rsqrt(mean(x^2) + eps) * scale over the last axis, in float32,
+    cast back to x's type."""
+    return _rn.rmsnorm(x, scale, eps)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None,
+             return_state: bool = False):
+    """The Mamba2 SSD over x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm
+    (B,S,G,N) -> y (B,S,H,P), plus the final float32 state
+    (B,H,P,N) if `return_state`."""
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                         initial_state=initial_state,
+                         return_state=return_state)
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
-    return {**_wq.launches, **_sc.launches}
+    return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
 def reset_launches() -> None:
-    for counts in (_wq.launches, _sc.launches):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0

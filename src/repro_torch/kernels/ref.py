@@ -1,5 +1,5 @@
 """Plain-torch copies of the reference's oracles (`repro.kernels.ref`) for
-the kernels this slice ports.
+the kernels the port has ported.
 
 The quantizer's two constants are the float32 values the reference uses
 (`f32(1/127)` and `f32(1e-12)`), held as Python floats that are exact in
@@ -46,3 +46,33 @@ def splitcat_linear_q8_ref(qs: list, scales: list, w: torch.Tensor, b=None,
     reference's oracle for the fused q8 kernel (dequantizes first)."""
     parts = [wire_dequant_ref(q, s) for q, s in zip(qs, scales)]
     return splitcat_linear_ref(parts, w, b).to(out_dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
+    """x * rsqrt(mean(x^2) + eps) * scale per last-axis row, in float32,
+    cast back to x's dtype."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm):
+    """Naive O(S) recurrence oracle for the SSD scan.
+    x: (B,S,H,P) dt: (B,S,H) A: (H,) Bm/Cm: (B,S,G,N) -> (B,S,H,P);
+    head h reads state group h // (H/G).  The state is float32, as in
+    the reference (float64 for float64 inputs)."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    acc = torch.promote_types(x.dtype, torch.float32)
+    state = torch.zeros((Bsz, H, P, N), dtype=acc, device=x.device)
+    ys = []
+    for t in range(S):
+        Bh = Bm[:, t].repeat_interleave(rep, dim=1).to(acc)   # (B,H,N)
+        Ch = Cm[:, t].repeat_interleave(rep, dim=1).to(acc)
+        da = torch.exp(dt[:, t] * A[None, :])                 # (B,H)
+        xd = (x[:, t] * dt[:, t, :, None]).to(acc)            # (B,H,P)
+        state = state * da[:, :, None, None] \
+            + torch.einsum("bhp,bhn->bhpn", xd, Bh)
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch))
+    return torch.stack(ys, dim=1).to(x.dtype)

@@ -14,6 +14,8 @@ Example:
         --wire quantize_int8:physical --fused-entry
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --split \\
         --cut 1 --wire quantize_int8:physical --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m \\
+        --split --wire quantize_int8:physical --prompt-len 512
 """
 from __future__ import annotations
 

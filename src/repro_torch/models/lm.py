@@ -13,7 +13,10 @@ Caches follow the same layout.
 Split hooks: `split_params(params, cut)` gives the client the embedding
 and layers [0, cut) and the server the rest plus the final norm and the
 head; each half prefills and decodes against its own caches, so only
-the cut activation crosses.  This slice builds the dense family.
+the cut activation crosses.  The port builds the dense family and the
+SSM family (Mamba2).  Each block's returned cache is written back into
+its slot of the group's cache list: the attention ring is updated in
+place anyway, but the Mamba2 conv window and state are new tensors.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
+from repro_torch.nn import ssm as S
 from repro_torch.nn import transformer as T
 
 
@@ -50,14 +54,24 @@ def _attn_cfg(cfg: ArchConfig, *, window=None) -> A.AttnConfig:
 
 
 def make_groups(cfg: ArchConfig) -> list[GroupSpec]:
-    """The dense family: one group of identical attn + MLP blocks."""
+    """The dense family: one group of identical attn + MLP blocks; the
+    SSM family: one group of identical Mamba2 blocks (no channel mixer)."""
+    if cfg.family == "ssm":
+        ssm = S.SSMConfig(d_model=cfg.d_model,
+                          d_inner=cfg.ssm_expand * cfg.d_model,
+                          head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state,
+                          n_groups=cfg.ssm_groups, chunk=cfg.ssm_chunk,
+                          dtype=cfg.dtype)
+        spec = T.BlockSpec(d_model=cfg.d_model, mixer="mamba2", mlp="none",
+                           ssm=ssm, norm=cfg.norm, dtype=cfg.dtype)
+        return [GroupSpec((spec,), cfg.n_layers)]
     if (cfg.family != "dense" or cfg.pattern or cfg.n_experts
             or cfg.attn_kind != "gqa" or cfg.norm != "rmsnorm"
             or cfg.mlp != "swiglu" or cfg.encdec):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}): the port builds the dense GQA + "
-            "SwiGLU family so far; MoE, MLA, SSM, hybrid, VLM and audio "
-            "models come with later slices")
+            "SwiGLU and the SSM families so far; MoE, MLA, hybrid, VLM and "
+            "audio models come with later slices")
     spec = T.BlockSpec(d_model=cfg.d_model, mixer="attn", mlp=cfg.mlp,
                        d_ff=cfg.dense_d_ff or cfg.d_ff,
                        attn=_attn_cfg(cfg, window=cfg.window),
@@ -85,16 +99,16 @@ def group_init_cache(g: GroupSpec, batch: int, max_len: int,
 def group_decode(params: list, g: GroupSpec, x, caches: list):
     for layer_params, cache in zip(params, caches):
         for i, spec in enumerate(g.specs):
-            x, _ = T.block_decode(layer_params[str(i)], spec, x,
-                                  cache[str(i)])
+            x, cache[str(i)] = T.block_decode(layer_params[str(i)], spec, x,
+                                              cache[str(i)])
     return x, caches
 
 
 def group_prefill(params: list, g: GroupSpec, x, caches: list):
     for layer_params, cache in zip(params, caches):
         for i, spec in enumerate(g.specs):
-            x, _ = T.block_prefill(layer_params[str(i)], spec, x,
-                                   cache[str(i)])
+            x, cache[str(i)] = T.block_prefill(layer_params[str(i)], spec,
+                                               x, cache[str(i)])
     return x, caches
 
 

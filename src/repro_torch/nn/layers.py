@@ -1,17 +1,18 @@
 """Primitive layers (port of `repro/nn/layers.py:14-66, 87-135, 141-153`).
 
 Parameters are plain dicts of tensors in the reference's layouts: a
-dense weight is `(in, out)` and applied as `x @ w`; a conv weight is HWIO
-over NHWC activations.  Init draws from an explicit `torch.Generator`
-(on `device`, default the generator's); its numbers differ from
-`jax.random`'s, so parity tests bridge the reference's parameters over
-(`repro_torch.bridge`).
+dense weight is `(in, out)` and applied as `x @ w`; a 2-D conv weight is
+HWIO over NHWC activations, a 1-D one TIO over NTC.  Init draws from an
+explicit `torch.Generator` (on `device`, default the generator's); its
+numbers differ from `jax.random`'s, so parity tests bridge the
+reference's parameters over (`repro_torch.bridge`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.nn.module import lecun_init, normal_init
 
 
@@ -63,12 +64,10 @@ def rmsnorm_init(dim: int, *, dtype=torch.float32, device=None):
 
 
 def rmsnorm_apply(params, x, *, eps: float = 1e-6):
-    """Computed in float32 and cast back to x's dtype."""
-    dt = x.dtype
-    x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
-    y = x32 * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(dt)
+    """Computed in float32 and cast back to x's dtype: the rmsnorm kernel
+    on a CUDA tensor, its plain version (`kernels.ref.rmsnorm_ref`, the
+    reference's arithmetic) on a CPU or meta one."""
+    return ops.rmsnorm(x, params["scale"], eps)
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +113,39 @@ def conv2d_apply(params, x, *, stride: int = 1, padding: str = "SAME"):
     y = F.conv2d(xc, w.permute(3, 2, 0, 1), params.get("b"), stride=stride,
                  padding=pad)
     return y.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# Conv1D (Mamba2's causal conv), NTC activations and TIO weights
+# ---------------------------------------------------------------------------
+
+def conv1d_init(gen, in_ch: int, out_ch: int, ksize: int, *,
+                bias: bool = True, dtype=torch.float32, device=None):
+    device = gen.device if device is None else device
+    p = {"w": lecun_init(gen, (ksize, in_ch, out_ch), dtype, in_ch * ksize,
+                         device)}
+    if bias:
+        p["b"] = torch.zeros((out_ch,), dtype=dtype, device=device)
+    return p
+
+
+def conv1d_apply(params, x):
+    """x: (B, T, C_in) -> (B, T - k + 1, C_out), VALID (the caller pads
+    causally first, as the reference's Mamba2 does).  One matmul of the k
+    shifted windows, side by side, with the TIO weight viewed as
+    (k C_in, C_out): the weight is read in place (a library convolution
+    would re-lay it out at every call), and the result is NTC in memory,
+    so its per-token channel slices (Mamba2's x, B, C) are dense rows,
+    as the SSD kernel reads them.  At T = k (a decode step's window) the
+    windows are the input itself."""
+    w = params["w"]
+    k, c_in, c_out = w.shape
+    t = x.shape[1] - k + 1
+    if t == 1:
+        cols = x.reshape(x.shape[0], 1, k * c_in)
+    else:
+        cols = torch.cat([x[:, j:j + t] for j in range(k)], dim=-1)
+    return F.linear(cols, w.reshape(k * c_in, c_out).t(), params.get("b"))
 
 
 def maxpool2d(x, window: int = 2, stride: int = 2):

@@ -16,9 +16,14 @@ q feeds the fused q8 QKV kernel (`_fused_server_decode`).
 Runs on the GPU unless the caller passes `device="cpu"`; without a
 visible GPU and without that, the session raises.  Prefill is one
 teacher-forced forward per half; decode is a Python loop of steps (the
-reference scans).  Caches are updated in place.  `decode_cost` runs one
-step on meta tensors, which launches no kernel, spends no FLOP and
-leaves the session's caches alone, and prices every `WireRecord`.
+reference scans).  Caches are updated in place: the attention KV ring
+row by row, the Mamba2 caches (conv window and SSM state, which
+`max_len` does not bound) by writing each block's new cache back into
+its slot.  The fused entry needs an attention block at the server's
+entry, so an SSM model raises with `fused_entry=True`, as in the
+reference.  `decode_cost` runs one step on meta tensors, which launches
+no kernel, spends no FLOP and leaves the session's caches alone, and
+prices every `WireRecord`.
 """
 from __future__ import annotations
 
@@ -62,7 +67,8 @@ class ServePlan:
     wire        — `parse_wire` spec ("quantize_int8:physical"), a
                   transform sequence, or a `WireStack`; "" = dense wire;
     max_batch   — batch rows `decode_cost()` prices by default;
-    max_len     — KV ring length (prompt + generation budget);
+    max_len     — KV ring length (prompt + generation budget); SSM
+                  caches do not depend on it;
     fused_entry — the server's entry QKV reads the packed payload through
                   the fused q8 kernel (allclose, not bitwise, to the
                   unfused order of operations, hence opt-in).

@@ -13,7 +13,15 @@ inputs:
 * the dense splitcat entry: on `tests/test_kernels.py`'s shapes (1, 2
   and 3 parts, ragged K, with and without a bias) allclose at 1e-5 in
   fp32 and at bf16's own tolerance in bf16, and `splitcat_linear_packed`
-  over dense parts equal to the reference's.
+  over dense parts equal to the reference's;
+* rmsnorm on `tests/test_kernels.py`'s shapes and its unpadded ragged
+  rows: fp32 at 1e-6 (one float32 rounding apart), bf16 within one bf16
+  ulp;
+* the SSD scan on `tests/test_kernels.py`'s sweep: the plain chunked form
+  against the reference's interpret-mode kernel and its O(S) oracle at
+  1e-4 in fp32 and at the reference's 5e-2 in bf16 (the two round x*dt
+  at different places), and the port's O(S) oracle against the
+  reference's.
 
 Tests marked `gpu` run the CUDA kernels against the plain versions and
 skip where no GPU is visible.
@@ -193,9 +201,18 @@ def test_cpu_and_meta_tensors_launch_nothing():
     assert m[0].device.type == "meta" and tuple(m[1].shape) == (2, 1)
     y = ops.splitcat_linear([x.to("meta")], torch.ones(8, 3, device="meta"))
     assert y.device.type == "meta" and tuple(y.shape) == (2, 3)
+    y = ops.rmsnorm(x, torch.ones(8))
+    assert tuple(y.shape) == (2, 8)
+    assert ops.rmsnorm(x.to("meta"), torch.ones(8, device="meta")).is_meta
+    (xs, dt, A, Bm, Cm), _ = _ssd_np(1, 8, 2, 1, 4, 4, torch.float32)
+    y, st = ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=4, return_state=True)
+    assert tuple(y.shape) == (2, 8, 2, 4) and tuple(st.shape) == (2, 2, 4, 4)
+    ym = ops.ssd_scan(*(t.to("meta") for t in (xs, dt, A, Bm, Cm)), chunk=8)
+    assert ym.is_meta and tuple(ym.shape) == (2, 8, 2, 4)
     assert ops.launch_counts() == {"wire_quant": 0, "wire_dequant": 0,
                                    "splitcat_linear_q8": 0,
-                                   "splitcat_linear": 0}
+                                   "splitcat_linear": 0, "rmsnorm": 0,
+                                   "ssd_scan": 0}
 
 
 def test_build_targets_sm90a_without_fast_math():
@@ -277,6 +294,139 @@ def test_splitcat_linear_checks_its_inputs():
 
 
 # ---------------------------------------------------------------------------
+# rmsnorm and the SSD scan
+# ---------------------------------------------------------------------------
+
+RMS_SHAPES = [(4, 128), (2, 7, 256), (1, 33, 512), (3, 1, 128), (5, 77, 128)]
+
+
+def _rms_inputs(seed, shape, dtype):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    sc = (0.1 * rng.standard_normal(shape[-1:]) + 1.0).astype(np.float32)
+    return _pair(x, dtype), _pair(sc, dtype)
+
+
+def _within_bf16_ulp(got, want32):
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want32), 2.0 ** -126)))
+                  - 7)
+    return bool((np.abs(got - want32) <= ulp).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RMS_SHAPES,
+                         ids=["x".join(map(str, s)) for s in RMS_SHAPES])
+def test_rmsnorm_vs_reference(shape, dtype):
+    (x, xj), (sc, scj) = _rms_inputs(11, shape, dtype)
+    y = ops.rmsnorm(x, sc)
+    assert y.dtype == x.dtype and y.shape == x.shape
+    y_int = jops.rmsnorm(xj, scj, interpret=True)
+    y_ref = jref.rmsnorm_ref(xj, scj)
+    for want in (y_int, y_ref):
+        if dtype == "float32":
+            np.testing.assert_allclose(_np(y), _np(want), rtol=1e-6,
+                                       atol=1e-6)
+        else:   # both round one float32 value, which differs in its last bits
+            want32 = jref.rmsnorm_ref(xj.astype(jnp.float32),
+                                      scj.astype(jnp.float32))
+            assert _within_bf16_ulp(_np(y), _np(want32))
+            assert _within_bf16_ulp(_np(want), _np(want32))
+    np.testing.assert_array_equal(_np(ref.rmsnorm_ref(x, sc)), _np(y))
+
+
+def _ssd_np(seed, s, h, g, p, n, dtype):
+    """The sweep's inputs (numpy, seeded) as torch tensors and jax arrays;
+    A stays float32, as in the model."""
+    rng = np.random.default_rng(seed)
+    b = 2
+    x = 0.5 * rng.standard_normal((b, s, h, p))
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h))))
+    A = -np.exp(0.2 * rng.standard_normal(h))
+    Bm = 0.3 * rng.standard_normal((b, s, g, n))
+    Cm = 0.3 * rng.standard_normal((b, s, g, n))
+    arrs = [a.astype(np.float32) for a in (x, dt, A, Bm, Cm)]
+    tdt = torch.float32 if dtype in ("float32", torch.float32) \
+        else torch.bfloat16
+    ts = [torch.from_numpy(a).to(tdt if i != 2 else torch.float32)
+          for i, a in enumerate(arrs)]
+    js = [jnp.asarray(t.float().numpy()).astype(
+        jnp.float32 if i == 2 or tdt == torch.float32 else jnp.bfloat16)
+        for i, t in enumerate(ts)]
+    return ts, js
+
+
+SSD_SWEEP = [(64, 2, 1, 32, 16, 16), (128, 4, 2, 16, 32, 32),
+             (96, 3, 3, 64, 8, 32)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,h,g,p,n,chunk", SSD_SWEEP,
+                         ids=[f"s{c[0]}h{c[1]}g{c[2]}" for c in SSD_SWEEP])
+def test_ssd_scan_vs_reference(s, h, g, p, n, chunk, dtype):
+    ts, js = _ssd_np(12, s, h, g, p, n, dtype)
+    y = ops.ssd_scan(*ts, chunk=chunk)
+    assert y.dtype == ts[0].dtype and tuple(y.shape) == (2, s, h, p)
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == "float32"
+           else dict(rtol=5e-2, atol=5e-2))
+    for want in (jops.ssd_scan(*js, chunk=chunk, interpret=True),
+                 jref.ssd_scan_ref(*js)):
+        np.testing.assert_allclose(_np(y), _np(want), **tol)
+    if dtype == "float32":      # the port's O(S) oracle is the reference's
+        np.testing.assert_allclose(_np(ref.ssd_scan_ref(*ts)),
+                                   _np(jref.ssd_scan_ref(*js)), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_ssd_scan_state_chains_and_checks_its_inputs():
+    """Two calls chained through the returned state equal one call over
+    the whole sequence; a ragged chunk raises on every device."""
+    ts, _ = _ssd_np(13, 48, 4, 2, 16, 8, torch.float32)
+    y, st = ops.ssd_scan(*ts, chunk=16, return_state=True)
+    first = [t[:, :32] if t.ndim > 1 else t for t in ts]
+    rest = [t[:, 32:] if t.ndim > 1 else t for t in ts]
+    y1, st1 = ops.ssd_scan(*first, chunk=16, return_state=True)
+    y2, st2 = ops.ssd_scan(*rest, chunk=16, initial_state=st1,
+                           return_state=True)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(st2, st, rtol=1e-5, atol=1e-5)
+    with pytest.raises(AssertionError, match="chunk"):
+        ops.ssd_scan(*ts, chunk=20)
+
+
+def test_ssd_chunk_length_changes_only_rounding():
+    """The SSD does not depend on the chunk length beyond rounding: at the
+    model's 512 rows and decay rates (A from -1 to -16), the float32
+    chunked form at the CUDA kernel's 64-row tile and at the model's
+    chunk of 256 agree within the tolerance the card check uses against
+    the kernel, 1e-3 x rms + 1e-4 x |y|, and both sit within it of a
+    float64 evaluation."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked_plain
+    g = torch.Generator().manual_seed(0)
+    b, s, h, p, n = 1, 512, 24, 16, 32
+    x = 0.5 * torch.randn((b, s, h, p), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g))
+    A = -torch.linspace(1.0, 16.0, h)
+    Bm, Cm = (0.3 * torch.randn((b, s, 1, n), generator=g) for _ in range(2))
+    init = torch.randn((b, h, p, n), generator=g)
+    y64 = ref.ssd_scan_ref(x.double(), dt.double(), A.double(),
+                           Bm.double(), Cm.double())
+    ys = [ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=c) for c in (64, 256)]
+    assert y64.dtype == torch.float64
+    for got, want in ((ys[0], ys[1]), (ys[0], y64), (ys[1], y64)):
+        tol = 1e-3 * want.square().mean().sqrt() + 1e-4 * want.abs()
+        assert bool(((got.double() - want.double()).abs() <= tol).all())
+    # with a carried state too
+    y_a, st_a = ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=64,
+                                  initial_state=init, return_state=True)
+    y_b, st_b = ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=256,
+                                  initial_state=init, return_state=True)
+    for got, want in ((y_a, y_b), (st_a, st_b)):
+        tol = 1e-3 * want.square().mean().sqrt() + 1e-4 * want.abs()
+        assert bool(((got - want).abs() <= tol).all())
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -336,3 +486,38 @@ def test_splitcat_kernel_on_card(cuda, dims, dtype):
         ulp = torch.exp2(torch.floor(torch.log2(
             y32.abs().clamp_min(2.0 ** -126))) - 7)
         assert bool(((y.float() - y32).abs() <= ulp).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RMS_SHAPES,
+                         ids=["x".join(map(str, s)) for s in RMS_SHAPES])
+def test_rmsnorm_kernel_on_card(cuda, shape, dtype):
+    (x, _), (sc, _) = _rms_inputs(14, shape, dtype)
+    x, sc = x.to(cuda), sc.to(cuda)
+    y = ops.rmsnorm(x, sc)
+    want32 = ref.rmsnorm_ref(x.float(), sc.float())
+    if dtype == "float32":
+        torch.testing.assert_close(y, want32, rtol=1e-5, atol=1e-6)
+    else:
+        assert _within_bf16_ulp(_np(y.cpu()), _np(want32.cpu()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "carried"])
+@pytest.mark.parametrize("s,h,g,p,n,chunk", SSD_SWEEP + [(100, 4, 1, 24, 8,
+                                                          50)],
+                         ids=[f"s{c[0]}h{c[1]}g{c[2]}" for c in SSD_SWEEP]
+                         + ["ragged"])
+def test_ssd_kernel_on_card(cuda, s, h, g, p, n, chunk, carried):
+    ts, _ = _ssd_np(15, s, h, g, p, n, torch.float32)
+    ts = [t.to(cuda) for t in ts]
+    init = (torch.randn((2, h, p, n), generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda) if carried else None)
+    y, st = ops.ssd_scan(*ts, chunk=chunk, initial_state=init,
+                         return_state=True)
+    from repro_torch.kernels.ssd_scan import ssd_chunked_plain
+    y_p, st_p = ssd_chunked_plain(*ts, chunk=chunk, initial_state=init,
+                                  return_state=True)
+    torch.testing.assert_close(y, y_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, st_p, rtol=1e-4, atol=1e-4)

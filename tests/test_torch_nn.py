@@ -57,11 +57,11 @@ def _close(t, j, tol=TOL):
     np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), **tol)
 
 
-def test_config_fields_match_reference():
-    for t, j in ((get_config("phi4_mini_3_8b"),
-                  jget_config("phi4_mini_3_8b")),
-                 (get_config("phi4_mini_3_8b").reduced(vocab=97),
-                  jget_config("phi4_mini_3_8b").reduced(vocab=97))):
+@pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "mamba2_130m"])
+def test_config_fields_match_reference(arch):
+    for t, j in ((get_config(arch), jget_config(arch)),
+                 (get_config(arch).reduced(vocab=97),
+                  jget_config(arch).reduced(vocab=97))):
         ft, fj = dataclasses.asdict(t), dataclasses.asdict(j)
         assert str(ft.pop("dtype")).replace("torch.", "") == \
             jnp.dtype(fj.pop("dtype")).name
@@ -70,7 +70,7 @@ def test_config_fields_match_reference():
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("mamba2_130m")
+        get_config("recurrentgemma_2b")
     moe = dataclasses.replace(get_config("phi4_mini_3_8b").reduced(),
                               family="moe", n_experts=4)
     with pytest.raises(NotImplementedError, match="dense"):
