@@ -4,9 +4,9 @@ and the port's.
 * LM params: the reference (`repro.models.lm`) keeps each group's layers
   stacked along a leading axis, `{"0": {..., leaf (n_repeat, ...)}}`;
   the port keeps a list with one `{"0": {..., leaf (...)}}` per repeat
-  (`params_from_jax` / `params_to_numpy`).  Float leaves take the model's
-  dtype, except Mamba2's `A_log`, `D` and `dt_bias`, which stay float32
-  in a bf16 model as in the reference (`repro/nn/ssm.py:155-157`).
+  (`params_from_jax` / `params_to_numpy`).  Each float leaf takes the
+  dtype the port's own init gives it: the model's dtype, or float32 for
+  Mamba2's `A_log`, `D` and `dt_bias` (`nn/ssm.py:mamba2_init`).
 * Split-serving caches of the SSM family (`{"conv", "ssm"}` per layer),
   stacked the same way (`caches_from_jax` / `caches_to_numpy`); each
   leaf keeps its dtype (the conv window the model's, the state float32).
@@ -26,11 +26,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import build_model
 from repro_torch.nn.module import tree_leaves
 from repro_torch.nn.module import tree_map as _map
-
-# float32 leaves of a bf16 model (the reference's Mamba2 init)
-FP32_KEYS = ("A_log", "D", "dt_bias")
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -53,17 +51,6 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _cast(tree, dtype, device):
-    """A numpy tree as tensors, float leaves in `dtype` except those
-    under `FP32_KEYS`."""
-    if isinstance(tree, dict):
-        return {k: (_tensor(v, torch.float32, device) if k in FP32_KEYS
-                    else _cast(v, dtype, device)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_cast(v, dtype, device) for v in tree)
-    return _tensor(tree, dtype, device)
-
-
 def _unstack(group) -> list:
     """A stacked group tree -> one tree per repeat (leading axis)."""
     n = len(tree_leaves(group)[0])
@@ -77,12 +64,19 @@ def _stack(groups: list) -> list:
 
 def params_from_jax(np_tree: dict, cfg: ArchConfig, device="cpu") -> dict:
     """The reference's LM param tree (as numpy arrays) -> the port's
-    params on `device`, float leaves in `cfg.dtype` (`FP32_KEYS` in
-    float32)."""
-    out = {k: _cast(v, cfg.dtype, device)
-           for k, v in np_tree.items() if k != "groups"}
-    out["groups"] = [[_cast(rep, cfg.dtype, device) for rep in _unstack(gp)]
-                     for gp in np_tree["groups"]]
+    params on `device`, each float leaf in the dtype of the port's own
+    init of `cfg` (run on meta, so nothing is drawn)."""
+    like = build_model(cfg).init(torch.Generator(), "meta")
+
+    def cast(tree, like_tree):
+        return _map(lambda a, t: _tensor(a, t.dtype, device), tree,
+                    like_tree)
+    out = {k: cast(v, like[k]) for k, v in np_tree.items() if k != "groups"}
+    out["groups"] = [[cast(rep, like_rep)
+                      for rep, like_rep in zip(_unstack(gp), like_gp,
+                                                 strict=True)]
+                     for gp, like_gp in zip(np_tree["groups"],
+                                            like["groups"], strict=True)]
     return out
 
 

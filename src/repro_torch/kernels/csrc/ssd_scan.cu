@@ -12,10 +12,10 @@
 // from an initial state S_{-1} (zero, or the caller's (B, H, P, N)
 // float32 state), and optionally the final state S_{S-1} out, which the
 // TPU kernel computes in its scratch and drops.  Inside, everything is
-// float32.  xd_t is formed as the reference's ssd_chunked forms it, in
-// the promoted type of x and dt: when both are bf16 it is rounded to
-// bf16 before use (the TPU kernel upcasts first); the served model's dt
-// is float32, so there it is a float32 product.
+// float32.  dt is float32 (the served model's is: dt_bias is float32),
+// so xd_t = x_t * dt_t is a float32 product, as the reference's
+// ssd_chunked forms it in the promoted type and the TPU kernel after
+// upcasting x.
 //
 // The chunked (dual) form: the sequence is cut into tiles of kQ = 64
 // rows, independent of the model's chunk (256 in Mamba2-130M; the SSD
@@ -30,10 +30,13 @@
 // dt = x = B = C = 0 rows, which neither decay nor feed the state.
 //
 // What bounds it on an H100 SXM: operations.  At the Mamba2 prefill
-// (batch 4, 512 rows, 24 heads of P = 64, N = 128, bf16) the work at this
-// tile is about 2.8 GFLOP in float32 (C B^T, the two products with xd and
-// the state, the state update), 42 us at the 67 TFLOP/s float32 rate,
-// against 14 MB of inputs and outputs, 4 us at 3.35 TB/s.
+// (batch 4, 512 rows, 24 heads of P = 64, N = 128, one state group,
+// bf16) the per-head work at this tile is about 1.8 GFLOP in float32
+// (the masked product with xd, the carried state's product with C, the
+// state update), 27 us at the 67 TFLOP/s float32 rate; C B^T is shared
+// by the group's 24 heads, 17 MFLOP of bf16 products, well under 1 us
+// on the tensor cores; the 14 MB of inputs and outputs take 4 us at
+// 3.35 TB/s.  This kernel recomputes C B^T, in float32, in every block.
 //
 // Design.  The TPU kernel walks (batch * head, chunk) with the chunk axis
 // in order and the state in VMEM scratch.  Here one block owns one
@@ -89,7 +92,6 @@ struct Args {
   float* final_state;       // (B, H, P, N) contiguous, or null
   int S, H, P, G, N;
   int64_t xb, xs, bb, bs, cb, cs, db, ds;
-  int round_xd;             // round x * dt to bf16 (x and dt both bf16)
 };
 
 size_t smem_bytes(int n) {
@@ -159,7 +161,6 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_tiles(Args a) {
         const float xv = to_f32(xp[bi * a.xb + tok * a.xs +
                                    static_cast<int64_t>(h) * a.P + p]);
         v = xv * a.dt[bi * a.db + tok * a.ds + h];
-        if (a.round_xd) v = __bfloat162float(__float2bfloat16_rn(v));
       }
       sX[s * kPB + pp] = v;
     }
@@ -309,8 +310,7 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                int H, int P, int G, int N, long long xb,
                                long long xs, long long bb, long long bs,
                                long long cb, long long cs, long long db,
-                               long long ds, int x_bf16, int round_xd,
-                               void* stream) {
+                               long long ds, int x_bf16, void* stream) {
   if (batch <= 0 || S <= 0 || H <= 0 || P <= 0) return 0;
   if (N <= 0 || N > kMaxN || G <= 0 || H % G != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -327,7 +327,6 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
   a.S = S; a.H = H; a.P = P; a.G = G; a.N = N;
   a.xb = xb; a.xs = xs; a.bb = bb; a.bs = bs;
   a.cb = cb; a.cs = cs; a.db = db; a.ds = ds;
-  a.round_xd = round_xd;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_bf16 ? static_cast<int>(launch<__nv_bfloat16>(a, batch, s))
                 : static_cast<int>(launch<float>(a, batch, s));

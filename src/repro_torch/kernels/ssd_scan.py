@@ -7,7 +7,8 @@ h // (H/G)), the recurrence
     S_t = exp(dt_t A_h) S_{t-1} + (x_t dt_t) B_t^T,    y_t = S_t C_t
 
 over x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,G,N), with the state
-(B,H,P,N) in float32 and y in x's type.  It replaces
+(B,H,P,N) in float32 and y in x's type.  The kernel takes dt and A in
+float32, as the model makes them, so x dt is a float32 product.  It replaces
 `repro/kernels/ssd_scan.py`'s `ssd_scan_pallas` (source in
 `csrc/ssd_scan.cu`) and adds what `mamba2_prefill` needs of
 `nn/ssm.py:ssd_chunked`: an initial state in and the final state out.
@@ -33,8 +34,7 @@ launches = {"ssd_scan": 0}
 MAX_STATE = 256                     # kMaxN in csrc/ssd_scan.cu
 _SIGNATURES = {
     "ssd_scan_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-    + [ctypes.c_longlong] * 8 + [ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p],
+    + [ctypes.c_longlong] * 8 + [ctypes.c_int, ctypes.c_void_p],
 }
 _TYPES = (torch.float32, torch.bfloat16)
 
@@ -125,9 +125,9 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None,
     if x.dtype not in _TYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"ssd_scan: x, B and C must share one type, float32 "
                         f"or bfloat16; got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
-    if dt.dtype not in _TYPES or A.dtype != torch.float32:
-        raise TypeError(f"ssd_scan: dt must be float32 or bfloat16 and A "
-                        f"float32; got {dt.dtype} and {A.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"ssd_scan: dt and A must be float32; got "
+                        f"{dt.dtype} and {A.dtype}")
     if (tuple(dt.shape) != (Bsz, S, H) or tuple(A.shape) != (H,)
             or tuple(Bm.shape) != tuple(Cm.shape)
             or tuple(Bm.shape[:2]) != (Bsz, S) or H % G):
@@ -138,14 +138,10 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None,
         raise ValueError(f"ssd_scan: state size {N} > {MAX_STATE}")
     if any(t.device != x.device for t in (dt, A, Bm, Cm)):
         raise ValueError("ssd_scan: inputs on different devices")
-    # the model's dt is float32 already; a bf16 dt upcasts exactly, and
-    # x * dt is then rounded to bf16 in the kernel, as in the plain version
-    round_xd = int(x.dtype == torch.bfloat16 and dt.dtype == torch.bfloat16)
-    dt32 = dt.float()
     xb, xs = _token_strides(x, (H, P), "x")
     bb, bs = _token_strides(Bm, (G, N), "B")
     cb, cs = _token_strides(Cm, (G, N), "C")
-    db, ds = _token_strides(dt32, (H,), "dt")
+    db, ds = _token_strides(dt, (H,), "dt")
     A = A.contiguous()
     init = None
     if initial_state is not None:
@@ -162,11 +158,11 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None,
     lib = build.load("ssd_scan", _SIGNATURES)
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_launch(
-            x.data_ptr(), dt32.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), None if init is None else init.data_ptr(),
             y.data_ptr(), None if final is None else final.data_ptr(),
             Bsz, S, H, P, G, N, xb, xs, bb, bs, cb, cs, db, ds,
-            int(x.dtype == torch.bfloat16), round_xd,
+            int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "ssd_scan")
     launches["ssd_scan"] += 1
