@@ -12,16 +12,19 @@ Phases, each of which ends the run with a nonzero exit on any error:
    all at once), with the build seconds and ptxas's register report.
 2. Each kernel against its plain torch version on the card, at the main
    paths' shapes: the wire quantize and dequantize bitwise, the fused q8
-   entry matmul, the dense splitcat entry, rmsnorm and the SSD scan
-   within the stated tolerances; each kernel's median time beside the
-   plain version's, its bound and, where one PyTorch call computes the
-   same function, that call's time.
+   entry matmul, the dense splitcat entry, rmsnorm, the SSD scan and
+   flash attention (phi4-mini's causal GQA prefill and RecurrentGemma's
+   2048-row window over a 4096-row prompt) within the stated
+   tolerances; each kernel's median time beside the plain version's,
+   its bound and, where one PyTorch call computes the same function,
+   that call's time.
 3. Serving: phi4-mini-3.8B at full width (all 32 layers, bf16, random
    weights from a seeded generator), split at layer 4, served through
    `ServeSession` over the physical int8 wire with the fused entry:
    batch 4, prompt 128, 32 generated tokens.  Launch counters are zeroed
    just before and read just after; every kernel of the path must have
-   run as often as the code implies (rmsnorm too), the wire
+   run as often as the code implies (rmsnorm too, and flash attention
+   once per layer at prefill), the wire
    must carry the analytic bytes per token, the physical wire's tokens
    must equal the fake wire's, and a reduced model on the card must
    generate what the plain CPU path generates.
@@ -48,6 +51,18 @@ Phases, each of which ends the run with a nonzero exit on any error:
    equal the fake wire's, and a reduced SSM model on the card must
    generate what the plain CPU path generates at a prompt that is not a
    multiple of the chunk.
+3d. Hybrid serving: RecurrentGemma-2B at full width (26 layers as
+   (rglru, rglru, attn) x 8 + (rglru, rglru), d_model 2560, lru_width
+   2560, 10/1 heads of 256 with a 2048-row window, gelu MLP 7680, vocab
+   256,000 untied, bf16, random weights from a seeded generator), split
+   at layer 3 over the physical int8 wire: batch 4, prompt 4096 (twice
+   the window), 32 generated tokens.  Every launch count must equal what
+   the code implies (flash attention once per attention layer at
+   prefill, rmsnorm 53 per forward, the wire kernels twice per forward),
+   the wire must bill 2,564 + 256,004 B per token per row, the physical
+   wire's tokens must equal the fake wire's, and a reduced hybrid model
+   on the card must generate what the plain CPU path generates at a
+   prompt past its window and no multiple of the kernel's tiles.
 4. A `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
@@ -477,6 +492,112 @@ def check_ssd(torch) -> tuple:
     return max_err, timed
 
 
+def flash_bound(b, s, h, d, causal, window, qk_type, in_bytes,
+                out_bytes) -> tuple:
+    """Flash attention's least time: only the (query, key) pairs the mask
+    leaves, 2 d operations each for q . k at the rate of q and k's type
+    (`qk_type`: a bf16 product accumulated in float32 on the tensor cores
+    loses nothing) and 2 d each for p v at the float32 rate (P is float32,
+    as in the reference); against each input read and the output written
+    once."""
+    pairs = 0
+    for i in range(s):
+        hi = i + 1 if causal else s
+        lo = max(0, i - window + 1) if window else 0
+        pairs += hi - lo
+    ops = 2.0 * d * pairs * b * h
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = (ops / PEAK_OPS_PER_S[qk_type]
+             + ops / PEAK_OPS_PER_S["fp32"]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_flash(torch) -> tuple:
+    """Flash attention against its plain version (the grouped einsum with
+    the causal / window mask, softmax in float32) at the two prefill
+    shapes of the served models, phi4-mini's causal GQA and
+    RecurrentGemma-2B's 2048-row local attention over a 4096-row prompt,
+    plus a ragged fp32 case at head_dim 32 with a window.  Tolerance: bf16
+    within 1 bf16 ulp (floored at 1/256 of the rms) of the float32 plain
+    result on the same inputs; fp32 within rtol = atol = 2e-5 (the sums
+    run in another order).  Returns (max abs err against the plain
+    output in the same type, {tag: timings})."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(4096)
+    cases = [("phi4-mini prefill", (4, 128, 24, 8, 128), None, True),
+             ("RecurrentGemma-2B prefill", (4, 4096, 10, 1, 256), 2048, True),
+             ("ragged", (2, 300, 4, 2, 32), 100, False)]
+    max_err, timings = 0.0, {}
+    for tag, (b, s, h, kh, d), window, timed in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+        kw = dict(causal=True, window=window)
+        want32 = ref.flash_attention_ref(q, k, v, **kw)
+        y32 = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err32 = (y32 - want32).abs().max().item()
+        if not torch.allclose(y32, want32, rtol=2e-5, atol=2e-5):
+            fail(f"flash_attention {tag} fp32: max abs err {err32:.3e} "
+                 "against the plain version (rtol = atol = 2e-5)")
+        del want32, y32
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        del q, k, v
+        y = flash_attention(qb, kb, vb, **kw)
+        y_plain = ref.flash_attention_ref(qb, kb, vb, **kw)
+        y_ref32 = ref.flash_attention_ref(qb.float(), kb.float(),
+                                          vb.float(), **kw)
+        torch.cuda.synchronize()
+        beyond = int(((y.float() - y_ref32).abs()
+                      > _bf16_ulp(torch, y_ref32)).sum())
+        if beyond:
+            fail(f"flash_attention {tag} bf16: {beyond} outputs beyond 1 "
+                 "bf16 ulp of the float32 plain result")
+        err = (y.float() - y_plain.float()).abs().max().item()
+        max_err = max(max_err, err)
+        del y_plain, y_ref32
+        shape = f"q {(b, s, h, d)} k/v {(b, s, kh, d)} window {window}"
+        print(f"flash_attention {tag} {shape}: fp32 max abs err {err32:.3e} "
+              f"(2e-5), bf16 within 1 ulp, max abs err {err:.3e} against the "
+              "bf16 plain output")
+        if not timed:
+            continue
+        big = s * s * b * h > 1e8
+        t = time_ms(torch, [lambda: flash_attention(qb, kb, vb, **kw)],
+                    **(dict(calls=4, reps=5) if big else {}))
+        t_plain = time_ms(torch, [lambda: ref.flash_attention_ref(
+            qb, kb, vb, **kw)], **(dict(calls=1, reps=3) if big else {}))
+        qt, kt, vt = (x.transpose(1, 2) for x in (qb, kb, vb))
+        mask = ref.causal_mask(s, s, window=window, device="cuda")
+
+        def library():
+            if window is None:
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True,
+                                                      enable_gqa=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        try:
+            t_lib = time_ms(torch, [library], **(dict(calls=4, reps=5)
+                                                 if big else {}))
+        except (RuntimeError, TypeError) as e:
+            print(f"  library yardstick not timed: {e}")
+            t_lib = None
+        bd = flash_bound(b, s, h, d, True, window, "bf16",
+                         nbytes(qb, kb, vb), nbytes(y))
+        lib = f"{t_lib:.4f} ms" if t_lib is not None else "none"
+        print(f"  kernel {t:.4f} ms, plain {t_plain:.4f} ms, library "
+              f"(scaled_dot_product_attention) {lib}, bound {bd[0]:.4f} ms "
+              f"({bd[1]})")
+        timings[tag] = (t, t_plain, t_lib, bd)
+        del qb, kb, vb, y, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    return max_err, timings
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -533,11 +654,13 @@ def main_path(torch) -> dict:
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"launches on the main path: {launches}")
     # rmsnorm: 2 per layer and the final norm at prefill; at decode the
-    # fused entry folds the server's first norm into the payload's scales
+    # fused entry folds the server's first norm into the payload's scales;
+    # flash_attention: one per layer at prefill, none at decode (the ring
+    # takes the plain grouped attention)
     want = {"wire_quant": 2 + 2 * (GEN - 1), "wire_dequant": 2 + 2 * (GEN - 1),
             "splitcat_linear_q8": GEN - 1, "splitcat_linear": 0,
             "rmsnorm": (2 * cfg.n_layers + 1) + (GEN - 1) * 2 * cfg.n_layers,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "flash_attention": cfg.n_layers}
     hold_launches(launches, want)
 
     tok = rest[:, -1:]
@@ -933,7 +1056,8 @@ def ssm_path(torch) -> dict:
     per_forward = 2 * cfg.n_layers + 1
     want = {"rmsnorm": per_forward * SGEN, "ssd_scan": cfg.n_layers,
             "wire_quant": 2 * SGEN, "wire_dequant": 2 * SGEN,
-            "splitcat_linear_q8": 0, "splitcat_linear": 0}
+            "splitcat_linear_q8": 0, "splitcat_linear": 0,
+            "flash_attention": 0}
     hold_launches(launches, want)
 
     tok = rest[:, -1:]
@@ -1009,6 +1133,158 @@ def reduced_ssm_against_cpu(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: hybrid serving (RG-LRU + local attention)
+# ---------------------------------------------------------------------------
+
+HB, HPROMPT, HGEN = 4, 4096, 32
+HYBRID_WIRE_BYTES = (2560 + 4) + (256000 + 4)
+
+
+def hybrid_path(torch) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import param_bytes, param_count
+    from repro_torch.serve import ServePlan, ServeSession
+
+    cfg = get_config("recurrentgemma_2b")
+    model = build_model(cfg)
+    n_attn = sum(g.n_repeat * sum(s.mixer == "attn" for s in g.specs)
+                 for g in model.groups)
+    print(f"hybrid path: {cfg.name} {cfg.n_layers} layers "
+          f"{[(g.n_repeat, [s.mixer for s in g.specs]) for g in model.groups]}"
+          f", d_model {cfg.d_model}, lru_width {cfg.lru_width}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, window "
+          f"{cfg.window}, gelu d_ff {cfg.d_ff}, vocab {cfg.vocab} (untied), "
+          f"{cfg.dtype}, cut {cfg.default_cut}, batch {HB}, prompt {HPROMPT}, "
+          f"generate {HGEN}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(gen, "cuda")
+    torch.cuda.synchronize()
+    print(f"init on the card: {time.perf_counter() - t0:.2f} s, "
+          f"{param_count(params)} parameters, "
+          f"{param_bytes(params) / 1e9:.3f} GB")
+    gen.manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (HB, HPROMPT), generator=gen,
+                            device="cuda")
+
+    def session(wire):
+        return ServeSession(ServePlan(arch=cfg, wire=wire, max_batch=HB,
+                                      max_len=HPROMPT + HGEN + 1), params,
+                            device="cuda")
+
+    phys = session("quantize_int8:physical")
+    phys.generate(prompts, 2)                    # warmup
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tok0 = phys.prefill(prompts)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rest = phys.decode(tok0, HGEN - 1)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    toks = torch.cat([tok0, rest], dim=1)
+    print(f"prefill {t_prefill:.4f} s; decode {HGEN - 1} steps "
+          f"{t_decode:.4f} s = {HB * (HGEN - 1) / t_decode:.1f} tok/s; "
+          f"peak {peak_gib:.2f} GiB (the prefill's logits at every position "
+          f"are {HB * HPROMPT * cfg.vocab * 2 / 2**30:.2f} GiB)")
+    print(f"launches on the hybrid path: {launches}")
+    # rmsnorm: every block's two norms and the final norm, at prefill and
+    # at every decode step; flash_attention: one per attention layer at
+    # prefill, none at decode; the wire kernels once per hop each way
+    per_forward = 2 * cfg.n_layers + 1
+    want = {"rmsnorm": per_forward * HGEN, "flash_attention": n_attn,
+            "wire_quant": 2 * HGEN, "wire_dequant": 2 * HGEN,
+            "splitcat_linear_q8": 0, "splitcat_linear": 0, "ssd_scan": 0}
+    hold_launches(launches, want)
+
+    tok = rest[:, -1:]
+
+    def step():
+        nonlocal tok
+        tok = phys.decode_step(tok)
+    busy_ms = profile_device(torch, "hybrid decode step", step,
+                             t_decode / (HGEN - 1))
+    prefill_busy_ms = profile_device(torch, "hybrid prefill",
+                                     lambda: phys.prefill(prompts),
+                                     t_prefill, steps=1)
+    if tuple(toks.shape) != (HB, HGEN):
+        fail(f"generated shape {tuple(toks.shape)} != {(HB, HGEN)}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        fail("generated tokens outside the vocabulary")
+
+    per_tok = phys.bytes_per_token()
+    cost = phys.decode_cost(batch=HB)
+    up, down = cfg.d_model + 4, cfg.vocab + 4
+    dense = session("").bytes_per_token()
+    print(f"wire bytes per generated token per row: {per_tok} "
+          f"(up {cost.bytes_up // HB}, down {cost.bytes_down // HB}); bf16 "
+          f"wire {dense}")
+    if per_tok != up + down or per_tok != HYBRID_WIRE_BYTES or \
+            cost.bytes_up + cost.bytes_down != HB * per_tok:
+        fail(f"wire bytes per token {per_tok} != analytic {up + down}")
+    if dense != cfg.dtype.itemsize * (cfg.d_model + cfg.vocab):
+        fail(f"bf16 wire bytes per token {dense}")
+
+    t_phys = session("quantize_int8:physical").generate(prompts, HGEN)
+    t_fake = session("quantize_int8").generate(prompts, HGEN)
+    if not torch.equal(t_phys, t_fake):
+        fail("hybrid physical-wire tokens differ from fake-wire tokens:\n"
+             f"{t_phys.tolist()}\n{t_fake.tolist()}")
+    print(f"physical wire == fake wire tokens: bitwise ({HB}x{HGEN}); "
+          f"{int((t_phys == toks).sum())}/{HB * HGEN} shared with the timed "
+          "run")
+    del phys, params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_s": t_prefill,
+            "decode_tok_per_s": HB * (HGEN - 1) / t_decode,
+            "decode_step_ms": t_decode / (HGEN - 1) * 1e3,
+            "busy_ms": busy_ms, "prefill_busy_ms": prefill_busy_ms,
+            "peak_gib": peak_gib, "wire_bytes_per_token": per_tok}
+
+
+def reduced_hybrid_against_cpu(torch):
+    """A reduced fp32 RecurrentGemma (two super-blocks, window 40) served
+    on the card (kernels) and on the CPU (plain versions) from the same
+    weights over the physical wire, at a prompt of 150: past the window,
+    no multiple of the kernel's 32- and 64-row tiles, so the last query
+    tile is ragged and the first KV tile is skipped; the decode steps wrap
+    the 40-row ring."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServePlan, ServeSession
+
+    cfg = get_config("recurrentgemma_2b").reduced(vocab=97, n_layers=6,
+                                                  window=40)
+    gen = torch.Generator().manual_seed(0)
+    params = build_model(cfg).init(gen, "cpu")
+    prompts = torch.randint(0, cfg.vocab, (2, 150), generator=gen)
+    plan = ServePlan(arch=cfg, wire="quantize_int8:physical", max_batch=2,
+                     max_len=160)
+    on_cpu = ServeSession(plan, params, device="cpu").generate(prompts, 6)
+    ops.reset_launches()
+    on_card = ServeSession(plan, params, device="cuda").generate(prompts, 6)
+    n_flash = ops.launch_counts()["flash_attention"]
+    if n_flash != 2:
+        fail(f"reduced hybrid model: {n_flash} flash_attention launches, "
+             "expected 2 (one per attention layer at prefill)")
+    if not torch.equal(on_cpu, on_card.cpu()):
+        fail(f"reduced hybrid model: card tokens {on_card.tolist()} != CPU "
+             f"tokens {on_cpu.tolist()}")
+    print(f"reduced hybrid model, prompt 150, window 40, card == CPU plain "
+          f"path: {on_cpu.tolist()}")
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1042,6 +1318,7 @@ def main():
     dn_err, (td, td_plain, td_lib, bd) = check_splitcat_dense(torch, gen)
     rn_err, rn_t = check_rmsnorm(torch)
     ssd_err, ssd_t = check_ssd(torch)
+    fa_err, fa_t = check_flash(torch)
 
     # phase 3: each main path, then its small-input reference check
     run = main_path(torch)
@@ -1050,13 +1327,17 @@ def main():
     reduced_training_against_cpu(torch)
     ssm = ssm_path(torch)
     reduced_ssm_against_cpu(torch)
+    hybrid = hybrid_path(torch)
+    reduced_hybrid_against_cpu(torch)
 
-    # phase 4: the record; launches are the three main paths' together
+    # phase 4: the record; launches are the four main paths' together
     kq = wire[((4, 1, 200064), torch.bfloat16)]
+    fa = fa_t["RecurrentGemma-2B prefill"]
     src = "src/repro_torch/kernels/csrc/"
     by_path = {name: {"serving": run["launches"][name],
                       "training": train["launches"][name],
-                      "ssm_serving": ssm["launches"][name]}
+                      "ssm_serving": ssm["launches"][name],
+                      "hybrid_serving": hybrid["launches"][name]}
                for name in run["launches"]}
     n = {name: sum(v.values()) for name, v in by_path.items()}
     kernels = [
@@ -1093,6 +1374,12 @@ def main():
          "launches": n["ssd_scan"], "max_abs_err": ssd_err,
          "ms": ssd_t[0], "plain_ms": ssd_t[1], "bound_ms": ssd_t[3][0],
          "bound_by": ssd_t[3][1], "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": src + "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:81",
+         "launches": n["flash_attention"], "max_abs_err": fa_err,
+         "ms": fa[0], "plain_ms": fa[1], "bound_ms": fa[3][0],
+         "bound_by": fa[3][1], "library_ms": fa[2]},
     ]
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
@@ -1102,13 +1389,17 @@ def main():
           "splitcat_linear on the (512,512)|(512,512) x (1024,10)+b fp32 "
           "evaluation entry, rmsnorm on the Mamba2 prefill's (4,512,768) "
           "bf16 block norm, ssd_scan on the Mamba2 prefill's "
-          "(4,512,24,64) bf16 scan from a zero state")
+          "(4,512,24,64) bf16 scan from a zero state, flash_attention on "
+          "the RecurrentGemma-2B prefill's q (4,4096,10,256), k/v "
+          "(4,4096,1,256) bf16, window 2048")
     print("serving path: " + json.dumps(
         {k: v for k, v in run.items() if k != "launches"}))
     print("training path: " + json.dumps(
         {k: v for k, v in train.items() if k != "launches"}))
     print("SSM serving path: " + json.dumps(
         {k: v for k, v in ssm.items() if k != "launches"}))
+    print("hybrid serving path: " + json.dumps(
+        {k: v for k, v in hybrid.items() if k != "launches"}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

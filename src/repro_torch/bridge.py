@@ -6,10 +6,16 @@ and the port's.
   the port keeps a list with one `{"0": {..., leaf (...)}}` per repeat
   (`params_from_jax` / `params_to_numpy`).  Each float leaf takes the
   dtype the port's own init gives it: the model's dtype, or float32 for
-  Mamba2's `A_log`, `D` and `dt_bias` (`nn/ssm.py:mamba2_init`).
-* Split-serving caches of the SSM family (`{"conv", "ssm"}` per layer),
-  stacked the same way (`caches_from_jax` / `caches_to_numpy`); each
-  leaf keeps its dtype (the conv window the model's, the state float32).
+  Mamba2's `A_log`, `D` and `dt_bias` (`nn/ssm.py:mamba2_init`) and
+  RG-LRU's `lam` (`nn/rglru.py:rglru_init`).
+  A composite group (the hybrid pattern) stacks each of its specs
+  `{"0", "1", "2"}` in the reference and is one such dict per repeat in
+  the port.
+* Split-serving caches, stacked the same way (`caches_from_jax` /
+  `caches_to_numpy`): Mamba2's `{"conv", "ssm"}`, RG-LRU's `{"conv",
+  "h"}` and the attention ring's `{"k", "v", "pos"}`; each leaf keeps its
+  dtype (a conv window and the ring the model's, a state float32), and
+  the ring's `pos` is a host int in the port, an int32 in the reference.
 * Everything else has the same layout in both packages, leaf for leaf:
   the CNN list-of-dict trees (HWIO conv and `(in, out)` dense weights)
   and a whole engine state — stacked `clients`, `server`, `opt_c`,
@@ -44,7 +50,9 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _array(t: torch.Tensor) -> np.ndarray:
+def _array(t) -> np.ndarray:
+    if isinstance(t, int):                   # a KV ring's host `pos`
+        return np.int32(t)
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:            # exact in float32
         t = t.float()
@@ -88,16 +96,23 @@ def params_to_numpy(params: dict) -> dict:
     return out
 
 
+def _cache_from_np(tree, device):
+    if isinstance(tree, dict):
+        return {k: int(v) if k == "pos" else _cache_from_np(v, device)
+                for k, v in tree.items()}
+    return _tensor(tree, None, device)
+
+
 def caches_from_jax(np_caches: list, device="cpu") -> list:
     """One side's split-serving caches from the reference
     (`init_cache_split`'s list of stacked group caches, as numpy) -> the
     port's list of per-repeat caches, each leaf in its own dtype."""
-    return [[_map(lambda a: _tensor(a, None, device), rep)
-             for rep in _unstack(gc)] for gc in np_caches]
+    return [[_cache_from_np(rep, device) for rep in _unstack(gc)]
+            for gc in np_caches]
 
 
 def caches_to_numpy(caches: list) -> list:
-    """Inverse of `caches_from_jax`."""
+    """Inverse of `caches_from_jax` (`pos` back as an int32)."""
     return _stack(caches)
 
 

@@ -1,8 +1,8 @@
 """ArchConfig — the port's copy of `repro.configs.base.ArchConfig`, with
 torch dtypes, plus the config registry.
 
-The dense and SSM families build (`models.lm.make_groups`); the other
-fields are kept so a config reads the same in both packages.
+The dense, SSM and hybrid families build (`models.lm.make_groups`); the
+other fields are kept so a config reads the same in both packages.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from typing import Any
 import torch
 
 # arch ids whose config module the port carries so far
-PORTED_ARCH_IDS = ["phi4_mini_3_8b", "mamba2_130m"]
+PORTED_ARCH_IDS = ["phi4_mini_3_8b", "mamba2_130m", "recurrentgemma_2b"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +120,7 @@ def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in PORTED_ARCH_IDS:
         raise NotImplementedError(
             f"{arch_id}: not ported yet; the port serves {PORTED_ARCH_IDS} "
-            "and the other architectures come with the MoE/hybrid/VLM "
+            "and the other architectures come with the MoE/VLM/audio "
             "serving slices")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.CONFIG

@@ -28,7 +28,8 @@ SOURCES = {"wire_quant": "wire_quant.cu",
            "splitcat_linear_q8": "splitcat_linear_q8.cu",
            "splitcat_linear": "splitcat_linear.cu",
            "rmsnorm": "rmsnorm.cu",
-           "ssd_scan": "ssd_scan.cu"}
+           "ssd_scan": "ssd_scan.cu",
+           "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

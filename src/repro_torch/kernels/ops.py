@@ -4,20 +4,23 @@ Each wrapper dispatches by the device of the tensor it is given — a CUDA
 tensor launches the hand-written kernel, a CPU or meta tensor takes the
 plain version — so there is no mode switch and no fallback.  This module
 adds the 0-d leaf path of `repro/kernels/ops.py:127-149` and the launch
-counters' reset.  Like the reference (`repro/kernels/ops.py:179-191`),
-`ssd_scan`'s G state groups reach the H heads as head h -> group
-h // (H/G); the kernel indexes the group in place.
+counters' reset.  Like the reference (`repro/kernels/ops.py:164-191`),
+`flash_attention`'s K KV heads reach the H query heads as head h -> KV
+head h // (H/K), and `ssd_scan`'s G state groups as head h -> group
+h // (H/G); the kernels index the KV head and the group in place.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import splitcat_linear as _sc
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import wire_quant as _wq
 
-_COUNTERS = (_wq.launches, _sc.launches, _rn.launches, _ssd.launches)
+_COUNTERS = (_wq.launches, _sc.launches, _rn.launches, _ssd.launches,
+             _fa.launches)
 
 
 def wire_quantize(x: torch.Tensor):
@@ -52,6 +55,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     """x * rsqrt(mean(x^2) + eps) * scale over the last axis, in float32,
     cast back to x's type."""
     return _rn.rmsnorm(x, scale, eps)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None, scale: float | None = None):
+    """Attention of q (B,S,H,D) over k/v (B,S,K,D), causal and/or within a
+    sliding window, softmax in float32 -> (B,S,H,D) in q's type."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None,

@@ -1,6 +1,11 @@
 """Plain-torch copies of the reference's oracles (`repro.kernels.ref`) for
 the kernels the port has ported.
 
+Attention's plain version is the grouped einsum the served models have
+always run (`repro/nn/attention.py:grouped_attention` with `causal_mask`),
+so a model on the CPU computes what the reference's `gqa_prefill` does;
+decode runs `grouped_attention` over its KV ring on every device.
+
 The quantizer's two constants are the float32 values the reference uses
 (`f32(1/127)` and `f32(1e-12)`), held as Python floats that are exact in
 float32, so the products and the comparison round the same whatever
@@ -8,9 +13,12 @@ precision torch computes a scalar operand in.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+NEG_INF = -1e30
 INV127 = float(np.float32(1.0 / 127.0))
 EPS = float(np.float32(1e-12))
 
@@ -76,3 +84,49 @@ def ssd_scan_ref(x, dt, A, Bm, Cm):
             + torch.einsum("bhp,bhn->bhpn", xd, Bh)
         ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch))
     return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def causal_mask(q_len: int, kv_len: int, *, window: int | None = None,
+                device=None) -> torch.Tensor:
+    """(q_len, kv_len) boolean: True = attend."""
+    q_pos = torch.arange(q_len, device=device)[:, None]
+    k_pos = torch.arange(kv_len, device=device)[None, :]
+    m = k_pos <= q_pos
+    if window is not None:
+        m = m & (k_pos > q_pos - window)
+    return m
+
+
+def grouped_attention(q, k, v, mask, *, scale: float) -> torch.Tensor:
+    """q: (B,S,H,hd), k/v: (B,T,K,hd), mask: (S,T) or (B,S,T).  Scores
+    and softmax in float32; query head h reads KV head h // (H/K), which
+    is never repeated in memory.  Returns (B,S,H,hd_v) in q's dtype."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, S, K, H // K, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
+    if mask.ndim == 2:
+        mask = mask[None, None, None, :, :]
+    else:  # (B, S, T) -> (B,1,1,S,T)
+        mask = mask[:, None, None, :, :]
+    scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: int | None = None, scale: float | None = None):
+    """Attention over a whole sequence, q (B,S,H,D), k/v (B,S,K,D) with
+    H % K == 0: key j is visible to query i when j <= i (causal) and
+    j > i - window (a window); softmax in float32, the result in q's
+    dtype.  `scale` defaults to 1/sqrt(D)."""
+    S = q.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if causal:
+        mask = causal_mask(S, S, window=window, device=q.device)
+    else:                        # without a window every key is visible
+        pos = torch.arange(S, device=q.device)
+        mask = pos[None, :] > pos[:, None] - (S if window is None else window)
+    return grouped_attention(q, k, v, mask, scale=scale)

@@ -16,6 +16,9 @@ Example:
         --cut 1 --wire quantize_int8:physical --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m \\
         --split --wire quantize_int8:physical --prompt-len 512
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma_2b --split --wire quantize_int8:physical \\
+        --prompt-len 4096
 """
 from __future__ import annotations
 
@@ -86,7 +89,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
-        cfg = cfg.reduced(vocab=256)
+        # a hybrid model keeps two super-blocks, so the default cut falls
+        # on the boundary between them
+        cfg = cfg.reduced(vocab=256, **({"n_layers": 2 * len(cfg.pattern)}
+                                        if cfg.pattern else {}))
     B = args.batch
     plan = ServePlan(arch=cfg, cut=args.cut if args.cut >= 0 else None,
                      wire=args.wire, max_batch=B,

@@ -13,10 +13,12 @@ Caches follow the same layout.
 Split hooks: `split_params(params, cut)` gives the client the embedding
 and layers [0, cut) and the server the rest plus the final norm and the
 head; each half prefills and decodes against its own caches, so only
-the cut activation crosses.  The port builds the dense family and the
-SSM family (Mamba2).  Each block's returned cache is written back into
-its slot of the group's cache list: the attention ring is updated in
-place anyway, but the Mamba2 conv window and state are new tensors.
+the cut activation crosses.  The port builds the dense family, the SSM
+family (Mamba2) and the hybrid family (RecurrentGemma's composite
+super-blocks).  Each block's returned cache is written back into its
+slot of the group's cache list: the attention ring is updated in place
+anyway, but the Mamba2 and RG-LRU conv windows and states are new
+tensors.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
+from repro_torch.nn import rglru as R
 from repro_torch.nn import ssm as S
 from repro_torch.nn import transformer as T
 
@@ -53,30 +56,55 @@ def _attn_cfg(cfg: ArchConfig, *, window=None) -> A.AttnConfig:
         window=window, dtype=cfg.dtype)
 
 
-def make_groups(cfg: ArchConfig) -> list[GroupSpec]:
-    """The dense family: one group of identical attn + MLP blocks; the
-    SSM family: one group of identical Mamba2 blocks (no channel mixer)."""
-    if cfg.family == "ssm":
+def _block_spec(cfg: ArchConfig, kind: str, *, window=None) -> T.BlockSpec:
+    common = dict(d_model=cfg.d_model, norm=cfg.norm, dtype=cfg.dtype)
+    if kind == "attn":
+        return T.BlockSpec(mixer="attn", mlp=cfg.mlp if cfg.mlp != "none"
+                           else "swiglu", d_ff=cfg.dense_d_ff or cfg.d_ff,
+                           attn=_attn_cfg(cfg, window=window), **common)
+    if kind == "mamba2":
         ssm = S.SSMConfig(d_model=cfg.d_model,
                           d_inner=cfg.ssm_expand * cfg.d_model,
                           head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state,
                           n_groups=cfg.ssm_groups, chunk=cfg.ssm_chunk,
                           dtype=cfg.dtype)
-        spec = T.BlockSpec(d_model=cfg.d_model, mixer="mamba2", mlp="none",
-                           ssm=ssm, norm=cfg.norm, dtype=cfg.dtype)
-        return [GroupSpec((spec,), cfg.n_layers)]
-    if (cfg.family != "dense" or cfg.pattern or cfg.n_experts
-            or cfg.attn_kind != "gqa" or cfg.norm != "rmsnorm"
-            or cfg.mlp != "swiglu" or cfg.encdec):
+        return T.BlockSpec(mixer="mamba2", mlp="none", ssm=ssm, **common)
+    if kind == "rglru":
+        rg = R.RGLRUConfig(d_model=cfg.d_model,
+                           lru_width=cfg.lru_width or cfg.d_model,
+                           dtype=cfg.dtype)
+        return T.BlockSpec(mixer="rglru", mlp=cfg.mlp, d_ff=cfg.d_ff,
+                           rglru=rg, **common)
+    raise ValueError(kind)
+
+
+def make_groups(cfg: ArchConfig) -> list[GroupSpec]:
+    """The SSM family: one group of Mamba2 blocks (no channel mixer).  The
+    dense family: one group of identical attn + MLP blocks.  The hybrid
+    family: one composite group of the layer pattern (RecurrentGemma's
+    rglru, rglru, attn, the attention local within the window) repeated
+    n_layers // len(pattern) times, plus a remainder group of the
+    pattern's first n_layers % len(pattern) blocks; a cut falls on a
+    super-block boundary (`split_params`)."""
+    if cfg.family == "ssm":
+        return [GroupSpec((_block_spec(cfg, "mamba2"),), cfg.n_layers)]
+    if (cfg.family not in ("dense", "hybrid") or cfg.n_experts
+            or cfg.attn_kind != "gqa" or cfg.encdec):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port builds the dense GQA + "
-            "SwiGLU and the SSM families so far; MoE, MLA, hybrid, VLM and "
+            f"{cfg.name} ({cfg.family}): the port builds the dense GQA, the "
+            "SSM and the hybrid RG-LRU families so far; MoE, MLA, VLM and "
             "audio models come with later slices")
-    spec = T.BlockSpec(d_model=cfg.d_model, mixer="attn", mlp=cfg.mlp,
-                       d_ff=cfg.dense_d_ff or cfg.d_ff,
-                       attn=_attn_cfg(cfg, window=cfg.window),
-                       norm=cfg.norm, dtype=cfg.dtype)
-    return [GroupSpec((spec,), cfg.n_layers)]
+    if cfg.pattern:
+        n_full, rem = divmod(cfg.n_layers, len(cfg.pattern))
+        specs = tuple(_block_spec(cfg, k, window=cfg.window
+                                  if k == "attn" else None)
+                      for k in cfg.pattern)
+        groups = [GroupSpec(specs, n_full)]
+        if rem:
+            groups.append(GroupSpec(specs[:rem], 1))
+        return groups
+    return [GroupSpec((_block_spec(cfg, "attn", window=cfg.window),),
+                      cfg.n_layers)]
 
 
 # ---------------------------------------------------------------------------

@@ -4,11 +4,16 @@
 Shapes: x is (B, S, D); heads are (B, S, H, head_dim); a KV cache is
 {"k", "v": (B, cache_len, K, head_dim), "pos": int}.
 
-Unlike the reference, which returns new caches, the port writes the new
-K/V rows into the cache tensors in place and advances `pos`, a host
-integer (one cursor for the whole batch), so decode never reads a
-device value back.  Native-dtype caches only: the int8 KV cache, MLA,
-cross-attention and the sequence-sharded decode wait for later slices.
+Prefill attends through `ops.flash_attention` (the flash kernel on a
+CUDA tensor, the plain grouped einsum on a CPU or meta one); decode
+attends over the ring with the plain `grouped_attention`, as the
+reference does.  Unlike the reference, which returns new caches, the
+port writes the new K/V rows into the cache tensors in place and
+advances `pos`, a host integer (one cursor for the whole batch), so
+decode never reads a device value back.  A sliding-window ring holds
+`min(max_len, window)` rows, indexed `pos % cache_len`.  Native-dtype
+caches only: the int8 KV cache, MLA, cross-attention and the
+sequence-sharded decode wait for later slices.
 """
 from __future__ import annotations
 
@@ -18,9 +23,11 @@ from typing import Any
 
 import torch
 
+from repro_torch.kernels import ops
+# the plain attention, which decode runs over the KV ring on every device
+from repro_torch.kernels.ref import causal_mask  # noqa: F401
+from repro_torch.kernels.ref import grouped_attention
 from repro_torch.nn import layers as L
-
-NEG_INF = -1e30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,39 +70,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
     x1, x2 = torch.chunk(x_rot.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return torch.cat([out.to(x.dtype), x_pass], dim=-1)
-
-
-# ---------------------------------------------------------------------------
-# Masks + core attention
-# ---------------------------------------------------------------------------
-
-def causal_mask(q_len: int, kv_len: int, *, window: int | None = None,
-                device=None) -> torch.Tensor:
-    """(q_len, kv_len) boolean: True = attend."""
-    q_pos = torch.arange(q_len, device=device)[:, None]
-    k_pos = torch.arange(kv_len, device=device)[None, :]
-    m = k_pos <= q_pos
-    if window is not None:
-        m = m & (k_pos > q_pos - window)
-    return m
-
-
-def grouped_attention(q, k, v, mask, *, scale: float) -> torch.Tensor:
-    """q: (B,S,H,hd), k/v: (B,T,K,hd), mask: (S,T) or (B,S,T).  Scores
-    and softmax in float32; KV heads are never repeated in memory.
-    Returns (B,S,H,hd_v) in q's dtype."""
-    B, S, H, hd = q.shape
-    K = k.shape[2]
-    qg = q.reshape(B, S, K, H // K, hd)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
-    if mask.ndim == 2:
-        mask = mask[None, None, None, :, :]
-    else:  # (B, S, T) -> (B,1,1,S,T)
-        mask = mask[:, None, None, :, :]
-    scores = torch.where(mask, scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
-    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -190,8 +164,8 @@ def gqa_prefill(params, cfg: AttnConfig, x, cache):
                    fraction=cfg.rope_fraction)
     k = apply_rope(k, positions, theta=cfg.rope_theta,
                    fraction=cfg.rope_fraction)
-    mask = causal_mask(S, S, window=cfg.window, device=x.device)
-    out = grouped_attention(q, k, v, mask, scale=1.0 / math.sqrt(cfg.head_dim))
+    out = ops.flash_attention(q, k, v, causal=True, window=cfg.window,
+                              scale=1.0 / math.sqrt(cfg.head_dim))
     y = L.dense_apply(params["wo"], out.reshape(B, S, -1))
 
     cache_len = cache["k"].shape[1]

@@ -1,4 +1,4 @@
-"""Primitive layers (port of `repro/nn/layers.py:14-66, 87-135, 141-153`).
+"""Primitive layers (port of `repro/nn/layers.py:14-66, 87-135, 141-167`).
 
 Parameters are plain dicts of tensors in the reference's layouts: a
 dense weight is `(in, out)` and applied as `x @ w`; a 2-D conv weight is
@@ -176,3 +176,21 @@ def swiglu_apply(params, x):
     g = F.silu(dense_apply(params["gate"], x))
     u = dense_apply(params["up"], x)
     return dense_apply(params["down"], g * u)
+
+
+def gelu_mlp_init(gen, dim: int, hidden: int, *, bias: bool = True,
+                  dtype=torch.float32, device=None):
+    return {
+        "fc1": dense_init(gen, dim, hidden, bias=bias, dtype=dtype,
+                          device=device),
+        "fc2": dense_init(gen, hidden, dim, bias=bias, dtype=dtype,
+                          device=device),
+    }
+
+
+def gelu_mlp_apply(params, x):
+    """fc2(gelu(fc1(x))) with the tanh gelu: `jax.nn.gelu`'s default
+    (`approximate=True`), which the reference's MLP uses."""
+    return dense_apply(params["fc2"],
+                       F.gelu(dense_apply(params["fc1"], x),
+                              approximate="tanh"))

@@ -16,14 +16,18 @@ q feeds the fused q8 QKV kernel (`_fused_server_decode`).
 Runs on the GPU unless the caller passes `device="cpu"`; without a
 visible GPU and without that, the session raises.  Prefill is one
 teacher-forced forward per half; decode is a Python loop of steps (the
-reference scans).  Caches are updated in place: the attention KV ring
-row by row, the Mamba2 caches (conv window and SSM state, which
-`max_len` does not bound) by writing each block's new cache back into
-its slot.  The fused entry needs an attention block at the server's
-entry, so an SSM model raises with `fused_entry=True`, as in the
-reference.  `decode_cost` runs one step on meta tensors, which launches
-no kernel, spends no FLOP and leaves the session's caches alone, and
-prices every `WireRecord`.
+reference scans).  The port serves the dense family (phi4-mini), the
+SSM family (Mamba2) and the hybrid family (RecurrentGemma: RG-LRU blocks
+and local attention in composite super-blocks; the cut falls on a
+super-block boundary).  Caches are updated in place: the attention KV
+ring row by row (a sliding window's ring holds the last `window` rows
+and wraps), the Mamba2 and RG-LRU caches (conv window and recurrent
+state, which `max_len` does not bound) by writing each block's new
+cache back into its slot.  The fused entry needs an attention block at
+the server's entry, so an SSM or hybrid model raises with
+`fused_entry=True`, as in the reference.  `decode_cost` runs one step
+on meta tensors, which launches no kernel, spends no FLOP and leaves
+the session's caches alone, and prices every `WireRecord`.
 """
 from __future__ import annotations
 
@@ -67,8 +71,9 @@ class ServePlan:
     wire        — `parse_wire` spec ("quantize_int8:physical"), a
                   transform sequence, or a `WireStack`; "" = dense wire;
     max_batch   — batch rows `decode_cost()` prices by default;
-    max_len     — KV ring length (prompt + generation budget); SSM
-                  caches do not depend on it;
+    max_len     — KV ring length (prompt + generation budget; a
+                  sliding window's ring is at most the window); SSM and
+                  RG-LRU caches do not depend on it;
     fused_entry — the server's entry QKV reads the packed payload through
                   the fused q8 kernel (allclose, not bitwise, to the
                   unfused order of operations, hence opt-in).
@@ -176,10 +181,7 @@ class ServeSession:
         p0 = fe["p0"]
         y, _ = A.gqa_decode(p0["mixer"], spec.attn, x, caches[0][0]["0"],
                             qkv=qkv)
-        h = x + y
-        if spec.mlp != "none":
-            h = h + T._mlp_apply(p0["mlp"], spec,
-                                 T._norm_apply(p0["norm2"], spec, h))
+        h = T._residual(p0, spec, x, y)
         # the entry group's other repeats, then the remaining groups
         h, _ = group_decode(sp["groups"][0][1:], g0, h, caches[0][1:])
         groups = self.model._groups_for_range(self.cut, "server")

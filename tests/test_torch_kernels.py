@@ -21,7 +21,12 @@ inputs:
   against the reference's interpret-mode kernel and its O(S) oracle at
   1e-4 in fp32 and at the reference's 5e-2 in bf16 (the two round x*dt
   at different places), and the port's O(S) oracle against the
-  reference's.
+  reference's;
+* flash attention's plain version on `tests/test_kernels.py`'s sweep
+  (causal with GQA, windows 32/64/100, non-causal) against the
+  reference's interpret-mode kernel and its oracle, at the reference's
+  2e-5 in fp32 and 3e-2 in bf16; at head_dim 256 with one KV head and a
+  window, and at a ragged length against the oracle.
 
 Tests marked `gpu` run the CUDA kernels against the plain versions and
 skip where no GPU is visible.
@@ -209,10 +214,14 @@ def test_cpu_and_meta_tensors_launch_nothing():
     assert tuple(y.shape) == (2, 8, 2, 4) and tuple(st.shape) == (2, 2, 4, 4)
     ym = ops.ssd_scan(*(t.to("meta") for t in (xs, dt, A, Bm, Cm)), chunk=8)
     assert ym.is_meta and tuple(ym.shape) == (2, 8, 2, 4)
+    (q, k, v), _ = _flash_inputs(2, 1, 8, 4, 2, 32, "float32")
+    assert tuple(ops.flash_attention(q, k, v, window=3).shape) == (1, 8, 4, 32)
+    om = ops.flash_attention(*(t.to("meta") for t in (q, k, v)))
+    assert om.is_meta and tuple(om.shape) == (1, 8, 4, 32)
     assert ops.launch_counts() == {"wire_quant": 0, "wire_dequant": 0,
                                    "splitcat_linear_q8": 0,
                                    "splitcat_linear": 0, "rmsnorm": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "flash_attention": 0}
 
 
 def test_build_targets_sm90a_without_fast_math():
@@ -427,6 +436,80 @@ def test_ssd_chunk_length_changes_only_rounding():
 
 
 # ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py's causal sweep: (S, H, K, D)
+FLASH_SWEEP = [(128, 4, 4, 64), (256, 4, 2, 64), (128, 8, 1, 128),
+               (64, 2, 2, 32)]
+FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+             "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+
+
+def _flash_inputs(seed, b, s, h, k, d, dtype):
+    """(q, k, v) as torch tensors and as jax arrays, standard normal."""
+    rng = np.random.default_rng(seed)
+    pairs = [_pair(rng.standard_normal((b, s, n, d)).astype(np.float32),
+                   dtype) for n in (h, k, k)]
+    return [t for t, _ in pairs], [j for _, j in pairs]
+
+
+def _flash_expected(jargs, **kw):
+    """The reference's interpret-mode kernel (64-row blocks) and its
+    oracle over the KV heads repeated, as tests/test_kernels.py runs
+    them."""
+    q, k, v = jargs
+    rep = q.shape[2] // k.shape[2]
+    out = jops.flash_attention(q, k, v, block_q=64, block_kv=64,
+                               interpret=True, **kw)
+    oracle = jref.flash_attention_ref(q, jnp.repeat(k, rep, 2),
+                                      jnp.repeat(v, rep, 2), **kw)
+    return out, oracle
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,h,k,d", FLASH_SWEEP,
+                         ids=[f"s{c[0]}h{c[1]}k{c[2]}d{c[3]}"
+                              for c in FLASH_SWEEP])
+def test_flash_attention_causal_vs_reference(s, h, k, d, dtype):
+    targs, jargs = _flash_inputs(20, 2, s, h, k, d, dtype)
+    y = ops.flash_attention(*targs, causal=True)
+    assert y.dtype == targs[0].dtype and tuple(y.shape) == (2, s, h, d)
+    for want in _flash_expected(jargs, causal=True):
+        np.testing.assert_allclose(_np(y), _np(want), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("causal,window,shape", [
+    (True, 32, (256, 2, 2, 64)), (True, 64, (256, 2, 2, 64)),
+    (True, 100, (256, 2, 2, 64)), (False, None, (128, 2, 2, 64)),
+    (True, 100, (128, 4, 1, 256))],
+    ids=["window32", "window64", "window100", "noncausal",
+         "d256-kv1-window100"])
+def test_flash_attention_window_and_noncausal_vs_reference(causal, window,
+                                                           shape):
+    targs, jargs = _flash_inputs(21, 1, *shape, "float32")
+    y = ops.flash_attention(*targs, causal=causal, window=window)
+    for want in _flash_expected(jargs, causal=causal, window=window):
+        np.testing.assert_allclose(_np(y), _np(want), **FLASH_TOL["float32"])
+
+
+@pytest.mark.parametrize("window", [None, 30])
+def test_flash_attention_ragged_length_vs_oracle(window):
+    """A length that is no multiple of any tile (the reference's kernel
+    asserts S % block == 0; the port takes any S), against the oracle;
+    the plain version is the served models' grouped attention."""
+    targs, (q, k, v) = _flash_inputs(22, 2, 100, 4, 2, 32, "float32")
+    y = ops.flash_attention(*targs, window=window)
+    want = jref.flash_attention_ref(q, jnp.repeat(k, 2, 2),
+                                    jnp.repeat(v, 2, 2), causal=True,
+                                    window=window)
+    np.testing.assert_allclose(_np(y), _np(want), **FLASH_TOL["float32"])
+    mask = ref.causal_mask(100, 100, window=window)
+    assert torch.equal(y, ref.grouped_attention(*targs, mask,
+                                                scale=32 ** -0.5))
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -521,3 +604,29 @@ def test_ssd_kernel_on_card(cuda, s, h, g, p, n, chunk, carried):
                                   return_state=True)
     torch.testing.assert_close(y, y_p, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(st, st_p, rtol=1e-4, atol=1e-4)
+
+
+FLASH_CARD = [(2, s, h, k, d, None) for s, h, k, d in FLASH_SWEEP] + [
+    (1, 256, 2, 2, 64, 100), (2, 100, 4, 2, 32, 30), (1, 300, 4, 1, 256, 70),
+    (2, 7, 3, 1, 128, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,k,d,window", FLASH_CARD,
+                         ids=[f"s{c[1]}h{c[2]}k{c[3]}d{c[4]}w{c[5]}"
+                              for c in FLASH_CARD])
+def test_flash_kernel_on_card(cuda, b, s, h, k, d, window, dtype):
+    """The kernel against its plain version: fp32 at 2e-5, bf16 within
+    one bf16 ulp of the float32 plain result on the same inputs."""
+    targs, _ = _flash_inputs(23, b, s, h, k, d, dtype)
+    targs = [t.to(cuda) for t in targs]
+    n = ops.launch_counts()["flash_attention"]
+    y = ops.flash_attention(*targs, window=window)
+    assert ops.launch_counts()["flash_attention"] == n + 1
+    want32 = ref.flash_attention_ref(*(t.float() for t in targs),
+                                     window=window)
+    if dtype == "float32":
+        torch.testing.assert_close(y, want32, rtol=2e-5, atol=2e-5)
+    else:
+        assert _within_bf16_ulp(_np(y.cpu()), _np(want32.cpu()))

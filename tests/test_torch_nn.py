@@ -57,7 +57,8 @@ def _close(t, j, tol=TOL):
     np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), **tol)
 
 
-@pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "mamba2_130m"])
+@pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "mamba2_130m",
+                                  "recurrentgemma_2b"])
 def test_config_fields_match_reference(arch):
     for t, j in ((get_config(arch), jget_config(arch)),
                  (get_config(arch).reduced(vocab=97),
@@ -70,7 +71,7 @@ def test_config_fields_match_reference(arch):
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("recurrentgemma_2b")
+        get_config("qwen3_moe_30b_a3b")
     moe = dataclasses.replace(get_config("phi4_mini_3_8b").reduced(),
                               family="moe", n_experts=4)
     with pytest.raises(NotImplementedError, match="dense"):
