@@ -144,6 +144,13 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def versus(t, t_lib, bd) -> str:
+    """The kernel's time against the library call's and its share of the
+    bound."""
+    lib = f"{t / t_lib:.2f}x the library" if t_lib else "no library call"
+    return f"{lib}, {bd[0] / t:.1%} of the bound"
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -322,7 +329,8 @@ def check_splitcat_dense(torch, gen) -> tuple:
                       2.0 * rows * k * w.shape[1], "fp32")
         print(f"splitcat_linear {tag} fp32: allclose 1e-5, max abs err "
               f"{err:.3e}; kernel {t:.4f} ms, plain {t_plain:.4f} ms, "
-              f"library {t_lib:.4f} ms, bound {bd[0]:.5f} ms ({bd[1]})")
+              f"library {t_lib:.4f} ms, bound {bd[0]:.5f} ms ({bd[1]}); "
+              f"{versus(t, t_lib, bd)}")
         timings[tag] = (t, t_plain, t_lib, bd)
 
     # bf16 parts and W: one rounding of the fp32 sum
@@ -492,23 +500,25 @@ def check_ssd(torch) -> tuple:
     return max_err, timed
 
 
-def flash_bound(b, s, h, d, causal, window, qk_type, in_bytes,
-                out_bytes) -> tuple:
+def flash_bound(b, s, h, d, causal, window, in_bytes, out_bytes) -> tuple:
     """Flash attention's least time: only the (query, key) pairs the mask
-    leaves, 2 d operations each for q . k at the rate of q and k's type
-    (`qk_type`: a bf16 product accumulated in float32 on the tensor cores
-    loses nothing) and 2 d each for p v at the float32 rate (P is float32,
-    as in the reference); against each input read and the output written
-    once."""
+    leaves, 2 d operations each for q . k and 2 d each for each of two
+    p v products, all at the bf16 tensor-core rate; against each input
+    read and the output written once.  q . k on bf16 inputs accumulated
+    in float32 loses nothing.  P is float32 in the reference, and one
+    bf16 product would round it to 8 bits; P_hi + P_lo (two bf16 products
+    into one float32 accumulator) carries it to about 2^-17, below a bf16
+    ulp of an output of typical size.  The kernel runs a third piece of P
+    to hold the 1-ulp check on outputs near zero too, so it does 4/3 of
+    the work this bound prices."""
     pairs = 0
     for i in range(s):
         hi = i + 1 if causal else s
         lo = max(0, i - window + 1) if window else 0
         pairs += hi - lo
-    ops = 2.0 * d * pairs * b * h
+    ops = 3 * 2.0 * d * pairs * b * h
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = (ops / PEAK_OPS_PER_S[qk_type]
-             + ops / PEAK_OPS_PER_S["fp32"]) * 1e3
+    t_ops = ops / PEAK_OPS_PER_S["bf16"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -586,12 +596,12 @@ def check_flash(torch) -> tuple:
         except (RuntimeError, TypeError) as e:
             print(f"  library yardstick not timed: {e}")
             t_lib = None
-        bd = flash_bound(b, s, h, d, True, window, "bf16",
-                         nbytes(qb, kb, vb), nbytes(y))
+        bd = flash_bound(b, s, h, d, True, window, nbytes(qb, kb, vb),
+                         nbytes(y))
         lib = f"{t_lib:.4f} ms" if t_lib is not None else "none"
         print(f"  kernel {t:.4f} ms, plain {t_plain:.4f} ms, library "
               f"(scaled_dot_product_attention) {lib}, bound {bd[0]:.4f} ms "
-              f"({bd[1]})")
+              f"({bd[1]}); {versus(t, t_lib, bd)}")
         timings[tag] = (t, t_plain, t_lib, bd)
         del qb, kb, vb, y, qt, kt, vt, mask
         torch.cuda.empty_cache()
@@ -1306,9 +1316,12 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall, "
           f"per library {seconds}")
     for name, log in build.build_logs.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Function properties for" in line:   # the mangled kernel
+                fn = line.split("for", 1)[1].strip()
+            elif "registers" in line or "spill" in line:
+                print(f"  {name} {fn}: {line.strip()}")
 
     # phase 2: kernels against their plain versions
     gen = torch.Generator(device="cuda")

@@ -247,9 +247,9 @@ SPLITCAT_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
                 "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
 
-def _splitcat_inputs(seed, part_dims, d_out, dtype, bias):
+def _splitcat_inputs(seed, part_dims, d_out, dtype, bias, lead=(3, 17)):
     rng = np.random.default_rng(seed)
-    parts = [0.5 * rng.standard_normal((3, 17, d)).astype(np.float32)
+    parts = [0.5 * rng.standard_normal((*lead, d)).astype(np.float32)
              for d in part_dims]
     w = 0.05 * rng.standard_normal((sum(part_dims), d_out)).astype(np.float32)
     b = rng.standard_normal((d_out,)).astype(np.float32) if bias else None
@@ -509,6 +509,87 @@ def test_flash_attention_ragged_length_vs_oracle(window):
                                                 scale=32 ** -0.5))
 
 
+def _bf16_ulp_floored(want32: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each float32 value, floored at 1/256 of the rms:
+    the check `chip_smoke.py:_bf16_ulp` makes (where a sum cancels to near
+    zero, two float32 summation orders differ by more than a bf16 ulp of
+    the tiny result)."""
+    floor = max(2.0 ** -126, want32.square().mean().sqrt().item() / 256)
+    return torch.exp2(torch.floor(torch.log2(want32.abs().clamp_min(floor)))
+                      - 7)
+
+
+def _flash_pieces_emulated(q, k, v, *, pieces: int, window=None):
+    """The bf16 CUDA kernel's rounding in plain torch (a test helper, never
+    on the main path): scores of bf16 q and k in float32, the online
+    softmax over 64-row KV tiles in float32, and P cut into `pieces` bf16
+    pieces (each the rounding of what the earlier left), each piece's
+    product with V accumulated in float32; the output rounded once."""
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    kf = k.float().repeat_interleave(rep, 2)
+    vf = v.float().repeat_interleave(rep, 2)
+    mask = ref.causal_mask(S, S, window=window)
+    m = torch.full((B, H, S, 1), ref.NEG_INF)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, D))
+    for t0 in range(0, S, 64):
+        s = torch.einsum("bshd,bthd->bhst", q.float(),
+                         kf[:, t0:t0 + 64]) * D ** -0.5
+        s = torch.where(mask[:, t0:t0 + 64], s, ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha
+        for _ in range(pieces):
+            piece = p.to(torch.bfloat16).float()
+            acc = acc + torch.einsum("bhst,bthd->bhsd", piece,
+                                     vf[:, t0:t0 + 64])
+            p = p - piece
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+FLASH_PIECES = [(2, s, h, k, d, None) for s, h, k, d in FLASH_SWEEP] + [
+    (1, 300, 4, 1, 256, 70)]
+
+
+@pytest.mark.parametrize("b,s,h,k,d,window", FLASH_PIECES,
+                         ids=[f"s{c[1]}h{c[2]}k{c[3]}d{c[4]}w{c[5]}"
+                              for c in FLASH_PIECES])
+def test_flash_three_bf16_pieces_of_p_within_one_ulp(b, s, h, k, d, window):
+    """The kernel's p v as three bf16 products of the pieces of P holds the
+    float32 plain result to 1 bf16 ulp (floored, as chip_smoke.py
+    checks), like float32 P."""
+    targs, _ = _flash_inputs(24, b, s, h, k, d, "bfloat16")
+    want32 = ref.flash_attention_ref(*(t.float() for t in targs),
+                                     window=window)
+    y = _flash_pieces_emulated(*targs, pieces=3, window=window)
+    assert bool(((y.float() - want32).abs()
+                 <= _bf16_ulp_floored(want32)).all())
+
+
+@pytest.mark.parametrize("b,s,h,k,d,window", FLASH_PIECES,
+                         ids=[f"s{c[1]}h{c[2]}k{c[3]}d{c[4]}w{c[5]}"
+                              for c in FLASH_PIECES])
+def test_flash_fewer_pieces_of_p_lose_precision(b, s, h, k, d, window):
+    """Why P is cut in pieces: P rounded to bf16 once leaves outputs
+    beyond 1 bf16 ulp of the float32 plain result; two pieces (P_hi +
+    P_lo, about 2^-17) stay within it at these sizes but stand nearer its
+    edge than three (float32's 2^-24); on the card, a two-piece kernel
+    left outputs beyond it."""
+    targs, _ = _flash_inputs(24, b, s, h, k, d, "bfloat16")
+    want32 = ref.flash_attention_ref(*(t.float() for t in targs),
+                                     window=window)
+    ulp = _bf16_ulp_floored(want32)
+    worst = {n: ((_flash_pieces_emulated(*targs, pieces=n, window=window)
+                  .float() - want32).abs() / ulp).max().item()
+             for n in (1, 2, 3)}
+    assert worst[1] > 1.0 >= worst[2] > worst[3]
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -549,13 +630,24 @@ def test_splitcat_q8_kernel_on_card(cuda, widths, lead, cols, bias):
                                rtol=1e-4, atol=1e-4)
 
 
+# beyond the sweep: K slices (64 deep) that the cluster's split does not
+# divide, parts narrower than one slice, rows no multiple of the tiles,
+# the evaluation's narrow C = 10
+SPLITCAT_CARD = [(d, (3, 17)) for d in SPLITCAT_DIMS] + [
+    (((1000, 24), 10), (130,)), (((512, 512), 10), (512,)),
+    (((7, 3), 5), (65,)), (((200, 70, 8), 96), (33,)),
+    (((256, 128), 512), (4, 64))]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("dims", SPLITCAT_DIMS,
+@pytest.mark.parametrize("dims,lead", SPLITCAT_CARD,
                          ids=["x".join(map(str, d[0])) + f"-c{d[1]}"
-                              for d in SPLITCAT_DIMS])
-def test_splitcat_kernel_on_card(cuda, dims, dtype):
-    (parts, w, b), _ = _splitcat_inputs(10, *dims, dtype, True)
+                              + ("" if lead == (3, 17) else
+                                 "-r" + "x".join(map(str, lead)))
+                              for d, lead in SPLITCAT_CARD])
+def test_splitcat_kernel_on_card(cuda, dims, lead, dtype):
+    (parts, w, b), _ = _splitcat_inputs(10, *dims, dtype, True, lead)
     parts = [p.to(cuda) for p in parts]
     w, b = w.to(cuda), b.to(cuda)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -608,7 +700,14 @@ def test_ssd_kernel_on_card(cuda, s, h, g, p, n, chunk, carried):
 
 FLASH_CARD = [(2, s, h, k, d, None) for s, h, k, d in FLASH_SWEEP] + [
     (1, 256, 2, 2, 64, 100), (2, 100, 4, 2, 32, 30), (1, 300, 4, 1, 256, 70),
-    (2, 7, 3, 1, 128, None)]
+    (2, 7, 3, 1, 128, None)] + [
+    # one row past a 64-row tile; H / K of 1, 3 and 10; windows that are
+    # no multiple of the tile, so KV tiles straddle the diagonal and the
+    # window's edge at once; every head_dim
+    (2, 65, 3, 1, 32, 40), (1, 65, 10, 10, 64, None),
+    (1, 65, 10, 1, 128, 33), (2, 65, 3, 3, 256, None),
+    (1, 4097, 10, 1, 256, 2048), (1, 4097, 3, 1, 128, 100),
+    (1, 4097, 10, 10, 64, 1000), (1, 4097, 3, 3, 32, None)]
 
 
 @pytest.mark.gpu
