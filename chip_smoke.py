@@ -12,12 +12,12 @@ Phases, each of which ends the run with a nonzero exit on any error:
    all at once), with the build seconds and ptxas's register report.
 2. Each kernel against its plain torch version on the card, at the main
    paths' shapes: the wire quantize and dequantize bitwise, the fused q8
-   entry matmul, the dense splitcat entry, rmsnorm, the SSD scan and
-   flash attention (phi4-mini's causal GQA prefill and RecurrentGemma's
-   2048-row window over a 4096-row prompt) within the stated
-   tolerances; each kernel's median time beside the plain version's,
-   its bound and, where one PyTorch call computes the same function,
-   that call's time.
+   entry matmul (and the card tests' other shapes of it), the dense
+   splitcat entry, rmsnorm, the SSD scan and flash attention (phi4-mini's
+   causal GQA prefill and RecurrentGemma's 2048-row window over a
+   4096-row prompt) within the stated tolerances; each kernel's median
+   time beside the plain version's, its bound and, where one PyTorch call
+   computes the same function, that call's time.
 3. Serving: phi4-mini-3.8B at full width (all 32 layers, bf16, random
    weights from a seeded generator), split at layer 4, served through
    `ServeSession` over the physical int8 wire with the fused entry:
@@ -50,7 +50,8 @@ Phases, each of which ends the run with a nonzero exit on any error:
    772 + 50,284 B per token per row, the physical wire's tokens must
    equal the fake wire's, and a reduced SSM model on the card must
    generate what the plain CPU path generates at a prompt that is not a
-   multiple of the chunk.
+   multiple of the chunk.  The profiler reads a decode step and the
+   prefill.
 3d. Hybrid serving: RecurrentGemma-2B at full width (26 layers as
    (rglru, rglru, attn) x 8 + (rglru, rglru), d_model 2560, lru_width
    2560, 10/1 heads of 256 with a 2048-row window, gelu MLP 7680, vocab
@@ -199,14 +200,25 @@ def check_wire(torch, gen) -> tuple:
         tq_plain = time_ms(torch, [lambda: ref.wire_quant_ref(x)])
         td = time_ms(torch, [lambda: wire_dequant(q, s, dtype)])
         td_plain = time_ms(torch, [lambda: ref.wire_dequant_ref(q, s, dtype)])
+        # one PyTorch call computing the dequantize, where it is bitwise
+        # the kernel's: float(q) * scale, rounded once into x's type
+        y_lib = torch.empty_like(x)
+        torch.mul(q, s, out=y_lib)
+        td_lib = (time_ms(torch, [lambda: torch.mul(q, s, out=y_lib)])
+                  if torch.equal(y_lib, wire_dequant(q, s, dtype)) else None)
         bq = bound_ms(nbytes(x, q, s), 3.0 * x.numel(), "fp32")
         bd = bound_ms(nbytes(q, s) + x.numel() * x.element_size(),
                       1.0 * x.numel(), "fp32")
         print(f"wire_quant   {tag}: bitwise; kernel {tq:.4f} ms, plain "
               f"{tq_plain:.4f} ms, bound {bq[0]:.4f} ms ({bq[1]})")
+        lib = (f"{td_lib:.4f} ms (torch.mul(q, s, out=y), bitwise equal)"
+               if td_lib is not None else "none (torch.mul(q, s, out=y) is "
+               "not bitwise the kernel's)")
         print(f"wire_dequant {tag}: bitwise; kernel {td:.4f} ms, plain "
-              f"{td_plain:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]})")
-        timings[(tuple(shape), dtype)] = (tq, tq_plain, bq, td, td_plain, bd)
+              f"{td_plain:.4f} ms, library {lib}, bound {bd[0]:.4f} ms "
+              f"({bd[1]})")
+        timings[(tuple(shape), dtype)] = (tq, tq_plain, bq, td, td_plain, bd,
+                                          td_lib)
     return timings
 
 
@@ -280,7 +292,53 @@ def check_splitcat(torch, gen) -> tuple:
     b = bound_ms(nbytes(q, s, w, y), 2.0 * 4 * 3072 * 5120, "bf16")
     print(f"splitcat_linear_q8 decode entry: kernel {t:.4f} ms, plain "
           f"{t_plain:.4f} ms, library {t_lib:.4f} ms, bound {b[0]:.4f} ms "
-          f"({b[1]}); W cold in L2")
+          f"({b[1]}); {versus(t, t_lib, b)}; W cold in L2")
+
+    # the card tests' other shapes (tests/test_torch_kernels.py, Q8_CARD),
+    # from a generator of their own so the checks after this one see the
+    # inputs they always have; W cold where it is as large as the entry's
+    own = torch.Generator(device="cuda").manual_seed(16)
+    for tag, widths, lead, cols, bias, wd, od in (
+            ("2 parts (4,1,1000|2072)x(3072,5120)+b, bf16 W, fp32 out",
+             (1000, 2072), (4, 1), 5120, True, torch.bfloat16, torch.float32),
+            ("15 rows (15,3072)x(3072,5120) bf16", (3072,), (15,), 5120,
+             False, torch.bfloat16, torch.bfloat16),
+            ("fp32 W that TMA cannot address (4,3,96|33)x(129,5121)+b",
+             (96, 33), (4, 3), 5121, True, torch.float32, torch.float32),
+            ("35 rows (5,7,64|31)x(95,200)+b, fp32 W, bf16 out", (64, 31),
+             (5, 7), 200, True, torch.float32, torch.bfloat16)):
+        packs = [wire_quant(_payload(torch, lead + (k,), torch.float32, own))
+                 for k in widths]
+        qs_, ss_ = [p[0] for p in packs], [p[1] for p in packs]
+        w_ = (torch.randn((sum(widths), cols), generator=own, device="cuda")
+              / sum(widths) ** 0.5).to(wd)
+        b_ = (torch.randn((cols,), generator=own, device="cuda").to(wd)
+              if bias else None)
+        y_ = splitcat_linear_q8(qs_, ss_, w_, b_, od)
+        y32_ = splitcat_linear_q8_plain(qs_, ss_, w_, b_, torch.float32)
+        torch.cuda.synchronize()
+        if od == torch.float32:
+            if not torch.allclose(y_, y32_, rtol=1e-4, atol=1e-4):
+                fail(f"splitcat_linear_q8 {tag}: max abs err "
+                     f"{(y_ - y32_).abs().max().item():.3e} (1e-4)")
+        elif bool(((y_.float() - y32_).abs() > _bf16_ulp(torch, y32_)).any()):
+            fail(f"splitcat_linear_q8 {tag}: beyond 1 bf16 ulp")
+        copies = [w_] + [w_.clone() for _ in range(
+            L2_COPIES - 1 if nbytes(w_) >= nbytes(w) else 0)]
+        t_ = time_ms(torch, [lambda wi=wi: splitcat_linear_q8(
+            qs_, ss_, wi, b_, od) for wi in copies])
+        t_plain_ = time_ms(torch, [lambda wi=wi: splitcat_linear_q8_plain(
+            qs_, ss_, wi, b_, od) for wi in copies])
+        rows = y_.numel() // cols
+        b_n = bound_ms(nbytes(*qs_, *ss_, w_, y_) + (nbytes(b_) if bias
+                                                      else 0),
+                       2.0 * rows * sum(widths) * cols,
+                       "bf16" if wd == torch.bfloat16 else "fp32")
+        held = "1e-4" if od == torch.float32 else "1 bf16 ulp"
+        cold = "; W cold in L2" if len(copies) > 1 else ""
+        print(f"splitcat_linear_q8 {tag}: {held}; kernel {t_:.4f} ms, plain "
+              f"{t_plain_:.4f} ms, bound {b_n[0]:.4f} ms ({b_n[1]}){cold}")
+        del copies
     return max_err, (t, t_plain, t_lib, b)
 
 
@@ -404,7 +462,10 @@ def check_rmsnorm(torch) -> tuple:
     return max_err, timings[((4, 512, 768), torch.bfloat16)]
 
 
-SSD_TILE = 64           # kQ in csrc/ssd_scan.cu
+# the bound's tile: the TPU kernel's own default chunk (ssd_scan.py:66),
+# whatever tile the CUDA kernel uses, so the yardstick prices the same work
+# across PRs
+SSD_TILE = 64
 
 
 def ssd_bound(b, s, h, g, p, n, bc_type, in_bytes, out_bytes) -> tuple:
@@ -1077,6 +1138,9 @@ def ssm_path(torch) -> dict:
         tok = phys.decode_step(tok)
     busy_ms = profile_device(torch, "SSM decode step", step,
                              t_decode / (SGEN - 1))
+    prefill_busy_ms = profile_device(torch, "SSM prefill",
+                                     lambda: phys.prefill(prompts),
+                                     t_prefill, steps=1)
     if tuple(toks.shape) != (SB, SGEN):
         fail(f"generated shape {tuple(toks.shape)} != {(SB, SGEN)}")
     if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
@@ -1107,6 +1171,7 @@ def ssm_path(torch) -> dict:
     del phys, params
     torch.cuda.empty_cache()
     return {"launches": launches, "prefill_s": t_prefill,
+            "prefill_busy_ms": prefill_busy_ms,
             "decode_tok_per_s": SB * (SGEN - 1) / t_decode,
             "decode_step_ms": t_decode / (SGEN - 1) * 1e3,
             "busy_ms": busy_ms, "wire_bytes_per_token": per_tok}
@@ -1364,7 +1429,7 @@ def main():
          "replaces": "src/repro/kernels/wire_quant.py:89",
          "launches": n["wire_dequant"], "max_abs_err": 0.0,
          "ms": kq[3], "plain_ms": kq[4], "bound_ms": kq[5][0],
-         "bound_by": kq[5][1], "library_ms": None},
+         "bound_by": kq[5][1], "library_ms": kq[6]},
         {"name": "splitcat_linear_q8", "route": "cuda",
          "source": src + "splitcat_linear_q8.cu",
          "replaces": "src/repro/kernels/splitcat_linear.py:62",

@@ -99,19 +99,21 @@ def causal_mask(q_len: int, kv_len: int, *, window: int | None = None,
 
 def grouped_attention(q, k, v, mask, *, scale: float) -> torch.Tensor:
     """q: (B,S,H,hd), k/v: (B,T,K,hd), mask: (S,T) or (B,S,T).  Scores
-    and softmax in float32; query head h reads KV head h // (H/K), which
-    is never repeated in memory.  Returns (B,S,H,hd_v) in q's dtype."""
+    and softmax in float32 (float64 for float64 inputs); query head h
+    reads KV head h // (H/K), which is never repeated in memory.
+    Returns (B,S,H,hd_v) in q's dtype."""
     B, S, H, hd = q.shape
     K = k.shape[2]
+    ct = torch.promote_types(q.dtype, torch.float32)
     qg = q.reshape(B, S, K, H // K, hd)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.to(ct), k.to(ct)) * scale
     if mask.ndim == 2:
         mask = mask[None, None, None, :, :]
     else:  # (B, S, T) -> (B,1,1,S,T)
         mask = mask[:, None, None, :, :]
     scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
+    out = torch.einsum("bkgst,btkd->bskgd", w, v.to(ct))
     return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
@@ -119,8 +121,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: int | None = None, scale: float | None = None):
     """Attention over a whole sequence, q (B,S,H,D), k/v (B,S,K,D) with
     H % K == 0: key j is visible to query i when j <= i (causal) and
-    j > i - window (a window); softmax in float32, the result in q's
-    dtype.  `scale` defaults to 1/sqrt(D)."""
+    j > i - window (a window); softmax in float32 (float64 for float64
+    inputs), the result in q's dtype.  `scale` defaults to 1/sqrt(D)."""
     S = q.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])

@@ -18,8 +18,10 @@ the plain version, `ssd_chunked_plain`, the reference's chunked dual form
 at the caller's `chunk`.  The kernel cuts the sequence into its own
 64-row tiles whatever `chunk` is (the result does not depend on the
 chunk length, up to rounding), but `S % chunk == 0` is required on
-every device, as the reference asserts.  `launches` counts kernel
-launches.
+every device, as the reference asserts.  One call runs the kernel's two
+passes (the chain of states across tiles, then the tiles' outputs) over a
+float32 scratch the wrapper allocates; `launches` counts calls of the
+kernel.
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ from repro_torch.kernels import build
 launches = {"ssd_scan": 0}
 
 MAX_STATE = 256                     # kMaxN in csrc/ssd_scan.cu
+TILE = 64                           # kQ in csrc/ssd_scan.cu
 _SIGNATURES = {
-    "ssd_scan_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    "ssd_scan_launch": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
     + [ctypes.c_longlong] * 8 + [ctypes.c_int, ctypes.c_void_p],
 }
 _TYPES = (torch.float32, torch.bfloat16)
@@ -155,13 +158,20 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None,
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     final = (torch.empty((Bsz, H, P, N), dtype=torch.float32,
                          device=x.device) if return_state else None)
+    # each tile's carried-in state, transposed: (B, tiles, H, N, P
+    # rounded up to 4), written by the kernel's chain and read by its
+    # output pass
+    tiles = -(-S // TILE)
+    scratch = torch.empty(Bsz * tiles * H * N * (-(-P // 4) * 4),
+                          dtype=torch.float32, device=x.device)
     lib = build.load("ssd_scan", _SIGNATURES)
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), None if init is None else init.data_ptr(),
             y.data_ptr(), None if final is None else final.data_ptr(),
-            Bsz, S, H, P, G, N, xb, xs, bb, bs, cb, cs, db, ds,
+            scratch.data_ptr(), Bsz, S, H, P, G, N, xb, xs, bb, bs, cb, cs,
+            db, ds,
             int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "ssd_scan")

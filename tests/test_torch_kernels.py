@@ -435,6 +435,103 @@ def test_ssd_chunk_length_changes_only_rounding():
         assert bool(((got - want).abs() <= tol).all())
 
 
+def _ssd_kernel_order(x, dt, A, Bm, Cm, init=None, tile=64):
+    """The CUDA kernel's association in plain float32 torch (a test
+    helper): per 64-row tile the running log decay as the kernel's warp
+    scan sums it (pair sums, a Kogge-Stone scan over 32 lanes, each pair
+    finished from the lanes before it), the intra-tile term, the tile's
+    state increment dS = x^T (dt_s exp(cum_last - cum_s) B_s), the carry
+    S_in(c + 1) = exp(cum_last) S_in(c) + dS(c), and the inter term
+    exp(cum_t) C_t S_in(c)."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    t = -(-s // tile)
+    pad = t * tile - s
+
+    def tiles(v):   # (b, s, ...) -> (b, t, tile, ...), zero rows past s
+        v = torch.nn.functional.pad(v.float(), (0, 0) * (v.ndim - 2)
+                                    + (0, pad))
+        return v.reshape(b, t, tile, *v.shape[2:])
+    dtt = tiles(dt)                                       # (b,t,q,h)
+    xd = tiles(x) * dtt[..., None]                        # (b,t,q,h,p)
+    Bt = tiles(Bm).repeat_interleave(h // g, dim=3)       # (b,t,q,h,n)
+    Ct = tiles(Cm).repeat_interleave(h // g, dim=3)
+    pairs = (dtt * A).reshape(b, t, tile // 2, 2, h)
+    run = pairs[:, :, :, 0] + pairs[:, :, :, 1]
+    d = 1
+    while d < tile // 2:
+        run = torch.cat([run[:, :, :d], run[:, :, d:] + run[:, :, :-d]], 2)
+        d *= 2
+    excl = torch.cat([torch.zeros_like(run[:, :, :1]), run[:, :, :-1]], 2)
+    c0 = excl + pairs[:, :, :, 0]
+    cum = torch.stack([c0, c0 + pairs[:, :, :, 1]], 3).reshape(b, t, tile, h)
+
+    dw = dtt * torch.exp(cum[:, :, -1:] - cum)             # dt_s w_s
+    dS = torch.einsum("bcshp,bcshn->bchpn", tiles(x), Bt * dw[..., None])
+    decay = torch.exp(cum[:, :, -1])                      # (b,t,h)
+    state = (torch.zeros((b, h, p, n)) if init is None else init.float())
+    s_in = []
+    for c in range(t):
+        s_in.append(state)
+        state = decay[:, c, :, None, None] * state + dS[:, c]
+    mask = torch.tril(torch.ones((tile, tile), dtype=torch.bool))
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (b,t,q_t,q_s,h)
+    cb = torch.einsum("bcthn,bcshn->bctsh", Ct, Bt)
+    m = torch.where(mask[None, None, :, :, None],
+                    cb * torch.exp(seg.masked_fill(
+                        ~mask[None, None, :, :, None], 0.0)), 0.0)
+    intra = torch.einsum("bctsh,bcshp->bcthp", m, xd)
+    inter = torch.einsum("bcthn,bchpn->bcthp", Ct,
+                         torch.stack(s_in, 1)) * torch.exp(cum)[..., None]
+    y = (intra + inter).reshape(b, t * tile, h, p)[:, :s]
+    return y, state
+
+
+def _ssd_recurrence64(x, dt, A, Bm, Cm, init=None):
+    """The SSD's O(S) recurrence in float64 from a state, -> (y, final
+    state)."""
+    b, s, h, p = x.shape
+    rep = h // Bm.shape[2]
+    x, dt, A, Bm, Cm = (v.double() for v in (x, dt, A, Bm, Cm))
+    state = (torch.zeros((b, h, p, Bm.shape[3]), dtype=torch.float64)
+             if init is None else init.double())
+    ys = []
+    for i in range(s):
+        Bh = Bm[:, i].repeat_interleave(rep, 1)
+        Ch = Cm[:, i].repeat_interleave(rep, 1)
+        state = (state * torch.exp(dt[:, i] * A)[:, :, None, None]
+                 + torch.einsum("bhp,bhn->bhpn", x[:, i] * dt[:, i, :, None],
+                                Bh))
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch))
+    return torch.stack(ys, 1), state
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "carried"])
+def test_ssd_kernel_association_at_the_model_decay_rates(carried):
+    """The CUDA kernel's order of work (`_ssd_kernel_order`: 64-row tiles,
+    the warp scan, dS, the carry across tiles, intra + inter) at the
+    model's 512 rows and decay rates (A from -1 to -16), against a float64
+    evaluation and against the plain chunked form at the model's chunk of
+    256, within the card check's 1e-3 x rms + 1e-4 x |v|, for y and the
+    final state, from a zero and from a carried state."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked_plain
+    g = torch.Generator().manual_seed(1)
+    b, s, h, p, n = 1, 512, 24, 16, 32
+    x = 0.5 * torch.randn((b, s, h, p), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g))
+    A = -torch.linspace(1.0, 16.0, h)
+    Bm, Cm = (0.3 * torch.randn((b, s, 1, n), generator=g) for _ in range(2))
+    init = torch.randn((b, h, p, n), generator=g) if carried else None
+    y, st = _ssd_kernel_order(x, dt, A, Bm, Cm, init)
+    y64, st64 = _ssd_recurrence64(x, dt, A, Bm, Cm, init)
+    y256, st256 = ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=256,
+                                    initial_state=init, return_state=True)
+    assert y.dtype == torch.float32 and tuple(y.shape) == (b, s, h, p)
+    for got, want in ((y, y64), (st, st64), (y, y256), (st, st256)):
+        tol = 1e-3 * want.square().mean().sqrt() + 1e-4 * want.abs()
+        assert bool(((got.double() - want.double()).abs() <= tol).all())
+
+
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
@@ -552,6 +649,23 @@ def _flash_pieces_emulated(q, k, v, *, pieces: int, window=None):
     return out.transpose(1, 2).to(torch.bfloat16)
 
 
+def _flash_f64_bound(targs, window):
+    """The float64 plain result of the (bf16) inputs, each output's
+    condition sum_j |p_j| |v_j| / l, and the bound a bf16 output must
+    keep from the float64 value: one bf16 ulp of it (unfloored) plus
+    n_keys 2^-24 sum|p||v|/l, the worst-case error of a float32 sum of
+    the row's n_keys weighted values."""
+    q, k, v = (t.double() for t in targs)
+    want64 = ref.flash_attention_ref(q, k, v, window=window)
+    cond = ref.flash_attention_ref(q, k, v.abs(), window=window)
+    pos = torch.arange(q.shape[1], device=q.device, dtype=torch.float64)
+    n_keys = pos + 1 if window is None else (pos + 1).clamp_max(window)
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want64.abs().clamp_min(2.0 ** -126))) - 7)
+    bound = ulp + n_keys[None, :, None, None] * 2.0 ** -24 * cond
+    return want64, cond, bound
+
+
 FLASH_PIECES = [(2, s, h, k, d, None) for s, h, k, d in FLASH_SWEEP] + [
     (1, 300, 4, 1, 256, 70)]
 
@@ -590,6 +704,21 @@ def test_flash_fewer_pieces_of_p_lose_precision(b, s, h, k, d, window):
     assert worst[1] > 1.0 >= worst[2] > worst[3]
 
 
+@pytest.mark.parametrize("b,s,h,k,d,window", FLASH_PIECES,
+                         ids=[f"s{c[1]}h{c[2]}k{c[3]}d{c[4]}w{c[5]}"
+                              for c in FLASH_PIECES])
+def test_flash_three_bf16_pieces_within_the_float64_bound(b, s, h, k, d,
+                                                          window):
+    """The card test's bf16 check on the kernel's rounding emulated in
+    plain torch: within one bf16 ulp of the float64 plain result plus the
+    float32 sum's worst case over the row's keys."""
+    targs, _ = _flash_inputs(24, b, s, h, k, d, "bfloat16")
+    want64, _, bound = _flash_f64_bound(targs, window)
+    y = _flash_pieces_emulated(*targs, pieces=3, window=window)
+    assert want64.dtype == torch.float64
+    assert bool(((y.double() - want64).abs() <= bound).all())
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -614,20 +743,49 @@ def test_wire_kernels_on_card_bitwise(cuda, shape, dtype, zeros):
     assert torch.equal(d, twc._fake_quant_int8(x))
 
 
+# beyond the CPU sweep (fp32 W and output): the phi4-mini decode entry
+# (bf16 W and output), a part boundary inside one rank's K range of the
+# cluster split and inside a stage, 15 rows, fp32 W whose rows TMA cannot
+# address (C = 5121, the kernel's own copy path; at the sweep's K, since
+# over K = 4072 at these row scales two float32 summation orders, the
+# plain one included, differ from the exact sum by more than 1e-4 at a
+# few outputs), and rows past one 16-row tile
+Q8_CARD = [c + ("float32", "float32") for c in Q8_CASES] + [
+    ((3072,), (4, 1), 5120, False, "bfloat16", "bfloat16"),
+    ((1000, 2072), (4, 1), 5120, True, "bfloat16", "float32"),
+    ((3072,), (15,), 5120, False, "bfloat16", "bfloat16"),
+    ((96, 33), (4, 3), 5121, True, "float32", "float32"),
+    ((64, 31), (5, 7), 200, True, "float32", "bfloat16")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("widths,lead,cols,bias", Q8_CASES,
-                         ids=[f"{len(c[0])}part-c{c[2]}-b{int(c[3])}"
-                              for c in Q8_CASES])
-def test_splitcat_q8_kernel_on_card(cuda, widths, lead, cols, bias):
+@pytest.mark.parametrize("widths,lead,cols,bias,w_dtype,out_dtype", Q8_CARD,
+                         ids=[f"{len(c[0])}part-c{c[2]}-b{int(c[3])}" + (
+                             "" if c[4:] == ("float32", "float32") else
+                             f"-r{'x'.join(map(str, c[1]))}-w{c[4][:2]}"
+                             f"-o{c[5][:2]}") for c in Q8_CARD])
+def test_splitcat_q8_kernel_on_card(cuda, widths, lead, cols, bias, w_dtype,
+                                    out_dtype):
+    """fp32 output at rtol = atol = 1e-4 of the plain version; bf16 output
+    within one bf16 ulp (unfloored) of the fp32 plain result."""
     qs, ss, w, b = _q8_inputs(7, widths, lead, cols, bias)
+    wd = getattr(torch, w_dtype)
     args = ([torch.from_numpy(q).to(cuda) for q in qs],
             [torch.from_numpy(s).to(cuda) for s in ss],
-            torch.from_numpy(w).to(cuda),
-            None if b is None else torch.from_numpy(b).to(cuda))
+            torch.from_numpy(w).to(cuda, wd),
+            None if b is None else torch.from_numpy(b).to(cuda, wd))
     torch.backends.cuda.matmul.allow_tf32 = False
-    y = ops.splitcat_linear_q8(*args)
-    torch.testing.assert_close(y, splitcat_linear_q8_plain(*args),
-                               rtol=1e-4, atol=1e-4)
+    n = ops.launch_counts()["splitcat_linear_q8"]
+    y = ops.splitcat_linear_q8(*args, out_dtype=getattr(torch, out_dtype))
+    assert ops.launch_counts()["splitcat_linear_q8"] == n + 1
+    y32 = splitcat_linear_q8_plain(*args)
+    if out_dtype == "float32":
+        torch.testing.assert_close(y, y32, rtol=1e-4, atol=1e-4)
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            y32.abs().clamp_min(2.0 ** -126))) - 7)
+        assert y.dtype == torch.bfloat16
+        assert bool(((y.float() - y32).abs() <= ulp).all())
 
 
 # beyond the sweep: K slices (64 deep) that the cluster's split does not
@@ -678,24 +836,69 @@ def test_rmsnorm_kernel_on_card(cuda, shape, dtype):
         assert _within_bf16_ulp(_np(y.cpu()), _np(want32.cpu()))
 
 
+# fp32: the CPU sweep and a ragged length; bf16: state groups 1, 2 and 3,
+# state sizes 8, 32, 128 and 256 (one prefetch buffer), the Mamba2
+# prefill's heads and width, ragged lengths, and x, B and C as views with
+# 2-byte-odd token strides (rows TMA cannot address: the kernel reads them
+# in place)
+SSD_CARD = [c + ("float32", False) for c in SSD_SWEEP] + [
+    (100, 4, 1, 24, 8, 50, "float32", False),
+    (512, 24, 1, 64, 128, 256, "bfloat16", False),
+    (128, 4, 2, 16, 32, 32, "bfloat16", False),
+    (96, 3, 3, 64, 8, 32, "bfloat16", False),
+    (100, 6, 3, 24, 32, 50, "bfloat16", False),
+    (300, 8, 2, 64, 128, 300, "bfloat16", False),
+    (64, 2, 1, 32, 256, 64, "bfloat16", False),
+    (130, 4, 2, 32, 32, 65, "bfloat16", True)]
+
+
+def _ssd_card_id(c):
+    s, h, g, p, n, _, dtype, odd = c
+    if dtype == "float32":
+        return "ragged" if s == 100 else f"s{s}h{h}g{g}"
+    return f"bf16-s{s}h{h}g{g}p{p}n{n}" + ("-odd" if odd else "")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("carried", [False, True], ids=["zero", "carried"])
-@pytest.mark.parametrize("s,h,g,p,n,chunk", SSD_SWEEP + [(100, 4, 1, 24, 8,
-                                                          50)],
-                         ids=[f"s{c[0]}h{c[1]}g{c[2]}" for c in SSD_SWEEP]
-                         + ["ragged"])
-def test_ssd_kernel_on_card(cuda, s, h, g, p, n, chunk, carried):
-    ts, _ = _ssd_np(15, s, h, g, p, n, torch.float32)
+@pytest.mark.parametrize("s,h,g,p,n,chunk,dtype,odd", SSD_CARD,
+                         ids=[_ssd_card_id(c) for c in SSD_CARD])
+def test_ssd_kernel_on_card(cuda, s, h, g, p, n, chunk, dtype, odd,
+                            carried):
+    """fp32 at rtol = atol = 1e-4 of the plain version; bf16 (y and the
+    state) within 1e-3 x rms + 1e-4 x |v| of the float32 plain result on
+    the same inputs, plus one bf16 ulp for y (chip_smoke.py's check)."""
+    ts, _ = _ssd_np(15, s, h, g, p, n, dtype)
     ts = [t.to(cuda) for t in ts]
+    ts[1] = ts[1].float()           # dt is float32, as the model makes it
+    if odd:     # x, B and C inside rows of one value more
+        for i, (heads, width) in ((0, (h, p)), (3, (g, n)), (4, (g, n))):
+            wide = torch.zeros((2, s, heads * width + 1), dtype=ts[i].dtype,
+                               device=cuda)
+            wide[..., 1:] = ts[i].reshape(2, s, heads * width)
+            ts[i] = wide[..., 1:].unflatten(-1, (heads, width))
     init = (torch.randn((2, h, p, n), generator=torch.Generator(
         device=cuda).manual_seed(0), device=cuda) if carried else None)
+    n_launch = ops.launch_counts()["ssd_scan"]
     y, st = ops.ssd_scan(*ts, chunk=chunk, initial_state=init,
                          return_state=True)
+    assert ops.launch_counts()["ssd_scan"] == n_launch + 1
     from repro_torch.kernels.ssd_scan import ssd_chunked_plain
-    y_p, st_p = ssd_chunked_plain(*ts, chunk=chunk, initial_state=init,
-                                  return_state=True)
-    torch.testing.assert_close(y, y_p, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(st, st_p, rtol=1e-4, atol=1e-4)
+    if dtype == "float32":
+        y_p, st_p = ssd_chunked_plain(*ts, chunk=chunk, initial_state=init,
+                                      return_state=True)
+        torch.testing.assert_close(y, y_p, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(st, st_p, rtol=1e-4, atol=1e-4)
+        return
+    y_p, st_p = ssd_chunked_plain(*(t.float() for t in ts), chunk=chunk,
+                                  initial_state=init, return_state=True)
+    assert y.dtype == torch.bfloat16
+    for got, want, ulp in ((y, y_p, True), (st, st_p, False)):
+        tol = 1e-3 * want.square().mean().sqrt() + 1e-4 * want.abs()
+        if ulp:
+            tol = tol + torch.exp2(torch.floor(torch.log2(
+                want.abs().clamp_min(2.0 ** -126))) - 7)
+        assert bool(((got.float() - want).abs() <= tol).all())
 
 
 FLASH_CARD = [(2, s, h, k, d, None) for s, h, k, d in FLASH_SWEEP] + [
@@ -716,8 +919,12 @@ FLASH_CARD = [(2, s, h, k, d, None) for s, h, k, d in FLASH_SWEEP] + [
                          ids=[f"s{c[1]}h{c[2]}k{c[3]}d{c[4]}w{c[5]}"
                               for c in FLASH_CARD])
 def test_flash_kernel_on_card(cuda, b, s, h, k, d, window, dtype):
-    """The kernel against its plain version: fp32 at 2e-5, bf16 within
-    one bf16 ulp of the float32 plain result on the same inputs."""
+    """The kernel against its plain version: fp32 at 2e-5 of the float32
+    plain result; bf16 against the float64 plain result of the same bf16
+    inputs, within one bf16 ulp of it plus the worst-case error of a
+    float32 sum over the row's keys (`_flash_f64_bound`).  A float32
+    oracle is no reference for bf16 outputs where the sum cancels: its
+    own error there exceeds a bf16 ulp of the result."""
     targs, _ = _flash_inputs(23, b, s, h, k, d, dtype)
     targs = [t.to(cuda) for t in targs]
     n = ops.launch_counts()["flash_attention"]
@@ -727,5 +934,22 @@ def test_flash_kernel_on_card(cuda, b, s, h, k, d, window, dtype):
                                      window=window)
     if dtype == "float32":
         torch.testing.assert_close(y, want32, rtol=2e-5, atol=2e-5)
-    else:
-        assert _within_bf16_ulp(_np(y.cpu()), _np(want32.cpu()))
+        return
+    want64, cond, bound = _flash_f64_bound(targs, window)
+    err64 = (y.double() - want64).abs()
+    # the outputs the float32 oracle's 1-ulp check rejects, as evidence
+    ulp32 = torch.exp2(torch.floor(torch.log2(
+        want32.abs().clamp_min(2.0 ** -126))) - 7)
+    off = ((y.float() - want32).abs() > ulp32).nonzero().tolist()
+    for i in off[:8]:
+        i = tuple(i)
+        print(f"flash bf16 s{s}h{h}k{k}d{d}w{window} at {i}: kernel "
+              f"{y[i].item():.9g}, float32 plain {want32[i].item():.9g}, "
+              f"float64 plain {want64[i].item():.9g}, sum|p||v|/l "
+              f"{cond[i].item():.4g}, |kernel - float64| "
+              f"{err64[i].item():.3g} <= bound {bound[i].item():.3g}: "
+              f"{bool(err64[i] <= bound[i])}")
+    print(f"flash bf16 s{s}h{h}k{k}d{d}w{window}: {len(off)} outputs beyond "
+          f"1 ulp of the float32 oracle; {int((err64 > bound).sum())} "
+          f"beyond the float64 bound")
+    assert bool((err64 <= bound).all())
