@@ -11,7 +11,10 @@ Phases, each of which ends the run with a nonzero exit on any error:
    CUDA kernel from `src/repro_torch/kernels/csrc` (one nvcc per source,
    all at once), with the build seconds and ptxas's register report.
 2. Each kernel against its plain torch version on the card, at the main
-   paths' shapes: the wire quantize and dequantize bitwise, the fused q8
+   paths' shapes: the wire quantize and dequantize bitwise at every
+   payload the four paths send (each printed with its launches a run and
+   launches x (time - bound), beside the launch floor of a one-element
+   op), `wire_roundtrip`'s value and gradient bitwise, the fused q8
    entry matmul (and the card tests' other shapes of it), the dense
    splitcat entry, rmsnorm, the SSD scan and flash attention (phi4-mini's
    causal GQA prefill and RecurrentGemma's 2048-row window over a
@@ -165,28 +168,72 @@ def _payload(torch, shape, dtype, gen):
     return (x.reshape(rows, -1) * scales[:, None]).reshape(shape).to(dtype)
 
 
-def check_wire(torch, gen) -> tuple:
-    from repro_torch.core.wire_compress import _fake_quant_int8
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.wire_quant import wire_dequant, wire_quant
+def wire_payloads(torch) -> list:
+    """Every payload the four main paths hand the wire kernels, with the
+    launches of each kernel per run that the code implies: (path,
+    crossing, shape, dtype, launches).  A prefill sends the prompt's
+    activations up and the last position's logits down
+    (`serve/split_infer.py`), a decode step one row each way, a training
+    round two feature payloads up and two gradients down.  Two fp32 cases
+    on no path close the list."""
+    from repro_torch.configs import get_config
 
-    cases = [((4, 128, 3072), torch.bfloat16), ((4, 1, 3072), torch.bfloat16),
+    out = []
+    for path, arch, b, prompt, gen in (
+            ("serving", "phi4_mini_3_8b", B, PROMPT, GEN),
+            ("training", None, 0, 0, 0),
+            ("ssm_serving", "mamba2_130m", SB, SPROMPT, SGEN),
+            ("hybrid_serving", "recurrentgemma_2b", HB, HPROMPT, HGEN)):
+        if arch is None:
+            out.append((path, "up (features) / down (gradients)", (TB, 512),
+                        torch.float32, 4 * ROUNDS))
+            continue
+        cfg = get_config(arch)
+        out += [(path, "prefill up", (b, prompt, cfg.d_model), cfg.dtype, 1),
+                (path, "decode up", (b, 1, cfg.d_model), cfg.dtype, gen - 1),
+                (path, "down (logits)", (b, 1, cfg.vocab), cfg.dtype, gen)]
+    out += [(None, "no path", (4, 1, 3072), torch.float32, 0),
+            (None, "no path", (4, 128, 3072), torch.float32, 0)]
+    return out
+
+
+def check_wire(torch, gen) -> tuple:
+    """The wire kernels bitwise against the plain versions (and dequant
+    of the pack against the fake quantizer) at every payload of
+    `wire_payloads`, each kernel's time beside the plain version's, its
+    bound and its launches per run; the launch floor; `wire_roundtrip`'s
+    value and gradient bitwise.  Returns ({(shape, dtype): timings},
+    the payload list)."""
+    from repro_torch.core.wire_compress import _fake_quant_int8
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.wire_quant import (wire_dequant, wire_quant,
+                                                wire_roundtrip)
+
+    # five payloads draw from `gen`, in a fixed order, so the checks after
+    # this one see fixed inputs; the training payload and the rest have
+    # generators of their own
+    first = {((4, 128, 3072), torch.bfloat16), ((4, 1, 3072), torch.bfloat16),
              ((4, 1, 200064), torch.bfloat16), ((4, 1, 3072), torch.float32),
-             ((4, 128, 3072), torch.float32), ((128, 512), torch.float32)]
-    # the training path's payload draws from its own generator, so the
-    # other cases (and the checks after this one) see the inputs they
-    # always have
+             ((4, 128, 3072), torch.float32)}
     own = {(128, 512): torch.Generator(device="cuda").manual_seed(512)}
-    timings = {}
-    for shape, dtype in cases:
-        x = _payload(torch, shape, dtype, own.get(shape, gen))
+    rest = torch.Generator(device="cuda").manual_seed(17)
+    one = torch.zeros(1, device="cuda")
+    two = torch.zeros(1, device="cuda")
+    floor = time_ms(torch, [lambda: torch.add(one, 1, out=two)])
+    print(f"launch floor: {floor:.4f} ms (a one-element torch.add in the "
+          f"same CUDA-graph harness)")
+    payloads = wire_payloads(torch)
+    timings, gaps = {}, {"wire_quant": 0.0, "wire_dequant": 0.0}
+    for path, crossing, shape, dtype, n in payloads:
+        g = gen if (shape, dtype) in first else own.get(shape, rest)
+        x = _payload(torch, shape, dtype, g)
         q, s = wire_quant(x)
         q_ref, s_ref = ref.wire_quant_ref(x)
         torch.cuda.synchronize()
         if not (torch.equal(q, q_ref) and torch.equal(s, s_ref)):
-            n = (q != q_ref).sum().item()
+            bad = (q != q_ref).sum().item()
             fail(f"wire_quant {shape} {dtype}: not bitwise equal to the "
-                 f"plain version ({n} q elements differ)")
+                 f"plain version ({bad} q elements differ)")
         for out_dtype in {dtype, torch.float32}:
             d = wire_dequant(q, s, out_dtype)
             if not torch.equal(d, ref.wire_dequant_ref(q, s, out_dtype)):
@@ -194,8 +241,10 @@ def check_wire(torch, gen) -> tuple:
         if not torch.equal(wire_dequant(q, s, dtype), _fake_quant_int8(x)):
             fail(f"dequant(pack(x)) != fake_quant(x) at {shape} {dtype}")
         # the serving path hands these kernels a payload it has just
-        # written, so the inputs are timed warm in L2
-        tag = f"{tuple(shape)} {str(dtype).replace('torch.', '')}"
+        # written, so the inputs are timed warm in L2 (the 126 MB prefill
+        # payload of RecurrentGemma is cold by its size)
+        tag = (f"{path or '-'} {crossing} {tuple(shape)} "
+               f"{str(dtype).replace('torch.', '')}")
         tq = time_ms(torch, [lambda: wire_quant(x)])
         tq_plain = time_ms(torch, [lambda: ref.wire_quant_ref(x)])
         td = time_ms(torch, [lambda: wire_dequant(q, s, dtype)])
@@ -209,17 +258,52 @@ def check_wire(torch, gen) -> tuple:
         bq = bound_ms(nbytes(x, q, s), 3.0 * x.numel(), "fp32")
         bd = bound_ms(nbytes(q, s) + x.numel() * x.element_size(),
                       1.0 * x.numel(), "fp32")
-        print(f"wire_quant   {tag}: bitwise; kernel {tq:.4f} ms, plain "
-              f"{tq_plain:.4f} ms, bound {bq[0]:.4f} ms ({bq[1]})")
+        gaps["wire_quant"] += n * (tq - bq[0])
+        gaps["wire_dequant"] += n * (td - bd[0])
+        print(f"wire_quant   {tag}: bitwise; kernel {tq:.4f} ms "
+              f"({tq / floor:.2f}x the floor), plain {tq_plain:.4f} ms, "
+              f"bound {bq[0]:.5f} ms ({bq[1]}); {n} launches a run, "
+              f"launches x (kernel - bound) {n * (tq - bq[0]):.4f} ms")
         lib = (f"{td_lib:.4f} ms (torch.mul(q, s, out=y), bitwise equal)"
                if td_lib is not None else "none (torch.mul(q, s, out=y) is "
                "not bitwise the kernel's)")
-        print(f"wire_dequant {tag}: bitwise; kernel {td:.4f} ms, plain "
-              f"{td_plain:.4f} ms, library {lib}, bound {bd[0]:.4f} ms "
-              f"({bd[1]})")
+        print(f"wire_dequant {tag}: bitwise; kernel {td:.4f} ms "
+              f"({td / floor:.2f}x the floor), plain {td_plain:.4f} ms, "
+              f"library {lib}, bound {bd[0]:.5f} ms ({bd[1]}); {n} launches "
+              f"a run, launches x (kernel - bound) {n * (td - bd[0]):.4f} ms")
         timings[(tuple(shape), dtype)] = (tq, tq_plain, bq, td, td_plain, bd,
                                           td_lib)
-    return timings
+        del x, q, s, y_lib
+    print(f"wire launches a run {sum(p[-1] for p in payloads)} of each "
+          f"kernel; launches x (kernel - bound) summed: wire_quant "
+          f"{gaps['wire_quant']:.4f} ms, wire_dequant "
+          f"{gaps['wire_dequant']:.4f} ms")
+
+    # wire_roundtrip: the value and the gradient through the kernels,
+    # bitwise the plain path's, two launches of each kernel a call
+    for shape, dtype in (((4, 1, 200064), torch.bfloat16),
+                         ((128, 512), torch.float32)):
+        x = _payload(torch, shape, dtype, rest)
+        ct = _payload(torch, shape, dtype, rest)
+        before = ops.launch_counts()
+        leaf = x.detach().requires_grad_(True)
+        y = wire_roundtrip(leaf)
+        y.backward(ct)
+        after = ops.launch_counts()
+        want_y = ref.wire_dequant_ref(*ref.wire_quant_ref(x), dtype)
+        want_g = ref.wire_dequant_ref(*ref.wire_quant_ref(ct), dtype)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, want_y) and torch.equal(leaf.grad, want_g)):
+            fail(f"wire_roundtrip {shape} {dtype}: value or gradient not "
+                 f"bitwise the plain path's")
+        for name in ("wire_quant", "wire_dequant"):
+            if after[name] - before[name] != 2:
+                fail(f"wire_roundtrip: {after[name] - before[name]} "
+                     f"{name} launches for a forward and a backward, not 2")
+        print(f"wire_roundtrip {shape} {str(dtype).replace('torch.', '')}: "
+              f"value and gradient bitwise the plain path's, 2 launches of "
+              f"each kernel")
+    return timings, payloads
 
 
 def _bf16_ulp(torch, ref32):
@@ -1391,7 +1475,7 @@ def main():
     # phase 2: kernels against their plain versions
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
-    wire = check_wire(torch, gen)
+    wire, payloads = check_wire(torch, gen)
     sc_err, (t, t_plain, t_lib, b) = check_splitcat(torch, gen)
     dn_err, (td, td_plain, td_lib, bd) = check_splitcat_dense(torch, gen)
     rn_err, rn_t = check_rmsnorm(torch)
@@ -1407,6 +1491,16 @@ def main():
     reduced_ssm_against_cpu(torch)
     hybrid = hybrid_path(torch)
     reduced_hybrid_against_cpu(torch)
+
+    # the wire launches per payload add up to what each path was held to
+    for path, res in (("serving", run), ("training", train),
+                      ("ssm_serving", ssm), ("hybrid_serving", hybrid)):
+        want = sum(p[-1] for p in payloads if p[0] == path)
+        for name in ("wire_quant", "wire_dequant"):
+            if res["launches"][name] != want:
+                fail(f"{path}: {res['launches'][name]} {name} launches, "
+                     f"but its payloads in phase 2 add up to {want}")
+    print("wire launches by payload add up to each path's count")
 
     # phase 4: the record; launches are the four main paths' together
     kq = wire[((4, 1, 200064), torch.bfloat16)]

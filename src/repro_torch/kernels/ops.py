@@ -18,6 +18,7 @@ from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import splitcat_linear as _sc
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import wire_quant as _wq
+from repro_torch.kernels.wire_quant import wire_roundtrip  # noqa: F401
 
 _COUNTERS = (_wq.launches, _sc.launches, _rn.launches, _ssd.launches,
              _fa.launches)

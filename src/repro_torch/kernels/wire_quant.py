@@ -5,12 +5,16 @@ versions.
 last-axis row by its absmax; `wire_dequant(q, scale, dtype)` is the
 receiving side.  They replace `repro/kernels/wire_quant.py`'s
 `wire_quant_pallas` and `wire_dequant_pallas` (sources in
-`csrc/wire_quant.cu`).
+`csrc/wire_quant.cu`).  `wire_roundtrip(x)` is `dequant(quant(x))` with
+the wire's backward, the reference's custom VJP (`:125-148`) as an
+autograd Function over the two.
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel
-(or raises if it cannot be built or launched); a CPU or meta tensor takes
-the plain version, `kernels.ref.wire_quant_ref` / `wire_dequant_ref`,
-which the kernels match bitwise.  `launches` counts kernel launches.
+(or raises if it cannot be built or launched, as for a row wider than
+sixteen blocks' shared memory holds: over 3.2 MB of x); a CPU or meta
+tensor takes the plain version, `kernels.ref.wire_quant_ref` /
+`wire_dequant_ref`, which the kernels match bitwise.  `launches` counts
+kernel launches.
 """
 from __future__ import annotations
 
@@ -106,3 +110,26 @@ def wire_dequant(q: torch.Tensor, scale: torch.Tensor,
     build.check(err, "wire_dequant")
     launches["wire_dequant"] += 1
     return out
+
+
+def _roundtrip(x: torch.Tensor) -> torch.Tensor:
+    """dequant(quant(x)) in x's type; a 0-d leaf is a one-element row."""
+    q, s = wire_quant(x.reshape(1) if x.ndim == 0 else x.contiguous())
+    return wire_dequant(q, s, x.dtype).reshape(x.shape)
+
+
+class _WireRoundtrip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _roundtrip(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _roundtrip(g)
+
+
+def wire_roundtrip(x: torch.Tensor) -> torch.Tensor:
+    """dequant(quant(x)) whose backward squeezes the cotangent through the
+    same int8 wire: the client backprops the quantized cut gradient, as
+    the physical protocol would."""
+    return _WireRoundtrip.apply(x)

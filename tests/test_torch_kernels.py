@@ -6,7 +6,11 @@ the reference's Pallas kernels run in interpret mode, on the same numpy
 inputs:
 
 * wire quantize / dequantize and the fake quantizer: BITWISE, for fp32
-  and bf16, ragged rows, rows of zeros and 0-d leaves;
+  and bf16, ragged rows, rows of zeros, 0-d leaves, a ragged row that
+  takes the kernel's cluster path, rows of exact halves (round half to
+  even) and quotients one ulp either side of the halves;
+  `wire_roundtrip`'s output and gradient BITWISE against `jax.vjp` of the
+  reference's custom VJP;
 * the fused q8 entry matmul: allclose at rtol=atol=1e-4 (the sums run in
   another order), for 1 and 2 parts, with and without a bias, at odd
   widths;
@@ -31,6 +35,7 @@ inputs:
 Tests marked `gpu` run the CUDA kernels against the plain versions and
 skip where no GPU is visible.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +44,7 @@ import torch
 from repro.core import wire_compress as jwc
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels import wire_quant as jwq
 from repro_torch.core import wire_compress as twc
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.splitcat_linear import (splitcat_linear_plain,
@@ -74,6 +80,45 @@ def _np(a) -> np.ndarray:
     return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
 
 
+def _halves(seed, shape):
+    """Rows whose absmax is 127 * 2^e and whose other values are
+    +-(k + 1/2) * 2^e, k = 0..126, shuffled: the row scale is exactly 2^e,
+    so every quotient is a half and rounds to the even neighbour."""
+    rng = np.random.default_rng(seed)
+    k = np.arange(127, dtype=np.float32) + np.float32(0.5)
+    rows = []
+    for e in np.arange(shape[0]) * 4 - 3:
+        row = np.concatenate([[127.0], k, -k]).astype(np.float32)
+        rows.append(rng.permutation(row) * np.float32(2.0 ** e))
+    return np.stack(rows).reshape(shape)
+
+
+def _near_halves(seed, shape):
+    """fp32 rows of random absmax a whose values are RN((k + 1/2) s) and
+    its two float32 neighbours, s = RN(a * f32(1/127)): quotients on and
+    one ulp either side of the halves, where a quotient that is not the
+    IEEE one rounds to the other integer."""
+    rng = np.random.default_rng(seed)
+    rows = np.empty((int(np.prod(shape[:-1])), shape[-1]), np.float32)
+    for r in rows:
+        a = np.float32(abs(rng.standard_normal()) * 10.0 ** rng.uniform(-6, 3))
+        s = np.float32(a * np.float32(ref.INV127))
+        m = (rng.integers(-127, 127, r.size) + np.float32(0.5)) * s
+        step = rng.integers(-1, 2, r.size)
+        r[:] = np.where(step == 0, m, np.nextafter(
+            m, np.where(step > 0, np.inf, -np.inf).astype(np.float32)))
+        r[rng.integers(r.size)] = a
+    return rows.reshape(shape)
+
+
+def _wire_input(seed, shape, zeros):
+    if zeros == "halves":
+        return _halves(seed, shape)
+    if zeros == "near_halves":
+        return _near_halves(seed, shape)
+    return _payload(seed, shape, zero_rows=zeros)
+
+
 WIRE_CASES = [
     ((4, 1, 3072), "float32", ()),
     ((4, 1, 3072), "bfloat16", ()),
@@ -82,13 +127,19 @@ WIRE_CASES = [
     ((3, 200), "float32", ()),
     ((1,), "float32", ()),
     ((), "float32", ()),                    # 0-d leaf
+    ((2, 1, 20001), "bfloat16", (1,)),      # wide, ragged, a row of zeros
+    ((3, 255), "float32", "halves"),        # round half to even
+    ((3, 255), "bfloat16", "halves"),
+    ((4, 384), "float32", "near_halves"),   # quotients at the halves' ulps
 ]
-WIRE_IDS = [f"{'x'.join(map(str, s)) or '0d'}-{d}" for s, d, _ in WIRE_CASES]
+WIRE_IDS = [f"{'x'.join(map(str, s)) or '0d'}-{d}"
+            + (f"-{z.replace('_', '-')}" if isinstance(z, str) else "")
+            for s, d, z in WIRE_CASES]
 
 
 @pytest.mark.parametrize("shape,dtype,zeros", WIRE_CASES, ids=WIRE_IDS)
 def test_wire_quantize_bitwise_vs_reference(shape, dtype, zeros):
-    x_t, x_j = _pair(_payload(0, shape, zero_rows=zeros), dtype)
+    x_t, x_j = _pair(_wire_input(0, shape, zeros), dtype)
     q, s = ops.wire_quantize(x_t)
     q_int, s_int = jops.wire_quantize(x_j, interpret=True)
     x_rows = x_j if shape else x_j[None]
@@ -105,7 +156,7 @@ def test_wire_quantize_bitwise_vs_reference(shape, dtype, zeros):
 
 @pytest.mark.parametrize("shape,dtype,zeros", WIRE_CASES, ids=WIRE_IDS)
 def test_wire_dequantize_and_fake_quant_bitwise(shape, dtype, zeros):
-    x_t, x_j = _pair(_payload(1, shape, zero_rows=zeros), dtype)
+    x_t, x_j = _pair(_wire_input(1, shape, zeros), dtype)
     q_j, s_j = jops.wire_quantize(x_j, interpret=True)
     q, s = torch.from_numpy(np.array(q_j)), torch.from_numpy(np.array(s_j))
     for out in ("float32", "bfloat16"):
@@ -117,6 +168,40 @@ def test_wire_dequantize_and_fake_quant_bitwise(shape, dtype, zeros):
     # the physical wire's identity: dequant(pack(x)) == fake_quant(x)
     np.testing.assert_array_equal(_np(twc.unpack_int8(twc.pack_int8(x_t))),
                                   _np(fake))
+
+
+def test_halves_round_to_even():
+    x = torch.from_numpy(_halves(2, (3, 255)))
+    q, s = ops.wire_quantize(x)
+    assert torch.equal(s[:, 0], torch.tensor([2.0 ** -3, 2.0, 2.0 ** 5]))
+    half = (x / s).abs() % 1 == 0.5
+    assert int(half.sum()) == 3 * 254
+    assert bool((q[half] % 2 == 0).all())
+
+
+ROUNDTRIP_CASES = [((5, 40), "float32"), ((3, 7, 33), "bfloat16"),
+                   ((), "float32")]
+
+
+@pytest.mark.parametrize("shape,dtype", ROUNDTRIP_CASES,
+                         ids=[f"{'x'.join(map(str, s)) or '0d'}-{d}"
+                              for s, d in ROUNDTRIP_CASES])
+def test_wire_roundtrip_value_and_gradient_vs_reference(shape, dtype):
+    """Forward dequant(quant(x)) and the custom backward (the cotangent
+    through the same int8 wire), bitwise against jax.vjp of the
+    reference's `wire_roundtrip`."""
+    x_t, x_j = _pair(_payload(8, shape), dtype)
+    g_t, g_j = _pair(_payload(9, shape), dtype)
+    out_j, vjp = jax.vjp(jwq.wire_roundtrip, x_j)
+    (grad_j,) = vjp(g_j)
+    x_t.requires_grad_(True)
+    out = ops.wire_roundtrip(x_t)
+    out.backward(g_t)
+    assert out.dtype == x_t.dtype and tuple(out.shape) == shape
+    np.testing.assert_array_equal(_np(out.detach()), _np(out_j))
+    np.testing.assert_array_equal(_np(x_t.grad), _np(grad_j))
+    np.testing.assert_array_equal(_np(out.detach()),
+                                  _np(twc._fake_quant_int8(x_t.detach())))
 
 
 def test_quant_constants_are_the_reference_float32_values():
@@ -733,7 +818,7 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,dtype,zeros", WIRE_CASES, ids=WIRE_IDS)
 def test_wire_kernels_on_card_bitwise(cuda, shape, dtype, zeros):
-    x, _ = _pair(_payload(6, shape, zero_rows=zeros), dtype)
+    x, _ = _pair(_wire_input(6, shape, zeros), dtype)
     x = x.to(cuda)
     q, s = ops.wire_quantize(x)
     q_ref, s_ref = ref.wire_quant_ref(x if shape else x[None])
@@ -741,6 +826,104 @@ def test_wire_kernels_on_card_bitwise(cuda, shape, dtype, zeros):
     assert torch.equal(s.reshape(s_ref.shape), s_ref)
     d = ops.wire_dequantize(q, s, x.dtype)
     assert torch.equal(d, twc._fake_quant_int8(x))
+
+
+def _offset_view(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous view of t's values starting `offset` elements into
+    its storage (so off the allocator's 16-byte alignment)."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.storage_offset() == offset
+    return view
+
+
+# the main paths' wide and large payloads (logits rows of phi4-mini,
+# RecurrentGemma and Mamba2, the RecurrentGemma prefill uplink, the
+# training payload), an odd wide width, a zero row inside a cluster's
+# row, quotients at the halves' ulps in a cluster's row, x or q one
+# element off 16-byte alignment (narrow and wide), and rows over 256K
+# elements, whose slices go through shared memory
+WIRE_CARD = [((4, 1, 200064), "bfloat16", (), 0),
+             ((4, 1, 256000), "bfloat16", (), 0),
+             ((4, 1, 50280), "bfloat16", (), 0),
+             ((2, 1, 200063), "bfloat16", (), 0),
+             ((16384, 2560), "bfloat16", (), 0),
+             ((128, 512), "float32", (), 0),
+             ((3, 1, 200064), "bfloat16", (1,), 0),
+             ((3, 1, 50280), "float32", (2,), 0),
+             ((2, 1, 60000), "float32", "near_halves", 0),
+             ((2, 1, 400000), "bfloat16", (), 0),       # shared memory
+             ((2, 1, 1100000), "bfloat16", (1,), 0),
+             ((1, 1, 600000), "float32", (), 1),
+             ((4, 1, 3072), "bfloat16", (), 1),
+             ((5, 2047), "float32", (), 1),
+             ((2, 1, 200064), "bfloat16", (), 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,zeros,offset", WIRE_CARD,
+                         ids=[f"{'x'.join(map(str, c[0]))}-{c[1]}"
+                              + (f"-{c[2].replace('_', '-')}"
+                                 if isinstance(c[2], str) else
+                                 f"-zero{c[2][0]}" if c[2] else "")
+                              + (f"-off{c[3]}" if c[3] else "")
+                              for c in WIRE_CARD])
+def test_wire_kernels_on_card_at_path_shapes(cuda, shape, dtype, zeros,
+                                             offset):
+    """Bitwise against the plain versions and the fake quantizer, with x
+    (for the quantize) and q (for the dequantize) at `offset`."""
+    x, _ = _pair(_wire_input(10, shape, zeros), dtype)
+    x = _offset_view(x.to(cuda), offset)
+    n = ops.launch_counts()
+    q, s = ops.wire_quantize(x)
+    q_ref, s_ref = ref.wire_quant_ref(x)
+    assert torch.equal(s, s_ref)
+    assert torch.equal(q, q_ref)
+    for r in () if isinstance(zeros, str) else zeros:
+        assert bool((q.reshape(-1, shape[-1])[r] == 0).all())
+    fake = twc._fake_quant_int8(x)
+    q_in = _offset_view(q, offset)
+    for out in {x.dtype, torch.float32}:
+        d = ops.wire_dequantize(q_in, s, out)
+        assert torch.equal(d, ref.wire_dequant_ref(q, s, out))
+    assert torch.equal(ops.wire_dequantize(q_in, s, x.dtype), fake)
+    now = ops.launch_counts()
+    assert now["wire_quant"] == n["wire_quant"] + 1
+    assert now["wire_dequant"] == n["wire_dequant"] + 2 + (
+        x.dtype != torch.float32)
+
+
+@pytest.mark.gpu
+def test_wire_quant_raises_for_a_row_past_a_clusters_shared_memory(cuda):
+    """No fallback: 8 MB of x a row exceeds 16 blocks' shared memory."""
+    x = torch.ones((1, 2_000_000), dtype=torch.float32, device=cuda)
+    with pytest.raises(RuntimeError, match="wire_quant"):
+        ops.wire_quantize(x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", ROUNDTRIP_CASES + [
+    ((4, 1, 200064), "bfloat16"), ((128, 512), "float32")],
+    ids=lambda c: "x".join(map(str, c)) or "0d" if isinstance(c, tuple)
+    else c)
+def test_wire_roundtrip_on_card_bitwise(cuda, shape, dtype):
+    """Value and gradient through the kernels equal the plain path's."""
+    x, _ = _pair(_payload(11, shape), dtype)
+    g, _ = _pair(_payload(12, shape), dtype)
+    outs = []
+    for dev in ("cpu", cuda):
+        xd = x.to(dev).detach().requires_grad_(True)
+        n = ops.launch_counts()["wire_quant"]
+        y = ops.wire_roundtrip(xd)
+        y.backward(g.to(dev))
+        launched = ops.launch_counts()["wire_quant"] - n
+        assert launched == (0 if dev == "cpu" else 2)
+        outs.append((y.detach().cpu(), xd.grad.cpu()))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
 
 
 # beyond the CPU sweep (fp32 W and output): the phi4-mini decode entry
