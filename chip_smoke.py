@@ -12,7 +12,7 @@ Phases, each of which ends the run with a nonzero exit on any error:
    all at once), with the build seconds and ptxas's register report.
 2. Each kernel against its plain torch version on the card, at the main
    paths' shapes: the wire quantize and dequantize bitwise at every
-   payload the four paths send (each printed with its launches a run and
+   payload the five paths send (each printed with its launches a run and
    launches x (time - bound), beside the launch floor of a one-element
    op), `wire_roundtrip`'s value and gradient bitwise, the fused q8
    entry matmul (and the card tests' other shapes of it), the dense
@@ -67,6 +67,20 @@ Phases, each of which ends the run with a nonzero exit on any error:
    wire's tokens must equal the fake wire's, and a reduced hybrid model
    on the card must generate what the plain CPU path generates at a
    prompt past its window and no multiple of the kernel's tiles.
+3e. Vanilla training: VGG-16 at full width (13 convs + FC1 + FC2,
+   14,982,474 parameters, fp32, random weights from a seeded generator)
+   cut after its second conv (the paper's Table 1 setup), 4 clients
+   round-robin with the p2p weight handoff, `Plan(mode="vanilla")` with
+   AdamW over the physical int8 wire, 128 rows per client per turn, 30
+   rounds (120 turns) of `Session.fit` with launch counters zeroed just
+   before and read just after.  The loss must fall and every client's
+   evaluation accuracy reach three times chance; `wire_report` must bill
+   8,912,896 B up and the same down a turn, all physical, and the meter
+   41,140 B a handoff on top (`client_gb` exact, client 0 one handoff
+   short); the wire kernels must launch 716 times each (2 a turn at the
+   cut, 4 leaves a handoff); the physical wire must train bitwise like the
+   fake wire, and a reduced model trained on the card must match the plain
+   CPU path.
 4. A `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
@@ -169,13 +183,16 @@ def _payload(torch, shape, dtype, gen):
 
 
 def wire_payloads(torch) -> list:
-    """Every payload the four main paths hand the wire kernels, with the
+    """Every payload the five main paths hand the wire kernels, with the
     launches of each kernel per run that the code implies: (path,
     crossing, shape, dtype, launches).  A prefill sends the prompt's
     activations up and the last position's logits down
-    (`serve/split_infer.py`), a decode step one row each way, a training
-    round two feature payloads up and two gradients down.  Two fp32 cases
-    on no path close the list."""
+    (`serve/split_infer.py`), a decode step one row each way, a vertical
+    training round two feature payloads up and two gradients down, a
+    vanilla turn the cut activation up and its gradient down, and every
+    handoff but none before the first turn the client's four leaves (two
+    conv weights, two biases).  Two fp32 cases on no path close the
+    list."""
     from repro_torch.configs import get_config
 
     out = []
@@ -192,6 +209,16 @@ def wire_payloads(torch) -> list:
         out += [(path, "prefill up", (b, prompt, cfg.d_model), cfg.dtype, 1),
                 (path, "decode up", (b, 1, cfg.d_model), cfg.dtype, gen - 1),
                 (path, "down (logits)", (b, 1, cfg.vocab), cfg.dtype, gen)]
+    turns = V_CLIENTS * V_ROUNDS
+    f32 = torch.float32
+    out += [("vanilla_training", "cut up / down", (VB, 32, 32, 64), f32,
+             2 * turns),
+            ("vanilla_training", "handoff conv 1 w", (3, 3, 3, 64), f32,
+             turns - 1),
+            ("vanilla_training", "handoff biases", (64,), f32,
+             2 * (turns - 1)),
+            ("vanilla_training", "handoff conv 2 w", (3, 3, 64, 64), f32,
+             turns - 1)]
     out += [(None, "no path", (4, 1, 3072), torch.float32, 0),
             (None, "no path", (4, 128, 3072), torch.float32, 0)]
     return out
@@ -210,12 +237,15 @@ def check_wire(torch, gen) -> tuple:
                                                 wire_roundtrip)
 
     # five payloads draw from `gen`, in a fixed order, so the checks after
-    # this one see fixed inputs; the training payload and the rest have
+    # this one see fixed inputs; the training payloads and the rest have
     # generators of their own
     first = {((4, 128, 3072), torch.bfloat16), ((4, 1, 3072), torch.bfloat16),
              ((4, 1, 200064), torch.bfloat16), ((4, 1, 3072), torch.float32),
              ((4, 128, 3072), torch.float32)}
-    own = {(128, 512): torch.Generator(device="cuda").manual_seed(512)}
+    vanilla = torch.Generator(device="cuda").manual_seed(64)
+    own = {(128, 512): torch.Generator(device="cuda").manual_seed(512),
+           **{shape: vanilla for path, _, shape, _, _ in wire_payloads(torch)
+              if path == "vanilla_training"}}
     rest = torch.Generator(device="cuda").manual_seed(17)
     one = torch.zeros(1, device="cuda")
     two = torch.zeros(1, device="cuda")
@@ -1444,6 +1474,225 @@ def reduced_hybrid_against_cpu(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: vanilla training (round-robin, p2p handoff)
+# ---------------------------------------------------------------------------
+
+VB, V_CLIENTS, V_ROUNDS, V_CUT = 128, 4, 30, 2
+# the (128,32,32,64) fp32 cut as int8 + one fp32 scale a 64-wide row, up
+# and down each turn; the handoff's four leaves (3,3,3,64), (64,),
+# (3,3,64,64), (64,) the same way
+V_CUT_BYTES = VB * 32 * 32 * 64 + VB * 32 * 32 * 4
+V_HANDOFF_BYTES = 1836 + 68 + 39168 + 68
+
+
+def _vanilla_plan(cfg, wire, n_clients: int):
+    """`Plan(mode="vanilla")` over the VGG layer list cut after its second
+    conv."""
+    from repro_torch import optim
+    from repro_torch.api import Plan
+    from repro_torch.core.split import list_segmodel
+    from repro_torch.nn import convnets as C
+
+    plan = C.vgg_plan(cfg)
+    model = list_segmodel(len(plan), lambda g: C.vgg_init(g, cfg),
+                          lambda p, i, x: C.vgg_layer_apply(p, plan[i], x))
+    return Plan(mode="vanilla", model=model, cut=V_CUT, n_clients=n_clients,
+                optimizer=optim.adamw(LR), wire=wire)
+
+
+def _client_batches(gen, n: int, n_clients: int, rows: int, n_classes: int,
+                    hw: int = 32) -> list:
+    """`n` rounds of per-client batches [{"x": (rows, hw, hw, 3),
+    "labels"}] * n_clients from `data/synthetic.py:image_batch`."""
+    from repro_torch.data.synthetic import image_batch
+
+    out = []
+    for _ in range(n):
+        bs = [image_batch(gen, rows, n_classes, hw=hw)
+              for _ in range(n_clients)]
+        out.append([{"x": b["images"], "labels": b["labels"]} for b in bs])
+    return out
+
+
+def vanilla_path(torch) -> dict:
+    from repro_torch.api import leakage_probe, quantize_int8
+    from repro_torch.configs.vgg_cifar10 import CONFIG
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.engine import copy_tree, tree_at
+    from repro_torch.kernels import ops
+    from repro_torch.nn.module import param_count, tree_leaves
+
+    turns = V_CLIENTS * V_ROUNDS
+    print(f"vanilla path: {CONFIG.name} (13 convs + FC1 + FC2, fp32) cut "
+          f"after conv {V_CUT}, {V_CLIENTS} clients round-robin with the p2p "
+          f"handoff, batch {VB} per client per turn, {V_ROUNDS} rounds "
+          f"({turns} turns), AdamW({LR}), physical int8 wire")
+    phys = [quantize_int8(physical=True), leakage_probe()]
+    sess = _vanilla_plan(CONFIG, phys, V_CLIENTS).compile()
+    sess.init(seed=SEED)
+    n_client = param_count(tree_at(sess.state["clients"], 0))
+    n_server = param_count(sess.state["server"])
+    print(f"  client params {n_client} per client; server {n_server}; "
+          f"model {n_client + n_server}")
+    if (n_client, n_client + n_server) != (38_720, 14_982_474):
+        fail(f"vanilla: {n_client} client / {n_client + n_server} model "
+             "parameters, expected 38,720 / 14,982,474")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    batches = _client_batches(gen, V_ROUNDS + 1, V_CLIENTS, VB, N_CLASSES)
+    ev = image_batch(gen, EVAL_B, N_CLASSES)
+    ev = {"x": ev["images"], "labels": ev["labels"]}
+
+    report = sess.wire_report(batches[0])      # the meta probe, no kernels
+    for r in report:
+        print(f"  wire {r['name']} {r['direction']} {r['shape']} "
+              f"{r['dtype']}: {r['bytes']} B physical={r['physical']}")
+    want_report = [("cut_act", "up"), ("cut_grad", "down")]
+    if [(r["name"], r["direction"]) for r in report] != want_report or any(
+            r["shape"] != (VB, 32, 32, 64) or r["bytes"] != V_CUT_BYTES
+            or not r["physical"] for r in report):
+        fail(f"vanilla wire_report {report}: expected cut_act up and cut_grad "
+             f"down, ({VB},32,32,64), {V_CUT_BYTES} B each, physical")
+
+    # the first round also loads every cuDNN/cuBLAS kernel the turns use:
+    # it is timed on its own, the per-round time is that of rounds 2..
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    losses = sess.fit(lambda r: batches[r], rounds=1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses += sess.fit(lambda r: batches[r + 1], rounds=V_ROUNDS - 1)
+    end.record()
+    end.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    round_ms = start.elapsed_time(end) / (V_ROUNDS - 1)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  losses: first 5 {[round(x, 4) for x in losses[:5]]}, last 5 "
+          f"{[round(x, 4) for x in losses[-5:]]}")
+    print(f"  first round {first_s:.3f} s; then {round_ms:.3f} ms per round, "
+          f"{round_ms / V_CLIENTS:.3f} ms per turn (CUDA events over rounds "
+          f"2-{V_ROUNDS}, host {wall_s / (V_ROUNDS - 1) * 1e3:.3f} ms per "
+          f"round), {VB * V_CLIENTS / round_ms * 1e3:.1f} examples/s, peak "
+          f"{peak_gib:.2f} GiB")
+    print(f"  launches over the {V_ROUNDS} rounds: {launches}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"vanilla: non-finite training loss: {losses}")
+    if not statistics.mean(losses[-5:]) < statistics.mean(losses[:5]):
+        fail(f"vanilla: loss did not fall: {losses}")
+    # the wire kernels: the cut activation up and its gradient down every
+    # turn; the four client leaves at every handoff taken (every turn but
+    # the very first)
+    per_kernel = 2 * turns + 4 * (turns - 1)
+    hold_launches(launches, {"wire_quant": per_kernel,
+                             "wire_dequant": per_kernel,
+                             "splitcat_linear_q8": 0, "splitcat_linear": 0,
+                             "rmsnorm": 0, "ssd_scan": 0,
+                             "flash_attention": 0})
+
+    meter = sess.engine.meter
+    h = [V_ROUNDS - 1] + [V_ROUNDS] * (V_CLIENTS - 1)
+    want_gb = [(V_ROUNDS * 2 * V_CUT_BYTES + k * V_HANDOFF_BYTES) / 1e9
+               for k in h]
+    print(f"  meter: up {meter.bytes_up}, down {meter.bytes_down}, handoff "
+          f"{meter.sync_bytes} B; {sess.meter()}")
+    if (meter.bytes_up != [V_ROUNDS * V_CUT_BYTES] * V_CLIENTS
+            or meter.bytes_down != meter.bytes_up
+            or meter.sync_bytes != [k * V_HANDOFF_BYTES for k in h]
+            or sess.meter()["client_gb"] != want_gb):
+        fail(f"vanilla meter {sess.meter()['client_gb']} GB, expected "
+             f"{want_gb} ({2 * V_CUT_BYTES} wire B a turn, "
+             f"{V_HANDOFF_BYTES} B a handoff)")
+
+    accs = sess.evaluate_all(ev).tolist()
+    print(f"  evaluate_all ({EVAL_B} held-out rows): {accs}")
+    if len(accs) != V_CLIENTS or min(accs) < 3 / N_CLASSES:
+        fail(f"vanilla: evaluation accuracies {accs} after {V_ROUNDS} rounds, "
+             f"below three times chance ({1 / N_CLASSES})")
+    leak = sess.leakage_report(ev, client=0)
+    print(f"  leakage (distance correlation, raw vs wire): {leak}")
+
+    # where a round's time goes: one profiled round of V_CLIENTS turns
+    busy_ms = profile_device(torch, f"vanilla round ({V_CLIENTS} turns)",
+                             lambda: sess.run_round(batches[V_ROUNDS]),
+                             round_ms / 1e3, steps=1)
+
+    # the physical wire trains bitwise like the fake wire
+    st = sess.state
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs = {}
+    for name, wire in (("physical", phys), ("fake", [quantize_int8()])):
+        s2 = _vanilla_plan(CONFIG, wire, V_CLIENTS).compile()
+        s2.state = copy_tree(st)
+        ls = torch.cat([s2.run_round(batches[r]) for r in range(3)])
+        runs[name] = (ls, s2.state)
+    torch.backends.cudnn.deterministic = False
+    (lp, sp_), (lf, sf) = runs["physical"], runs["fake"]
+    same_state = all(torch.equal(a, b) for a, b in
+                     zip(tree_leaves(sp_), tree_leaves(sf)))
+    if not torch.equal(lp, lf) or not same_state:
+        fail(f"vanilla: physical wire losses {lp.tolist()} != fake wire "
+             f"losses {lf.tolist()} (states equal: {same_state})")
+    print(f"  physical wire == fake wire over 3 rounds ({3 * V_CLIENTS} "
+          f"turns), deterministic cuDNN: per-turn losses and final state "
+          f"bitwise ({lp.tolist()})")
+    del sess, runs, st
+    torch.cuda.empty_cache()
+    return {"launches": launches, "first_round_s": first_s,
+            "round_ms": round_ms, "turn_ms": round_ms / V_CLIENTS,
+            "examples_per_s": VB * V_CLIENTS / round_ms * 1e3,
+            "busy_ms": busy_ms, "peak_gib": peak_gib,
+            "wire_bytes_per_turn": 2 * V_CUT_BYTES,
+            "handoff_bytes": V_HANDOFF_BYTES,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "eval_accuracy": accs}
+
+
+def reduced_vanilla_against_cpu(torch):
+    """SMOKE VGG cut after its second conv, 3 clients, batch 8, 3 rounds
+    over the physical wire, from the same weights on the card (kernels)
+    and on the CPU (plain versions): per-turn losses and final parameters
+    allclose, meters equal."""
+    from repro_torch.api import quantize_int8
+    from repro_torch.configs.vgg_cifar10 import SMOKE
+    from repro_torch.nn.module import tree_leaves, tree_map
+
+    rtol, atol = 1e-4, 1e-5
+    wire = [quantize_int8(physical=True)]
+    on_cpu = _vanilla_plan(SMOKE, wire, 3).compile(device="cpu")
+    on_card = _vanilla_plan(SMOKE, wire, 3).compile()
+    on_cpu.init(seed=3)
+    on_card.state = tree_map(lambda t: t.to("cuda"), on_cpu.state)
+    batches = _client_batches(torch.Generator().manual_seed(4), 3, 3, 8,
+                              SMOKE.n_classes)
+    l_card = torch.cat([on_card.run_round(b) for b in batches]).cpu()
+    l_cpu = torch.cat([on_cpu.run_round(b) for b in batches])
+    pairs = list(zip(tree_leaves(on_card.state["clients"])
+                     + tree_leaves(on_card.state["server"]),
+                     tree_leaves(on_cpu.state["clients"])
+                     + tree_leaves(on_cpu.state["server"])))
+    worst = max((a.cpu() - b).abs().max().item() for a, b in pairs)
+    print(f"reduced vanilla training, card vs CPU plain path: losses "
+          f"{l_card.tolist()} vs {l_cpu.tolist()}; largest parameter "
+          f"difference {worst:.3e}")
+    if not torch.allclose(l_card, l_cpu, rtol=rtol, atol=atol):
+        fail("reduced vanilla training: card losses differ from the CPU's")
+    if not all(torch.allclose(a.cpu(), b, rtol=rtol, atol=atol)
+               for a, b in pairs):
+        fail(f"reduced vanilla training: final parameters differ beyond "
+             f"rtol {rtol}, atol {atol}")
+    if on_card.meter() != on_cpu.meter():
+        fail(f"reduced vanilla training: card meter {on_card.meter()} != "
+             f"CPU meter {on_cpu.meter()}")
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1491,10 +1740,13 @@ def main():
     reduced_ssm_against_cpu(torch)
     hybrid = hybrid_path(torch)
     reduced_hybrid_against_cpu(torch)
+    vanilla = vanilla_path(torch)
+    reduced_vanilla_against_cpu(torch)
 
     # the wire launches per payload add up to what each path was held to
-    for path, res in (("serving", run), ("training", train),
-                      ("ssm_serving", ssm), ("hybrid_serving", hybrid)):
+    paths = (("serving", run), ("training", train), ("ssm_serving", ssm),
+             ("hybrid_serving", hybrid), ("vanilla_training", vanilla))
+    for path, res in paths:
         want = sum(p[-1] for p in payloads if p[0] == path)
         for name in ("wire_quant", "wire_dequant"):
             if res["launches"][name] != want:
@@ -1502,14 +1754,11 @@ def main():
                      f"but its payloads in phase 2 add up to {want}")
     print("wire launches by payload add up to each path's count")
 
-    # phase 4: the record; launches are the four main paths' together
+    # phase 4: the record; launches are the five main paths' together
     kq = wire[((4, 1, 200064), torch.bfloat16)]
     fa = fa_t["RecurrentGemma-2B prefill"]
     src = "src/repro_torch/kernels/csrc/"
-    by_path = {name: {"serving": run["launches"][name],
-                      "training": train["launches"][name],
-                      "ssm_serving": ssm["launches"][name],
-                      "hybrid_serving": hybrid["launches"][name]}
+    by_path = {name: {path: res["launches"][name] for path, res in paths}
                for name in run["launches"]}
     n = {name: sum(v.values()) for name, v in by_path.items()}
     kernels = [
@@ -1572,6 +1821,8 @@ def main():
         {k: v for k, v in ssm.items() if k != "launches"}))
     print("hybrid serving path: " + json.dumps(
         {k: v for k, v in hybrid.items() if k != "launches"}))
+    print("vanilla training path: " + json.dumps(
+        {k: v for k, v in vanilla.items() if k != "launches"}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-from repro_torch.api.plan import MODES, Plan, softmax_xent  # noqa: F401
+from repro_torch.api.plan import (MODES, PORTED_MODES, Plan,  # noqa: F401
+                                  SplitFns, softmax_xent)
 from repro_torch.api.session import Session  # noqa: F401
 from repro_torch.api.wire import (WireAccountingError, WireStack,  # noqa: F401
                                   WireTape, WireTransform, leakage_probe,

@@ -1,24 +1,30 @@
 """`Plan` — the declarative description of a training run (port of
 `repro/api/plan.py`).
 
-A `Plan` names the collaboration mode, who the parties are
-(`n_clients`), the optimizers, the loss and an ordered stack of
-`WireTransform` middleware applied at the cut.  `Plan.compile()` lowers
-it onto the step-program IR and wraps the engine in a `Session`:
+A `Plan` names the collaboration mode, where the cut falls, who the
+parties are (`n_clients`), how turns are scheduled, the optimizers, the
+loss and an ordered stack of `WireTransform` middleware applied at the
+cut.  `Plan.compile()` lowers it onto the step-program IR and wraps the
+engine in a `Session`:
 
-    sess = Plan(mode="vertical", branch=branch, trunk=(t_init, t_apply),
-                n_clients=2, wire=[quantize_int8(physical=True)]).compile()
-    sess.fit(batches, rounds=30)
-    print(sess.meter(), sess.wire_report(batch))
+    sess = Plan(mode="vanilla", model=seg_model, cut=2, n_clients=4,
+                wire=[quantize_int8(physical=True)]).compile()
+    sess.fit(data, rounds=30)
+    print(sess.meter(), sess.wire_report(batches))
 
-This slice ports the vertical (multi-modal) mode; the other seven modes
-raise, naming ROADMAP.md.  `compile()` runs on the GPU unless given
-`device="cpu"`, and raises without one.
+Ported modes and their required fields:
+
+  vanilla   model (SegModel), cut; round_robin, sync "p2p" or "none"
+  vertical  branch, trunk=(init, apply)
+
+The other six modes, LM training (a `SplitFns` model) and the parallel
+and pipelined schedules raise, naming ROADMAP.md.  `compile()` runs on
+the GPU unless given `device="cpu"`, and raises without one.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -32,7 +38,8 @@ from repro_torch.engine import topology as topo
 
 MODES = ("vanilla", "u_shaped", "vertical", "multihop", "multitask",
          "extended_vanilla", "fedavg", "large_batch")
-PORTED_MODES = ("vertical",)
+PORTED_MODES = ("vanilla", "vertical")
+BRANCH_MODES = ("vertical", "multitask", "extended_vanilla")
 
 
 def softmax_xent(logits, labels):
@@ -40,6 +47,18 @@ def softmax_xent(logits, labels):
     float32.  `labels` are int64 class indices."""
     lp = torch.log_softmax(logits.float(), -1)
     return -lp.gather(-1, labels.long()[..., None]).mean()
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitFns:
+    """Vanilla-split hooks over an opaque model (the LM family): init the
+    full tree, split it at the cut, run each side.  Training over them is
+    not ported yet (ROADMAP.md)."""
+    init: Callable            # gen -> full params
+    split: Callable           # full params -> (client, server)
+    client_apply: Callable    # (pc, batch) -> cut activation
+    server_apply: Callable    # (ps, act) -> logits
+    full_apply: Callable | None = None   # (params, batch) -> logits
 
 
 def _clipped(opt, max_norm: float):
@@ -52,9 +71,13 @@ def _clipped(opt, max_norm: float):
 @dataclasses.dataclass(frozen=True)
 class Plan:
     mode: str
+    model: Any = None                     # vanilla: SegModel
+    cut: int | None = None                # vanilla
     branch: sp.Branch | None = None       # vertical: one per client
     trunk: tuple | None = None            # (init, apply)
     n_clients: int = 1
+    schedule: str | None = None           # None -> the mode's default
+    sync: str = "p2p"                     # "p2p" | "none" (round_robin)
     loss_fn: Callable = softmax_xent
     optimizer: "optim.Optimizer | None" = None  # None -> adamw(1e-3)
     optimizer_server: "optim.Optimizer | None" = None
@@ -73,7 +96,25 @@ class Plan:
                             _clipped(opt_s, self.clip_norm))
         return opt_c, opt_s
 
+    @property
+    def effective_schedule(self) -> str:
+        sched = {"serial": "round_robin"}.get(self.schedule, self.schedule)
+        if self.mode in BRANCH_MODES:
+            # branch fan-in kinds have no turn axis: one joint round
+            return "pipelined" if sched == "pipelined" else "parallel"
+        return sched or "round_robin"
+
     def _topology(self) -> topo.Topology:
+        if self.mode == "vanilla":
+            self._require(self.cut is not None, "needs cut=")
+            if isinstance(self.model, SplitFns):
+                raise NotImplementedError(
+                    "Plan(mode='vanilla') over SplitFns (LM training) is "
+                    "not ported yet: the port trains a SegModel; see "
+                    "ROADMAP.md")
+            self._require(isinstance(self.model, sp.SegModel),
+                          "needs model= (SegModel or SplitFns)")
+            return topo.vanilla(self.model, self.cut)
         self._require(self.branch is not None, "needs branch=")
         self._require(self.trunk is not None, "needs trunk=(init, apply)")
         return topo.vertical(self.branch, self.n_clients, *self.trunk)
@@ -95,5 +136,6 @@ class Plan:
         engine = RoundEngine(
             topology=with_wire(self._topology(), stack), loss_fn=self.loss_fn,
             optimizer_client=opt_c, optimizer_server=opt_s,
-            n_clients=self.n_clients)
+            n_clients=self.n_clients, schedule=self.effective_schedule,
+            sync=self.sync, wire_stack=stack if stack else None)
         return _session.Session(self, engine, stack, dev)

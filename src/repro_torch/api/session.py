@@ -43,9 +43,15 @@ class Session:
     def init(self, gen: torch.Generator | None = None, *, seed: int = 0):
         """Fresh state drawn from `gen` (a generator on the session's
         device), or from a generator seeded with `seed`."""
-        self.state = self.engine.init(self._generator(gen, seed))
+        self.state = self._engine_init(self._generator(gen, seed))
         self._probe_state_cache = None
         return self.state
+
+    def _engine_init(self, gen):
+        """The paper's identical clients for the turn kinds; one draw per
+        branch for the branch fan-in kinds."""
+        return self.engine.init(
+            gen, identical_clients=not self.engine.topology.parallel_only)
 
     def _state_for_probe(self):
         """The state the probes (`wire_report`, `leakage_report`) read:
@@ -54,7 +60,7 @@ class Session:
         if self.state is not None:
             return self.state
         if self._probe_state_cache is None:
-            self._probe_state_cache = self.engine.init(
+            self._probe_state_cache = self._engine_init(
                 self._generator(None, 0))
         return self._probe_state_cache
 
@@ -69,8 +75,8 @@ class Session:
         return tree_map(lambda t: t.to(self.device), batches)
 
     def run_round(self, batches):
-        """One round.  Returns the per-turn losses (a (1,) tensor for
-        the branch modes)."""
+        """One round.  Returns the per-turn losses ((n_clients,), or (1,)
+        for the branch modes)."""
         if self.state is None:
             self.init()
         self.state, losses = self.engine.run_round(self.state,
@@ -100,15 +106,17 @@ class Session:
 
     # ---- inspection --------------------------------------------------------
 
-    def evaluate(self, batch):
-        """Accuracy on one (unstacked) eval batch, a 0-d tensor."""
+    def evaluate(self, batch, *, client: int = 0):
+        """Accuracy on one (unstacked) eval batch, a 0-d tensor: client
+        `client` with the server (turn modes), or the joint fleet."""
         if self.state is None:
             self.init()
-        return self.engine.evaluate(self.state, self._prep(batch))
+        return self.engine.evaluate(self.state, self._prep(batch),
+                                    client=client)
 
     def evaluate_all(self, batch):
-        """Per-client accuracies: shape (1,) for the branch fan-in modes
-        (one joint fleet)."""
+        """Per-client accuracies: (n_clients,) for the turn modes, shape
+        (1,) for the branch fan-in modes (one joint fleet)."""
         if self.state is None:
             self.init()
         return self.engine.evaluate_all(self.state, self._prep(batch))
@@ -118,13 +126,14 @@ class Session:
         return self.engine.meter.totals()
 
     def wire_report(self, batches) -> list[dict]:
-        """Everything that crosses the boundary in ONE round for this
-        batch shape, priced through the wire middleware stack.  Free of
-        side effects: probing never initialises state or touches the
-        meter.  With a physical stack each crossing's bytes come from the
-        packed payload and are checked against the `bytes_fn` claim
-        (`WireAccountingError` on drift); each record carries a
-        `physical` flag naming which pricing applied."""
+        """Everything that crosses the boundary in ONE turn (a branch
+        mode's joint round) for this batch shape, priced through the wire
+        middleware stack.  Free of side effects: probing never
+        initialises state or touches the meter.  With a physical stack
+        each crossing's bytes come from the packed payload and are checked
+        against the `bytes_fn` claim (`WireAccountingError` on drift);
+        each record carries a `physical` flag naming which pricing
+        applied."""
         cost = self.engine.turn_cost(self._state_for_probe(),
                                      self._prep(batches))
         return [{"name": w.name, "direction": w.direction,
@@ -135,16 +144,20 @@ class Session:
 
     @torch.no_grad()
     def leakage_report(self, batch, *, client: int = 0) -> dict:
-        """Distance correlation between client `client`'s raw modality and
-        what crosses the wire after the transform stack.  `batch` is one
-        unstacked batch in the (K, B, ...) layout."""
+        """Distance correlation between the raw input client `client`
+        holds and what crosses the wire after the transform stack.  `batch`
+        is one unstacked batch (the branch modes: the (K, B, ...) layout,
+        `client` selecting the modality)."""
         topology = self.engine.topology
         state = self._state_for_probe()
         batch = self._prep(batch)
         pc = tree_at(state["clients"], client)
-        x_raw = batch["x"][client]
-        act = topology.client_fwd(pc, {**batch,
-                                       "x": batch["x"][client:client + 1]})
+        if topology.parallel_only:
+            x_raw = batch["x"][client]
+            probe = {**batch, "x": batch["x"][client:client + 1]}
+        else:
+            x_raw, probe = batch["x"], batch
+        act = topology.client_fwd(pc, probe)
         wire_val = self.wire_stack.pre_probe(act) if self.wire_stack else act
         return privacy.leakage_report(x_raw, wire_val, batch.get("labels"))
 

@@ -13,11 +13,15 @@ scales)` payload through the wire kernels, and `WireTape` then derives
 the metered bytes from the payload's real tensors and checks them
 against the `bytes_fn` claim (`WireAccountingError` on drift).
 
+Both flavours also squeeze the round-robin p2p weight handoff
+(`handoff=True`): the previously trained client's weights cross the same
+per-row int8 wire, leaf by leaf, before the next client adopts them.
+
 `leakage_probe()` is the identity on the wire; it marks the stack so
 `Session.leakage_report` measures the distance correlation between raw
 client inputs and what crosses after the other transforms.  `with_wire`
-routes a topology's grad paths through a stack.  `dp_noise` and the p2p
-weight handoff come with later slices (ROADMAP).
+routes a topology's grad paths through a stack.  `dp_noise` comes with a
+later slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.core.wire_compress import (_fake_quant_int8, as_dense,
                                             pack_int8, payload_nbytes,
                                             wire_bytes)
 from repro_torch.engine.topology import Topology
+from repro_torch.nn.module import tree_leaves, tree_map
 
 
 class WireAccountingError(AssertionError):
@@ -43,6 +48,7 @@ class WireTransform:
     bytes_fn: Callable       # (shape, dtype, nbytes) -> nbytes
     probe: bool = False      # True: offline-probe-only (identity on wire)
     physical: bool = False   # True: apply() emits the packed payload
+    handoff: bool = False    # True: also squeezes the p2p weight handoff
 
 
 def _identity_bytes(shape, dtype, nbytes):
@@ -50,10 +56,11 @@ def _identity_bytes(shape, dtype, nbytes):
 
 
 def quantize_int8(*, physical: bool = False) -> WireTransform:
-    """Per-row symmetric int8 quantization of everything that crosses.
-    physical=False fake-quants (float values, int8 information content);
-    physical=True packs through the wire kernels.  Both ship 1 byte per
-    element + one fp32 scale per last-axis row."""
+    """Per-row symmetric int8 quantization of everything that crosses,
+    the p2p weight handoff included.  physical=False fake-quants (float
+    values, int8 information content); physical=True packs through the
+    wire kernels.  Both ship 1 byte per element + one fp32 scale per
+    last-axis row."""
     if physical:
         apply = lambda t, name, direction: pack_int8(as_dense(t))
     else:
@@ -62,7 +69,7 @@ def quantize_int8(*, physical: bool = False) -> WireTransform:
         name="quantize_int8", apply=apply,
         bytes_fn=lambda shape, dtype, nbytes: wire_bytes(
             shape, quantized=True, base_dtype=dtype),
-        physical=physical)
+        physical=physical, handoff=True)
 
 
 def leakage_probe() -> WireTransform:
@@ -117,6 +124,10 @@ class WireStack:
     def physical(self) -> bool:
         return any(tr.physical for tr in self.transforms)
 
+    @property
+    def has_handoff(self) -> bool:
+        return any(tr.handoff for tr in self.transforms)
+
     def apply(self, t, name: str, direction: str):
         for tr in self.transforms:
             t = tr.apply(t, name, direction)
@@ -132,6 +143,54 @@ class WireStack:
         for tr in self.transforms:
             nbytes = tr.bytes_fn(tuple(shape), dtype, nbytes)
         return int(nbytes)
+
+    # ---- p2p weight handoff ------------------------------------------------
+
+    def _handoff_transforms(self) -> list:
+        return [tr for tr in self.transforms if tr.handoff]
+
+    def handoff_recv(self, tree):
+        """What the next client ADOPTS after the p2p handoff crossed the
+        wire: every leaf squeezed through the handoff transforms (dense in,
+        dense out; the fake and physical flavours give bitwise the same
+        values).  A 0-d leaf crosses as a one-element row."""
+        fns = self._handoff_transforms()
+        if not fns:
+            return tree
+
+        def leaf(a):
+            for tr in fns:
+                a = as_dense(tr.apply(a, "p2p_handoff", "p2p"))
+            return a
+
+        return tree_map(leaf, tree)
+
+    def handoff_pack(self, tree):
+        """The handoff's transport form, quantized once at the source:
+        packed int8 leaves when the stack is physical, the fake-quantized
+        dense tree otherwise.  `handoff_unpack(handoff_pack(x))` is
+        bitwise `handoff_recv(x)` in both flavours."""
+        if not self.has_handoff:
+            return tree
+        if self.physical:
+            return tree_map(pack_int8, tree)
+        return self.handoff_recv(tree)
+
+    def handoff_unpack(self, tree):
+        return tree_map(as_dense, tree)
+
+    def handoff_bytes(self, tree) -> int:
+        """Wire bytes of one p2p handoff payload, priced leafwise through
+        the handoff transforms' `bytes_fn`s."""
+        fns = self._handoff_transforms()
+        total = 0
+        for leaf in tree_leaves(tree):
+            shape, dtype = tuple(leaf.shape), leaf.dtype
+            nbytes = leaf.numel() * dtype.itemsize
+            for tr in fns:
+                nbytes = tr.bytes_fn(shape, dtype, nbytes)
+            total += int(nbytes)
+        return total
 
     # ---- probes ------------------------------------------------------------
 
@@ -177,18 +236,13 @@ class WireTape(list):
 
 
 def with_wire(topology: Topology, stack: WireStack) -> Topology:
-    """Wrap a branch fan-in topology so its grad paths run every
-    boundary value through `stack`: the training `round_grads` (a fresh
-    tape per call; records discarded, values transformed) and the
-    metering `turn_grads_wires` (the caller's list receives the
-    stack-priced records).  The turn kinds' paths come with the vanilla
-    slice (ROADMAP)."""
+    """Wrap a topology so its grad paths run every boundary value through
+    `stack`: the training `turn_grads` / `round_grads` (a fresh tape per
+    call; records discarded, values transformed) and the metering
+    `turn_grads_wires` (the caller's list receives the stack-priced
+    records)."""
     if not stack:
         return topology
-    if topology.round_grads is None:
-        raise NotImplementedError(
-            f"with_wire over the {topology.kind} topology is not ported "
-            "yet: this slice wires the branch fan-in kinds (ROADMAP.md)")
     fn = topology.turn_grads_wires
 
     def wired(*args):
@@ -198,6 +252,10 @@ def with_wire(topology: Topology, stack: WireStack) -> Topology:
         wires.extend(tape)
         return out
 
+    def taped(*args):
+        return fn(*args, WireTape(stack))
+
     return dataclasses.replace(
         topology, turn_grads_wires=wired,
-        round_grads=lambda *args: fn(*args, WireTape(stack)))
+        turn_grads=None if topology.turn_grads is None else taped,
+        round_grads=None if topology.round_grads is None else taped)

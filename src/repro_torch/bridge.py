@@ -17,10 +17,11 @@ and the port's.
   dtype (a conv window and the ring the model's, a state float32), and
   the ring's `pos` is a host int in the port, an int32 in the reference.
 * Everything else has the same layout in both packages, leaf for leaf:
-  the CNN list-of-dict trees (HWIO conv and `(in, out)` dense weights)
-  and a whole engine state — stacked `clients`, `server`, `opt_c`,
-  `opt_s` (with int32 `step`s) and `last_trained`
-  (`tree_from_jax` / `tree_to_numpy`).
+  the CNN list-of-dict trees (HWIO conv and `(in, out)` dense weights,
+  `{}` for a pool) and a whole engine state of the vertical or vanilla
+  mode — stacked `clients`, `server`, `opt_c`, `opt_s` (with int32
+  `step`s) and the int32 `last_trained` (`tree_from_jax` /
+  `tree_to_numpy`).
 
 Arrays cross as numpy: the caller turns the reference's tree into numpy
 arrays (`jax.tree_util.tree_map(np.asarray, tree)`) and hands it here,

@@ -1,5 +1,9 @@
-"""The cut: its wire records and the split training gradients (port of
-`repro/core/split.py:54-99, 189-220`).
+"""The cut: segmented models, their wire records and the split training
+gradients (port of `repro/core/split.py:22-138, 189-220`).
+
+A `SegModel` is a network as an ordered list of segments; the cut is an
+index into that list.  The client holds the parameters of segments
+[0, cut), the server the rest.
 
 The only tensors that cross the boundary are the cut activations (up)
 and the cut gradients (down), each through `record`, so the wire is a
@@ -10,19 +14,62 @@ backpropagates the gradient it received, so no gradient flows through
 the wire's pack/unpack (as in the reference, whose vjps start from the
 received values).
 
-This slice ports the vertical (multi-modal) split; the vanilla,
-u-shaped, multi-hop, multi-task and extended-vanilla grads follow
+This module ports the vanilla and the vertical (multi-modal) splits;
+the u-shaped, multi-hop, multi-task and extended-vanilla grads follow
 (ROADMAP).
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable
 
 import torch
 
 from repro_torch.core.wire_compress import as_dense
 from repro_torch.nn.module import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class SegModel:
+    """A model as `n_segments` sequential segments.
+
+    init(gen) -> params (indexable by segment via param_slice)
+    apply_range(params, x, lo, hi) -> activations after segment hi-1
+    param_slice(params, lo, hi) -> the parameters of segments [lo, hi)
+    param_join(slices) -> params   (inverse of slicing along segments)
+    """
+    n_segments: int
+    init: Callable
+    apply_range: Callable
+    param_slice: Callable
+    param_join: Callable
+
+
+def list_segmodel(n_segments, init, layer_apply) -> SegModel:
+    """SegModel over a list-of-param-dicts network (VGG): `layer_apply(
+    layer_params, i, x)` runs segment i.  With `offset`, `params` is a
+    slice starting at segment `offset` (the server's)."""
+    def apply_range(params, x, lo, hi, *, offset: int = 0):
+        for i in range(lo, hi):
+            x = layer_apply(params[i - offset], i, x)
+        return x
+
+    return SegModel(
+        n_segments=n_segments, init=init, apply_range=apply_range,
+        param_slice=lambda p, lo, hi: p[lo:hi],
+        param_join=lambda slices: sum(slices, []))
+
+
+def _takes_offset(model: SegModel) -> bool:
+    return "offset" in inspect.signature(model.apply_range).parameters
+
+
+def server_apply(model: SegModel, cut: int, ps, a):
+    """The server's segments [cut, n_segments) on the received `a`."""
+    if _takes_offset(model):
+        return model.apply_range(ps, a, cut, model.n_segments, offset=cut)
+    return model.apply_range(ps, a, cut, model.n_segments)
 
 
 @dataclasses.dataclass
@@ -81,6 +128,31 @@ def _grads(outputs, params, grad_outputs=None):
     it = iter([torch.zeros_like(p) if g is None else g
                for p, g in zip(leaves, gs)])
     return tree_map(lambda _: next(it), params)
+
+
+# ---------------------------------------------------------------------------
+# Vanilla split: client [0, cut) -> server [cut, L) + loss
+# ---------------------------------------------------------------------------
+
+def vanilla_split_grads(model: SegModel, cut: int, params_c, params_s, x,
+                        labels, loss_fn, wires: list | None = None):
+    """One split training step's gradients: (loss, g_client, g_server,
+    wires); the loss is detached.  The ONLY values linking the two sides
+    are the cut activation (up) and its gradient (down)."""
+    wires = wires if wires is not None else []
+    with torch.enable_grad():
+        pc = _leaf_params(params_c)
+        a = model.apply_range(pc, x, 0, cut)
+        act = record(wires, "cut_act", a.detach(), "up")
+
+        ps = _leaf_params(params_s)
+        recv = as_dense(act).detach().requires_grad_()
+        loss = loss_fn(server_apply(model, cut, ps, recv), labels)
+        g_server, g_act = _grads(loss, (ps, recv))
+
+        g_act = record(wires, "cut_grad", g_act, "down")
+        g_client = _grads(a, pc, as_dense(g_act))
+    return loss.detach(), g_client, g_server, wires
 
 
 # ---------------------------------------------------------------------------

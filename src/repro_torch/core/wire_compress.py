@@ -3,7 +3,8 @@
 Port of `repro/core/wire_compress.py`.  Both paths share one scheme,
 per-last-axis-row symmetric absmax int8:
 
-  * fake     — `_fake_quant_int8`: a quantize-dequantize in plain torch;
+  * fake     — `_fake_quant_int8` (and `quantized_wire`, the same with
+    the cotangent quantized too): a quantize-dequantize in plain torch;
     the value stays float and the metered bytes are a claim;
   * physical — `pack_int8` emits the `PackedInt8` payload (int8 q + fp32
     row scales) through the wire kernels; bytes come from the payload's
@@ -30,6 +31,24 @@ def _fake_quant_int8(x: torch.Tensor) -> torch.Tensor:
     scale = torch.clamp_min(scale, EPS)
     q = torch.clamp(torch.round(xf / scale), -127, 127)
     return (q * scale).to(x.dtype)
+
+
+class _QuantizedWire(torch.autograd.Function):
+    """The fake wire's custom VJP (`repro/core/wire_compress.py:47-60`):
+    fake-quant forward, fake-quant of the cotangent backward, so a
+    gradient crossing back carries int8 information content too."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _fake_quant_int8(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _fake_quant_int8(g)
+
+
+def quantized_wire(x: torch.Tensor) -> torch.Tensor:
+    return _QuantizedWire.apply(x)
 
 
 def wire_bytes(shape, *, quantized: bool, base_dtype=torch.bfloat16) -> int:

@@ -6,6 +6,7 @@ from repro_torch.engine.program import (Aggregate, ClientBwd,  # noqa: F401
                                         SendCut, ServerFwdBwd, Step,
                                         StepProgram, WeightHandoff,
                                         copy_tree, stack_batches,
-                                        stack_trees, tree_at, unstack_tree)
+                                        stack_trees, tree_at, tree_update,
+                                        unstack_tree)
 from repro_torch.engine.topology import (Topology, lower,  # noqa: F401
-                                         vertical)
+                                         vanilla, vertical)

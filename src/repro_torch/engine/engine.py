@@ -1,18 +1,23 @@
 """Multi-client round engine — an executor selection over the
-step-program IR (port of `repro/engine/engine.py:56-233`, branch path).
+step-program IR (port of `repro/engine/engine.py:56-233`).
 
 The engine stacks the N client trees along a leading client axis and
 runs ONE round per call.  The topology lowers to a `StepProgram` once;
-branch fan-in topologies (vertical) run their joint round through
-`program.run_branch`.  The turn topologies and their schedules
-(round_robin / parallel / pipelined executors) come with the vanilla
-slice (ROADMAP).
+`schedule=` picks the interpreter for the turn kinds:
+
+  schedule="round_robin" (or "serial") — `program.run_serial`, the
+      paper's serial round-robin with the p2p weight handoff.
+
+The parallel and pipelined schedules come with a later slice (ROADMAP).
+Branch fan-in topologies (vertical) have no turn axis; their joint round
+runs through `program.run_branch` (schedule "parallel").
 
 Resource accounting: wire shapes are static per (topology, batch shape),
 so the engine probes the wire records ONCE per batch shape on meta
 tensors (`accounting.probe_wire_records`) and then bills each round
 analytically.  WHICH crossings each client pays for is read off the
-program's `SendCut`/`RecvGrad` edges (`program.billed_wires`).
+program's `SendCut`/`RecvGrad` edges (`program.billed_wires`); the p2p
+handoff is billed to each client that received one.
 """
 from __future__ import annotations
 
@@ -23,10 +28,13 @@ import torch
 
 from repro_torch.core.accounting import (Meter, TurnCost, bytes_of_tree,
                                          flops_of_fn, probe_wire_records)
-from repro_torch.engine.program import (ExecContext, run_branch, stack_trees,
-                                        tree_at)
+from repro_torch.engine.program import (EXECUTORS, ExecContext, run_branch,
+                                        stack_trees, tree_at)
 from repro_torch.engine.topology import Topology, lower
 from repro_torch.nn.module import split_keys
+
+SCHEDULES = ("round_robin", "parallel", "pipelined")
+
 
 @dataclasses.dataclass
 class RoundEngine:
@@ -36,32 +44,51 @@ class RoundEngine:
     optimizer_client: Any
     optimizer_server: Any
     n_clients: int
+    schedule: str = "round_robin"
+    sync: str = "p2p"                   # "p2p" | "none" (round_robin)
+    wire_stack: Any = None              # api.wire.WireStack | None
 
     def __post_init__(self):
-        if not self.topology.parallel_only:
+        if self.schedule == "serial":       # IR executor name, accepted
+            self.schedule = "round_robin"
+        if self.schedule not in SCHEDULES:
+            raise ValueError(f"schedule must be one of {SCHEDULES}")
+        branch = self.topology.parallel_only
+        if branch and self.schedule == "round_robin":
+            raise ValueError(f"{self.topology.kind} topology is parallel-only")
+        ported = "parallel" if branch else "round_robin"
+        if self.schedule != ported:
             raise NotImplementedError(
-                f"the {self.topology.kind} topology's turn schedules are "
-                "not ported yet: this slice runs the branch fan-in round "
-                "(vertical); see ROADMAP.md")
+                f"schedule={self.schedule!r} for the {self.topology.kind} "
+                f"topology is not ported yet: the port runs it {ported!r}; "
+                "see ROADMAP.md")
         self.meter = Meter(self.n_clients)
         self._turn_costs: dict = {}     # batch-shape key -> TurnCost
+        self._wire_handoff = bool(self.wire_stack is not None
+                                  and self.wire_stack.has_handoff)
         self.program = lower(self.topology)
         self._ctx = ExecContext(
-            n_clients=self.n_clients, loss_fn=self.loss_fn,
+            n_clients=self.n_clients, sync=self.sync, loss_fn=self.loss_fn,
             optimizer_client=self.optimizer_client,
-            optimizer_server=self.optimizer_server)
+            optimizer_server=self.optimizer_server,
+            wire_stack=self.wire_stack, wire_handoff=self._wire_handoff)
 
     # ---- state ------------------------------------------------------------
 
-    def init(self, gen: torch.Generator):
-        """Stacked engine state on the generator's device.  Each client
-        draws its own init (modality branches are independent networks)
-        and the server takes client 0's draw of the trunk, as the
-        reference's `identical_clients=False` does."""
-        inits = [self.topology.init(g)
-                 for g in split_keys(gen, self.n_clients)]
-        clients = stack_trees([pc for pc, _ in inits])
-        ps = inits[0][1]
+    def init(self, gen: torch.Generator, *, identical_clients: bool = True):
+        """Stacked engine state on the generator's device.
+        identical_clients=True is the paper's setting: every client starts
+        from one draw.  False gives each client its own draw and the
+        server client 0's draw of the rest (modality branches are
+        independent networks)."""
+        if identical_clients:
+            pc, ps = self.topology.init(gen)
+            clients = stack_trees([pc] * self.n_clients)
+        else:
+            inits = [self.topology.init(g)
+                     for g in split_keys(gen, self.n_clients)]
+            clients = stack_trees([pc for pc, _ in inits])
+            ps = inits[0][1]
         opt_c = stack_trees(
             [self.optimizer_client.init(tree_at(clients, i))
              for i in range(self.n_clients)])
@@ -73,59 +100,88 @@ class RoundEngine:
     # ---- one round ---------------------------------------------------------
 
     def run_round(self, state, batches):
-        """batches: {"x": (N, B, ...), "labels": (B,)} (shared labels).
-        Returns (state, losses (1,)) and meters the round."""
+        """batches: dict of (N, B, ...) tensors (turn kinds), or the branch
+        layout {"x": (N, B, ...), "labels": (B,)} (shared labels).  Returns
+        (state, per-turn losses (N,), or (1,) for a branch round) and
+        meters the round."""
+        first = int(state["last_trained"]) < 0
         self.turn_cost(state, batches)          # probe once per shape
-        state, losses = run_branch(self.program, self._ctx, state, batches)
-        self._account_round(state, batches)
+        if self.program.round_type == "branch":
+            state, losses = run_branch(self.program, self._ctx, state,
+                                       batches)
+        else:
+            state, losses = EXECUTORS[self.schedule](self.program, self._ctx,
+                                                     state, batches)
+        self._account_round(state, batches, first_round=first)
         return state, losses
 
     # ---- resource accounting ---------------------------------------------
 
     def turn_cost(self, state, batches) -> TurnCost:
-        """Static per-round `TurnCost` for this batch shape: one probe of
-        the wire records and one FLOP count of the client forward, both
-        on meta tensors, per shape."""
+        """Static `TurnCost` for this batch shape (a turn's, or a branch
+        round's): one probe of the wire records and one FLOP count of the
+        client forward, both on meta tensors, per shape."""
         key = tuple(sorted((k, tuple(v.shape), str(v.dtype))
                            for k, v in batches.items()))
         if key not in self._turn_costs:
+            branch = self.topology.parallel_only
+            one = batches if branch else {k: v[0] for k, v in batches.items()}
+            pc = tree_at(state["clients"], 0)
             wires = probe_wire_records(
-                lambda cl, ps, b, w: self.topology.turn_grads_wires(
-                    cl, ps, b, self.loss_fn, w),
-                state["clients"], state["server"], batches)
+                lambda side, ps, b, w: self.topology.turn_grads_wires(
+                    side, ps, b, self.loss_fn, w),
+                state["clients"] if branch else pc, state["server"], one)
             flops = 0.0
             if self.topology.client_fwd is not None:
-                flops = 3.0 * flops_of_fn(self.topology.client_fwd,
-                                          tree_at(state["clients"], 0),
-                                          batches)
+                flops = 3.0 * flops_of_fn(self.topology.client_fwd, pc, one)
+            # the p2p handoff is wire traffic too: priced through the
+            # stack's handoff transforms (int8 + row scales under
+            # quantize_int8) instead of the dense parameter bytes
+            sync_bytes = (self.wire_stack.handoff_bytes(pc)
+                          if self._wire_handoff else
+                          bytes_of_tree(state["clients"]) // self.n_clients)
             self._turn_costs[key] = TurnCost(
-                wires=tuple(wires), flops=flops,
-                sync_bytes=bytes_of_tree(state["clients"]) // self.n_clients)
+                wires=tuple(wires), flops=flops, sync_bytes=sync_bytes)
         return self._turn_costs[key]
 
-    def _account_round(self, state, batches):
-        """Bill the round from the program's wire edges: each client
-        pays for the `SendCut`/`RecvGrad` steps whose `owner`/`client`
-        metadata point at it."""
+    def _account_round(self, state, batches, *, first_round: bool):
+        """Bill the round from the program's wire edges: each client pays
+        for the `SendCut`/`RecvGrad` steps whose `owner`/`client` metadata
+        point at it, and under the round-robin p2p schedule for every
+        handoff it received (all but client 0's in the first round)."""
         cost = self.turn_cost(state, batches)
         by_name: dict = {}
         for w in cost.wires:
             by_name.setdefault(w.name, []).append(w)
+        handoff = (self.program.round_type == "turn"
+                   and self.schedule == "round_robin"
+                   and self.sync == "p2p" and self.n_clients > 1)
         for ci in range(self.n_clients):
             self.meter.add_flops(ci, cost.flops)
             self.meter.add_wires(ci, [
                 w for name in self.program.billed_wires(ci)
                 for w in by_name.get(name, ())])
+            if handoff and not (first_round and ci == 0):
+                self.meter.sync_bytes[ci] += cost.sync_bytes
 
     # ---- eval --------------------------------------------------------------
 
     @torch.no_grad()
-    def evaluate(self, state, batch):
-        """Accuracy of the joint fleet on one batch (a 0-d tensor)."""
-        logits = self.topology.evaluate(state["clients"], state["server"],
-                                        batch)
+    def evaluate(self, state, batch, *, client: int = 0):
+        """Accuracy on one batch (a 0-d tensor): of the joint fleet for
+        the branch kinds, of client `client` with the server otherwise."""
+        if self.topology.parallel_only:
+            logits = self.topology.evaluate(state["clients"],
+                                            state["server"], batch)
+        else:
+            logits = self.topology.evaluate(tree_at(state["clients"], client),
+                                            state["server"], batch)
         return (logits.argmax(-1) == batch["labels"]).float().mean()
 
     def evaluate_all(self, state, batch):
-        """Branch fan-in kinds have a single joint fleet: shape (1,)."""
-        return self.evaluate(state, batch)[None]
+        """Per-client accuracies, (n_clients,) for the turn kinds; the
+        branch fan-in kinds have a single joint fleet: shape (1,)."""
+        if self.topology.parallel_only:
+            return self.evaluate(state, batch)[None]
+        return torch.stack([self.evaluate(state, batch, client=ci)
+                            for ci in range(self.n_clients)])

@@ -1,4 +1,5 @@
-"""The step-program IR (port of `repro/engine/program.py:53-206, 360-390`).
+"""The step-program IR (port of `repro/engine/program.py:53-249, 305-339,
+360-390, 491-494`).
 
 A Plan mode lowers (`repro_torch.engine.topology.lower`) into ONE
 `StepProgram`: a typed sequence of `Step`s describing one logical client
@@ -7,11 +8,16 @@ and weight movements (`WeightHandoff`) as first-class edges.  Wire
 middleware and `TurnCost` accounting attach to those edges:
 `billed_wires` tells the meter which crossings each client pays for.
 
-Executors interpret the program.  This slice ports `run_branch`, the
-joint round of the branch fan-in kinds (vertical): every branch
-contributes to ONE step, and each party then steps its optimizer.  The
-serial, parallel and pipelined executors come with the vanilla slice
-(ROADMAP).
+Executors interpret the program:
+
+  run_serial — the paper's round-robin (turn kinds): a Python loop over
+               the client turns, each adopting the last trained client's
+               weights first (the p2p handoff, `sync="p2p"`);
+  run_branch — the joint round of the branch fan-in kinds (vertical):
+               every branch contributes to ONE step, and each party then
+               steps its optimizer.
+
+The parallel and pipelined executors come with a later slice (ROADMAP).
 
 Engine state is a tree of tensors whose client entries are STACKED along
 a leading client axis, as in the reference: `clients` and `opt_c` hold
@@ -43,8 +49,20 @@ def unstack_tree(tree, n: int) -> list:
 
 
 def tree_at(tree, i: int):
-    """Client `i`'s slice of the leading client axis (views)."""
+    """Client `i`'s slice of the leading client axis (views).  It also
+    serves for the reference's `tree_index`: eager torch has no traced
+    index to tell apart from a static one."""
     return tree_map(lambda a: a[i], tree)
+
+
+def tree_update(tree, i: int, sub):
+    """A new stacked tree whose client `i` slice is `sub`; `tree` keeps
+    its values."""
+    def put(a, s):
+        out = a.clone()
+        out[i] = s
+        return out
+    return tree_map(put, tree, sub)
 
 
 def stack_batches(batches: list) -> dict:
@@ -172,16 +190,60 @@ class StepProgram:
 @dataclasses.dataclass(frozen=True)
 class ExecContext:
     """Everything an executor needs beyond the program: party count,
-    loss and optimizers."""
+    sync policy, loss, optimizers and the wire stack."""
     n_clients: int
+    sync: str
     loss_fn: Callable
     optimizer_client: Any
     optimizer_server: Any
+    wire_stack: Any = None         # api.wire.WireStack | None
+    wire_handoff: bool = False     # the stack squeezes the p2p handoff
 
 
 # ---------------------------------------------------------------------------
 # executors
 # ---------------------------------------------------------------------------
+
+
+def run_serial(program: StepProgram, ctx: ExecContext, state, batches):
+    """Round-robin over the client turns: client `ci` trains on
+    `batches[ci]` against the shared server, each party stepping its own
+    optimizer, client `ci` on its own slice (so per-client rules such as
+    AdamW's matrices-only decay see one client's shapes).  Under
+    `sync="p2p"` a client first adopts the last trained client's weights,
+    squeezed through the wire's handoff transforms.  Returns (state,
+    per-turn losses (N,))."""
+    topo = program.topology
+    n = ctx.n_clients
+    clients, opt_c = state["clients"], state["opt_c"]
+    server, opt_s = state["server"], state["opt_s"]
+    last = int(state["last_trained"])
+    losses = []
+    for ci in range(n):
+        batch = {k: v[ci] for k, v in batches.items()}
+        pc = tree_at(clients, ci)
+        # the reference squeezes the last client's weights on every turn
+        # and keeps them where `take` holds (a select under jit); here the
+        # handoff runs only where it is taken, every turn but the very
+        # first of the first round, with the same values, so the wire
+        # kernels launch once per leaf per handoff taken
+        if ctx.sync == "p2p" and n > 1 and last >= 0 and last != ci:
+            pc = tree_at(clients, last)
+            if ctx.wire_handoff:
+                pc = ctx.wire_stack.handoff_recv(pc)
+        loss, g_c, g_s = topo.turn_grads(pc, server, batch, ctx.loss_fn)
+        ups_c, oc = ctx.optimizer_client.update(g_c, tree_at(opt_c, ci), pc)
+        clients = tree_update(clients, ci, apply_updates(pc, ups_c))
+        opt_c = tree_update(opt_c, ci, oc)
+        ups_s, opt_s = ctx.optimizer_server.update(g_s, opt_s, server)
+        server = apply_updates(server, ups_s)
+        losses.append(loss)
+        last = ci
+    return {"clients": clients, "server": server, "opt_c": opt_c,
+            "opt_s": opt_s,
+            "last_trained": torch.tensor(last, dtype=torch.int32,
+                                         device=state["last_trained"].device)
+            }, torch.stack(losses)
 
 
 def run_branch(program: StepProgram, ctx: ExecContext, state, batches):
@@ -209,3 +271,9 @@ def _branch_step(ctx, state, losses, g_c, g_s):
     server = apply_updates(state["server"], ups_s)
     return {"clients": clients, "server": server, "opt_c": opt_c,
             "opt_s": opt_s, "last_trained": state["last_trained"]}, losses
+
+
+EXECUTORS = {
+    "round_robin": run_serial,
+    "serial": run_serial,
+}

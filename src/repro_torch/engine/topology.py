@@ -1,17 +1,21 @@
 """Declarative split-learning topologies and their lowering onto the
-step-program IR (port of `repro/engine/topology.py:57-139, 330-382`).
+step-program IR (port of `repro/engine/topology.py:57-208, 330-382`).
 
 A `Topology` names where the cut falls and lowers onto the grad
-functions in `repro_torch.core.split`; it owns no scheduling.  For the
-branch fan-in kinds the `RoundEngine` consumes
+functions in `repro_torch.core.split`; it owns no scheduling.  The
+`RoundEngine` consumes
 
-    init(gen)                          -> (client_params, server_params)
+    init(gen)                           -> (client_params, server_params)
+    turn_grads(pc, ps, batch, lf)       -> (loss, g_client, g_server)
+    turn_grads_wires(..., wires)        -> same, appending WireRecords
     round_grads(clients, ps, batch, lf) -> (loss, stacked g_clients, g_s)
-    turn_grads_wires(..., wires)       -> same, appending WireRecords
 
-`lower()` turns a Topology into the `StepProgram` the executors
-interpret.  This slice ports the vertical (multi-modal) topology; the
-other five kinds come with later slices (ROADMAP).
+the turn kinds (vanilla) through `turn_grads`, one client at a time; the
+branch fan-in kinds (vertical) through `round_grads`, all clients in one
+step.  `lower()` turns a Topology into the `StepProgram` the executors
+interpret.  This module ports the vanilla and vertical topologies; the
+other four kinds, `vanilla_fns` and the staged `pipeline_*` turn come
+with later slices (ROADMAP).
 """
 from __future__ import annotations
 
@@ -30,9 +34,11 @@ from repro_torch.nn.module import split_keys
 class Topology:
     kind: str
     init: Callable                # gen -> (client_params, server_params)
-    # (clients, ps, batch, loss_fn, wires) -> (loss, g_c, g_s), appending
-    # the crossings' WireRecords to `wires`
+    # (pc or clients, ps, batch, loss_fn, wires) -> (loss, g_c, g_s),
+    # appending the crossings' WireRecords to `wires`
     turn_grads_wires: Callable
+    # turn kinds: (pc, ps, batch, loss_fn) -> (loss, g_c, g_s)
+    turn_grads: Callable | None = None
     evaluate: Callable | None = None   # (pc, ps, batch) -> logits
     client_fwd: Callable | None = None  # (pc, batch) -> first outbound act
     # branch kinds: all clients contribute to ONE step
@@ -53,6 +59,20 @@ def lower(topology: Topology) -> ir.StepProgram:
         steps=tuple(topology.steps), topology=topology)
 
 
+def _turn_steps(*inner) -> tuple:
+    """The shared turn-kind frame: the p2p handoff edge in, one optimizer
+    step boundary out."""
+    return ((ir.WeightHandoff(name="p2p_handoff", direction="p2p",
+                              when="sync=p2p"),)
+            + tuple(inner) + (ir.Aggregate(what="step"),))
+
+
+def _drop_wires(turn_grads_wires):
+    def turn_grads(pc, ps, batch, loss_fn):
+        return turn_grads_wires(pc, ps, batch, loss_fn, [])
+    return turn_grads
+
+
 def _branch_fanin_steps(n_clients: int) -> tuple:
     """The K branch forwards + their billed wire edges (branch kinds)."""
     out = []
@@ -70,6 +90,43 @@ def _branch_fanout_steps(n_clients: int) -> tuple:
                             client=i),
                 ir.ClientBwd(stage=f"branch_{i}", client=i)]
     return tuple(out) + (ir.Aggregate(what="step"),)
+
+
+# ---------------------------------------------------------------------------
+# vanilla
+# ---------------------------------------------------------------------------
+
+VANILLA_STEPS = _turn_steps(
+    ir.ClientFwd(stage="client"),
+    ir.SendCut(name="cut_act", direction="up"),
+    ir.ServerFwdBwd(),
+    ir.RecvGrad(name="cut_grad", direction="down"),
+    ir.ClientBwd(stage="client"))
+
+
+def vanilla(model: sp.SegModel, cut: int) -> Topology:
+    """Client segments [0, cut), server [cut, L) and the loss.  Batch
+    layout per turn: {"x": (B, ...), "labels": (B,)}."""
+    def init(gen):
+        full = model.init(gen)
+        return (model.param_slice(full, 0, cut),
+                model.param_slice(full, cut, model.n_segments))
+
+    def turn_grads_wires(pc, ps, batch, loss_fn, wires):
+        loss, g_c, g_s, _ = sp.vanilla_split_grads(
+            model, cut, pc, ps, batch["x"], batch["labels"], loss_fn, wires)
+        return loss, g_c, g_s
+
+    def client_fwd(pc, batch):
+        return model.apply_range(pc, batch["x"], 0, cut)
+
+    def evaluate(pc, ps, batch):
+        return sp.server_apply(model, cut, ps, client_fwd(pc, batch))
+
+    return Topology(kind="vanilla", init=init,
+                    turn_grads=_drop_wires(turn_grads_wires),
+                    turn_grads_wires=turn_grads_wires, evaluate=evaluate,
+                    client_fwd=client_fwd, steps=VANILLA_STEPS)
 
 
 # ---------------------------------------------------------------------------

@@ -45,9 +45,9 @@ from repro.core import split as jsp
 from repro.engine import topology as jtopo
 from repro.nn import convnets as JC
 from repro_torch import bridge, optim
-from repro_torch.api import (MODES, Plan, WireStack, WireTape,
-                             leakage_probe, parse_wire, quantize_int8,
-                             softmax_xent)
+from repro_torch.api import (MODES, PORTED_MODES, Plan, WireStack,
+                             WireTape, leakage_probe, parse_wire,
+                             quantize_int8, softmax_xent)
 from repro_torch.configs import vgg_cifar10 as tvgg_cfg
 from repro_torch.core import privacy
 from repro_torch.core import split as sp
@@ -490,7 +490,7 @@ def test_distance_correlation_matches_reference():
 def test_unported_modes_and_devices_raise():
     _, tb, _, tt, _, _ = _mlp_branches()
     for mode in MODES:
-        if mode != "vertical":
+        if mode not in PORTED_MODES:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 Plan(mode=mode, branch=tb, trunk=tt).compile(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
