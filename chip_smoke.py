@@ -12,11 +12,11 @@ Phases, each of which ends the run with a nonzero exit on any error:
    all at once), with the build seconds and ptxas's register report.
 2. Each kernel against its plain torch version on the card, at the main
    paths' shapes: the wire quantize and dequantize bitwise at every
-   payload the five paths send (each printed with its launches a run and
-   launches x (time - bound), beside the launch floor of a one-element
-   op), `wire_roundtrip`'s value and gradient bitwise, the fused q8
-   entry matmul (and the card tests' other shapes of it), the dense
-   splitcat entry, rmsnorm, the SSD scan and flash attention (phi4-mini's
+   payload the eleven paths send, each once (printed with its launches a
+   run and launches x (time - bound), beside the launch floor of a
+   one-element op), `wire_roundtrip`'s value and gradient bitwise, the
+   fused q8 entry matmul (and the card tests' other shapes of it), the
+   dense splitcat entry, rmsnorm, the SSD scan and flash attention (phi4-mini's
    causal GQA prefill and RecurrentGemma's 2048-row window over a
    4096-row prompt) within the stated tolerances; each kernel's median
    time beside the plain version's, its bound and, where one PyTorch call
@@ -81,6 +81,31 @@ Phases, each of which ends the run with a nonzero exit on any error:
    cut, 4 leaves a handoff); the physical wire must train bitwise like the
    fake wire, and a reduced model trained on the card must match the plain
    CPU path.
+3f. The label-private and relay topologies, as 3e: `Plan(mode=
+   "u_shaped", cuts=(2, 19))` (the client keeps conv 1-2 and FC2 with the
+   loss; 8,912,896 + 66,048 B up and the same down a turn, 48,322 B a
+   handoff, 1,194 launches of each wire kernel) and `Plan(mode=
+   "multihop", cuts=[2, 7])` (8,912,896 B each way a turn billed, the
+   relay's (128,8,8,256) crossing unbilled, 956 launches of each).
+3g. Configuration (ii) on the vertical slice's two VGG-16 branches, 30
+   rounds of 128 rows: `multitask` with two 1024 -> 10 heads (task 1's
+   labels (labels + 1) % 10; each task's accuracy above three times
+   chance) and `extended_vanilla` with a 1024 -> 512 ReLU mid client and
+   a 512 -> 10 trunk; each bills 264,192 B a round (the mid client's
+   66,048 B each way unbilled) and launches each wire kernel 4 (6) times
+   a round.
+3h. The paper's comparison: `fedavg` (2 local steps) and `large_batch`
+   over full-width VGG-16, 4 clients of 128 rows, 30 rounds; the model
+   pulled and pushed through the physical wire at 15,120,370 B (59,929,896
+   B dense), so each client is billed 30,240,740 B a round and each wire
+   kernel launches 60 times a round; the global model's accuracy above
+   three times chance.  Then the measured client TFLOPs and GB of
+   splitNN (3e), fedavg and large_batch beside `paper_table1_setup(4)`'s
+   analytic rows; splitNN's client TFLOPs must be below large_batch's.
+   Every path of 3e-3h: the loss falls, bytes and launches exact, a round's
+   time from CUDA events and a profiled round's device busy time, physical
+   == fake bitwise over 3 rounds (deterministic cuDNN), and the reduced
+   SMOKE model on the card == the plain CPU path over 3 rounds.
 4. A `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
@@ -183,16 +208,20 @@ def _payload(torch, shape, dtype, gen):
 
 
 def wire_payloads(torch) -> list:
-    """Every payload the five main paths hand the wire kernels, with the
+    """Every payload the eleven main paths hand the wire kernels, with the
     launches of each kernel per run that the code implies: (path,
     crossing, shape, dtype, launches).  A prefill sends the prompt's
     activations up and the last position's logits down
     (`serve/split_infer.py`), a decode step one row each way, a vertical
-    training round two feature payloads up and two gradients down, a
-    vanilla turn the cut activation up and its gradient down, and every
-    handoff but none before the first turn the client's four leaves (two
-    conv weights, two biases).  Two fp32 cases on no path close the
-    list."""
+    or multitask training round two feature payloads up and two gradients
+    down (extended_vanilla adds the mid client's activation and
+    gradient), a turn every crossing of its kind once (vanilla the cut
+    both ways, u_shaped both cuts both ways, multihop the cut and the
+    relay hop both ways), and every handoff but none before the first
+    turn the client's leaves (two conv weights, two biases; u_shaped also
+    FC2's weight and bias).  A fedavg or large_batch round pulls every
+    VGG-16 leaf and pushes each stacked over the 4 clients.  Two fp32
+    cases on no path close the list."""
     from repro_torch.configs import get_config
 
     out = []
@@ -211,17 +240,55 @@ def wire_payloads(torch) -> list:
                 (path, "down (logits)", (b, 1, cfg.vocab), cfg.dtype, gen)]
     turns = V_CLIENTS * V_ROUNDS
     f32 = torch.float32
-    out += [("vanilla_training", "cut up / down", (VB, 32, 32, 64), f32,
+    handoff = [("handoff conv 1 w", (3, 3, 3, 64), turns - 1),
+               ("handoff biases", (64,), 2 * (turns - 1)),
+               ("handoff conv 2 w", (3, 3, 64, 64), turns - 1)]
+    out += [("vanilla_training", "cut up / down", CUT_SHAPE, f32, 2 * turns)]
+    out += [("vanilla_training", c, sh, f32, n) for c, sh, n in handoff]
+    out += [("u_shaped_training", "cut 1 up / down", CUT_SHAPE, f32,
              2 * turns),
-            ("vanilla_training", "handoff conv 1 w", (3, 3, 3, 64), f32,
+            ("u_shaped_training", "cut 2 down / up", (VB, 512), f32,
+             2 * turns)]
+    out += [("u_shaped_training", c, sh, f32, n) for c, sh, n in handoff]
+    out += [("u_shaped_training", "handoff FC2 w", (512, 10), f32,
              turns - 1),
-            ("vanilla_training", "handoff biases", (64,), f32,
-             2 * (turns - 1)),
-            ("vanilla_training", "handoff conv 2 w", (3, 3, 64, 64), f32,
-             turns - 1)]
+            ("u_shaped_training", "handoff FC2 b", (10,), f32, turns - 1)]
+    out += [("multihop_training", "hop 0 up / down", CUT_SHAPE, f32,
+             2 * turns),
+            ("multihop_training", "relay hop up / down", M_RELAY_SHAPE, f32,
+             2 * turns)]
+    out += [("multihop_training", c, sh, f32, n) for c, sh, n in handoff]
+    out += [("multitask_training", "up (features) / down (gradients)",
+             (TB, 512), f32, 4 * ROUNDS),
+            ("extended_vanilla_training", "branches and mid client, up / "
+             "down", (TB, 512), f32, 6 * ROUNDS)]
+    # the baselines pull every VGG-16 leaf and push it stacked over the
+    # clients, once a round each
+    for path in ("fedavg_training", "large_batch_training"):
+        for shape, k in _vgg16_leaf_shapes().items():
+            out += [(path, "model pull", shape, f32, k * V_ROUNDS),
+                    (path, "model push", (V_CLIENTS,) + shape, f32,
+                     k * V_ROUNDS)]
     out += [(None, "no path", (4, 1, 3072), torch.float32, 0),
             (None, "no path", (4, 128, 3072), torch.float32, 0)]
     return out
+
+
+def _vgg16_leaf_shapes() -> dict:
+    """VGG-16's leaf shapes (HWIO convs, (in, out) dense) -> how many
+    leaves have each."""
+    from collections import Counter
+
+    from repro_torch.configs.vgg_cifar10 import CONFIG
+
+    shapes, ch = [], CONFIG.in_ch
+    for item in CONFIG.plan:
+        if item != "M":
+            shapes += [(3, 3, ch, item), (item,)]
+            ch = item
+    shapes += [(ch, 512), (512,), (512, CONFIG.n_classes),
+               (CONFIG.n_classes,)]
+    return dict(Counter(shapes))
 
 
 def check_wire(torch, gen) -> tuple:
@@ -253,8 +320,13 @@ def check_wire(torch, gen) -> tuple:
     print(f"launch floor: {floor:.4f} ms (a one-element torch.add in the "
           f"same CUDA-graph harness)")
     payloads = wire_payloads(torch)
-    timings, gaps = {}, {"wire_quant": 0.0, "wire_dequant": 0.0}
+    # a payload several paths send is checked and timed once
+    uses: dict = {}
     for path, crossing, shape, dtype, n in payloads:
+        uses.setdefault((tuple(shape), dtype), []).append((path, crossing, n))
+    timings, gaps = {}, {"wire_quant": 0.0, "wire_dequant": 0.0}
+    for (shape, dtype), sent in uses.items():
+        n = sum(k for _, _, k in sent)
         g = gen if (shape, dtype) in first else own.get(shape, rest)
         x = _payload(torch, shape, dtype, g)
         q, s = wire_quant(x)
@@ -273,8 +345,9 @@ def check_wire(torch, gen) -> tuple:
         # the serving path hands these kernels a payload it has just
         # written, so the inputs are timed warm in L2 (the 126 MB prefill
         # payload of RecurrentGemma is cold by its size)
-        tag = (f"{path or '-'} {crossing} {tuple(shape)} "
-               f"{str(dtype).replace('torch.', '')}")
+        tag = (f"{tuple(shape)} {str(dtype).replace('torch.', '')} ("
+               + "; ".join(f"{path or '-'} {crossing} x{k}"
+                           for path, crossing, k in sent) + ")")
         tq = time_ms(torch, [lambda: wire_quant(x)])
         tq_plain = time_ms(torch, [lambda: ref.wire_quant_ref(x)])
         td = time_ms(torch, [lambda: wire_dequant(q, s, dtype)])
@@ -965,9 +1038,13 @@ WIRE_BYTES_PER_ROUND = 4 * (TB * 512 + TB * 4)     # 2 acts up, 2 grads down
 LR = 1e-4
 
 
-def _vertical_plan(cfg, n_feat: int, wire):
-    """`Plan(mode="vertical")` over two VGG branches cut after FC1 and a
-    dense trunk over the concatenated features."""
+def _branch_plan(cfg, n_feat: int, wire, mode: str = "vertical"):
+    """`Plan(mode=mode)` over two VGG branches cut after FC1: into a dense
+    trunk over the concatenated features (vertical), two dense task heads
+    (multitask), or a ReLU mid client of `n_feat` and a dense trunk
+    (extended_vanilla)."""
+    import torch
+
     from repro_torch import optim
     from repro_torch.api import Plan
     from repro_torch.core.split import Branch
@@ -977,10 +1054,19 @@ def _vertical_plan(cfg, n_feat: int, wire):
     to = len(cfg.plan) + 1                        # 13 convs, 5 pools, FC1
     branch = Branch(init=lambda g: C.vgg_init(g, cfg)[:to],
                     apply=lambda p, x: C.vgg_apply(p, cfg, x, to_layer=to))
-    trunk = (lambda g: L.dense_init(g, 2 * n_feat, cfg.n_classes, bias=True),
-             L.dense_apply)
-    return branch, Plan(mode="vertical", branch=branch, trunk=trunk,
-                        n_clients=2, optimizer=optim.adamw(LR), wire=wire)
+
+    def dense(n_in):
+        return (lambda g: L.dense_init(g, n_in, cfg.n_classes, bias=True),
+                L.dense_apply)
+    kw = {"vertical": lambda: {"trunk": dense(2 * n_feat)},
+          "multitask": lambda: {"heads": (dense(2 * n_feat),) * 2},
+          "extended_vanilla": lambda: {
+              "mid": (lambda g: L.dense_init(g, 2 * n_feat, n_feat,
+                                             bias=True),
+                      lambda p, x: torch.relu(L.dense_apply(p, x))),
+              "trunk": dense(n_feat)}}[mode]()
+    return branch, Plan(mode=mode, branch=branch, n_clients=2,
+                        optimizer=optim.adamw(LR), wire=wire, **kw)
 
 
 def _modality_batches(torch, gen, n: int, rows: int, n_classes: int,
@@ -1005,16 +1091,16 @@ def _modality_batches(torch, gen, n: int, rows: int, n_classes: int,
 def train_path(torch) -> dict:
     from repro_torch.api import leakage_probe, quantize_int8
     from repro_torch.configs.vgg_cifar10 import CONFIG
-    from repro_torch.engine import copy_tree, tree_at
+    from repro_torch.engine import tree_at
     from repro_torch.kernels import ops
     from repro_torch.nn import layers as L
-    from repro_torch.nn.module import param_count, tree_leaves
+    from repro_torch.nn.module import param_count
 
     print(f"training path: vertical split, 2 x VGG-16 branches ({CONFIG.name}"
           f", 13 convs + FC1, fp32) -> dense trunk 1024 -> 10, batch {TB} "
           f"per modality, {ROUNDS} rounds, AdamW({LR}), physical int8 wire")
     phys = [quantize_int8(physical=True), leakage_probe()]
-    branch, plan = _vertical_plan(CONFIG, 512, phys)
+    branch, plan = _branch_plan(CONFIG, 512, phys)
     sess = plan.compile()
     sess.init(seed=SEED)
     print(f"  branch params {param_count(tree_at(sess.state['clients'], 0))}"
@@ -1117,24 +1203,9 @@ def train_path(torch) -> dict:
                              lambda: sess.run_round(batches[next(it)]),
                              round_ms / 1e3)
 
-    # the physical wire trains bitwise like the fake wire
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    runs = {}
-    for name, wire in (("physical", phys), ("fake", [quantize_int8()])):
-        s2 = _vertical_plan(CONFIG, 512, wire)[1].compile()
-        s2.state = copy_tree(st)
-        runs[name] = (s2.fit(lambda r: batches[r], rounds=5), s2.state)
-    torch.backends.cudnn.deterministic = False
-    (lp, sp_), (lf, sf) = runs["physical"], runs["fake"]
-    same_state = all(torch.equal(a, b) for a, b in
-                     zip(tree_leaves(sp_), tree_leaves(sf)))
-    if lp != lf or not same_state:
-        fail(f"physical wire losses {lp} != fake wire losses {lf} "
-             f"(states equal: {same_state})")
-    print(f"  physical wire == fake wire over 5 rounds, deterministic cuDNN: "
-          f"losses and final state bitwise ({lp})")
-    del sess, runs, st
+    _physical_equals_fake(torch, lambda w: _branch_plan(CONFIG, 512, w)[1],
+                          phys, st, batches, 5, "vertical")
+    del sess, st
     torch.cuda.empty_cache()
     return {"launches": launches, "first_round_s": first_s,
             "round_ms": round_ms,
@@ -1143,40 +1214,6 @@ def train_path(torch) -> dict:
             "wire_bytes_per_round": billed // ROUNDS,
             "first_loss": losses[0], "last_loss": losses[-1],
             "eval_accuracy": acc}
-
-
-def reduced_training_against_cpu(torch):
-    """SMOKE VGG branches, batch 8, 3 rounds over the physical wire, from
-    the same weights on the card (kernels) and on the CPU (plain
-    versions): losses and final parameters allclose."""
-    from repro_torch.api import quantize_int8
-    from repro_torch.configs.vgg_cifar10 import SMOKE
-    from repro_torch.nn.module import tree_leaves, tree_map
-
-    rtol, atol = 1e-4, 1e-5
-    wire = [quantize_int8(physical=True)]
-    on_cpu = _vertical_plan(SMOKE, 128, wire)[1].compile(device="cpu")
-    on_card = _vertical_plan(SMOKE, 128, wire)[1].compile()
-    on_cpu.init(seed=3)
-    on_card.state = tree_map(lambda t: t.to("cuda"), on_cpu.state)
-    gen = torch.Generator().manual_seed(4)
-    batches = _modality_batches(torch, gen, 3, 8, SMOKE.n_classes, hw=16)
-    l_card = on_card.fit(lambda r: batches[r], rounds=3)
-    l_cpu = on_cpu.fit(lambda r: batches[r], rounds=3)
-    pairs = list(zip(tree_leaves(on_card.state["clients"])
-                     + tree_leaves(on_card.state["server"]),
-                     tree_leaves(on_cpu.state["clients"])
-                     + tree_leaves(on_cpu.state["server"])))
-    worst = max((a.cpu() - b).abs().max().item() for a, b in pairs)
-    print(f"reduced training, card vs CPU plain path: losses {l_card} vs "
-          f"{l_cpu}; largest parameter difference {worst:.3e}")
-    if not all(math.isclose(a, b, rel_tol=rtol, abs_tol=atol)
-               for a, b in zip(l_card, l_cpu)):
-        fail("reduced training: card losses differ from the CPU's")
-    if not all(torch.allclose(a.cpu(), b, rtol=rtol, atol=atol)
-               for a, b in pairs):
-        fail(f"reduced training: final parameters differ beyond rtol "
-             f"{rtol}, atol {atol}")
 
 
 # ---------------------------------------------------------------------------
@@ -1474,30 +1511,73 @@ def reduced_hybrid_against_cpu(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 3e: vanilla training (round-robin, p2p handoff)
+# phases 3e and 3f: the turn kinds (round-robin, p2p handoff)
 # ---------------------------------------------------------------------------
 
 VB, V_CLIENTS, V_ROUNDS, V_CUT = 128, 4, 30, 2
+CUT_SHAPE = (VB, 32, 32, 64)
 # the (128,32,32,64) fp32 cut as int8 + one fp32 scale a 64-wide row, up
 # and down each turn; the handoff's four leaves (3,3,3,64), (64,),
 # (3,3,64,64), (64,) the same way
 V_CUT_BYTES = VB * 32 * 32 * 64 + VB * 32 * 32 * 4
 V_HANDOFF_BYTES = 1836 + 68 + 39168 + 68
+# u_shaped cut at (2, 19): the client keeps conv 1-2 and FC2 with the loss,
+# so FC1's (128,512) output comes down and its gradient goes up, and the
+# handoff also carries FC2's (512,10) weight and (10,) bias
+U_CUTS = (2, 19)
+U_MID_BYTES = VB * 512 + VB * 4
+U_HANDOFF_BYTES = V_HANDOFF_BYTES + (512 * 10 + 512 * 4) + (10 + 4)
+# multihop cut at [2, 7]: a relay slab (pool, conv 3-4, pool, conv 5) sends
+# its (128,8,8,256) activation on, billed to no data client
+M_CUTS = [2, 7]
+M_RELAY_SHAPE = (VB, 8, 8, 256)
+M_RELAY_BYTES = VB * 8 * 8 * 256 + VB * 8 * 8 * 4
+VGG16_PARAMS = 14_982_474
+# per turn kind: its cut arguments at full width and on the SMOKE VGG, the
+# wire report a turn [(name, direction, shape, bytes, billed)], the handoff
+# bytes and leaves, and the client's parameters
+TURN_KINDS = {
+    "vanilla": dict(
+        cuts={"cut": V_CUT}, smoke={"cut": 2},
+        report=[("cut_act", "up", CUT_SHAPE, V_CUT_BYTES, True),
+                ("cut_grad", "down", CUT_SHAPE, V_CUT_BYTES, True)],
+        handoff=V_HANDOFF_BYTES, leaves=4, client_params=38_720),
+    "u_shaped": dict(
+        cuts={"cuts": U_CUTS}, smoke={"cuts": (2, 6)},
+        report=[("cut_act_1", "up", CUT_SHAPE, V_CUT_BYTES, True),
+                ("cut_act_2", "down", (VB, 512), U_MID_BYTES, True),
+                ("cut_grad_2", "up", (VB, 512), U_MID_BYTES, True),
+                ("cut_grad_1", "down", CUT_SHAPE, V_CUT_BYTES, True)],
+        handoff=U_HANDOFF_BYTES, leaves=6, client_params=38_720 + 5_130),
+    "multihop": dict(
+        cuts={"cuts": M_CUTS}, smoke={"cuts": [2, 4]},
+        report=[("hop_0_act", "up", CUT_SHAPE, V_CUT_BYTES, True),
+                ("hop_1_act", "up", M_RELAY_SHAPE, M_RELAY_BYTES, False),
+                ("hop_1_grad", "down", M_RELAY_SHAPE, M_RELAY_BYTES, False),
+                ("hop_0_grad", "down", CUT_SHAPE, V_CUT_BYTES, True)],
+        handoff=V_HANDOFF_BYTES, leaves=4, client_params=38_720),
+}
+NO_OTHER_KERNEL = {"splitcat_linear_q8": 0, "splitcat_linear": 0,
+                   "rmsnorm": 0, "ssd_scan": 0, "flash_attention": 0}
 
 
-def _vanilla_plan(cfg, wire, n_clients: int):
-    """`Plan(mode="vanilla")` over the VGG layer list cut after its second
-    conv."""
-    from repro_torch import optim
-    from repro_torch.api import Plan
+def _vgg_segmodel(cfg):
+    """The VGG layer list as a `SegModel`."""
     from repro_torch.core.split import list_segmodel
     from repro_torch.nn import convnets as C
 
     plan = C.vgg_plan(cfg)
-    model = list_segmodel(len(plan), lambda g: C.vgg_init(g, cfg),
-                          lambda p, i, x: C.vgg_layer_apply(p, plan[i], x))
-    return Plan(mode="vanilla", model=model, cut=V_CUT, n_clients=n_clients,
-                optimizer=optim.adamw(LR), wire=wire)
+    return list_segmodel(len(plan), lambda g: C.vgg_init(g, cfg),
+                         lambda p, i, x: C.vgg_layer_apply(p, plan[i], x))
+
+
+def _turn_plan(cfg, mode: str, wire, n_clients: int, cuts: dict):
+    """`Plan(mode=...)` of a turn kind over the VGG layer list."""
+    from repro_torch import optim
+    from repro_torch.api import Plan
+
+    return Plan(mode=mode, model=_vgg_segmodel(cfg), n_clients=n_clients,
+                optimizer=optim.adamw(LR), wire=wire, **cuts)
 
 
 def _client_batches(gen, n: int, n_clients: int, rows: int, n_classes: int,
@@ -1514,47 +1594,14 @@ def _client_batches(gen, n: int, n_clients: int, rows: int, n_classes: int,
     return out
 
 
-def vanilla_path(torch) -> dict:
-    from repro_torch.api import leakage_probe, quantize_int8
-    from repro_torch.configs.vgg_cifar10 import CONFIG
-    from repro_torch.data.synthetic import image_batch
-    from repro_torch.engine import copy_tree, tree_at
+def _timed_fit(torch, sess, batches, rounds: int):
+    """`Session.fit` over `rounds` rounds with launch counters zeroed just
+    before: the first round on its own (it also loads every cuDNN/cuBLAS
+    kernel the rounds use, lazily), then the rest under CUDA events.
+    Returns (losses, first round s, ms a round, host ms a round,
+    launches, peak GiB)."""
     from repro_torch.kernels import ops
-    from repro_torch.nn.module import param_count, tree_leaves
 
-    turns = V_CLIENTS * V_ROUNDS
-    print(f"vanilla path: {CONFIG.name} (13 convs + FC1 + FC2, fp32) cut "
-          f"after conv {V_CUT}, {V_CLIENTS} clients round-robin with the p2p "
-          f"handoff, batch {VB} per client per turn, {V_ROUNDS} rounds "
-          f"({turns} turns), AdamW({LR}), physical int8 wire")
-    phys = [quantize_int8(physical=True), leakage_probe()]
-    sess = _vanilla_plan(CONFIG, phys, V_CLIENTS).compile()
-    sess.init(seed=SEED)
-    n_client = param_count(tree_at(sess.state["clients"], 0))
-    n_server = param_count(sess.state["server"])
-    print(f"  client params {n_client} per client; server {n_server}; "
-          f"model {n_client + n_server}")
-    if (n_client, n_client + n_server) != (38_720, 14_982_474):
-        fail(f"vanilla: {n_client} client / {n_client + n_server} model "
-             "parameters, expected 38,720 / 14,982,474")
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    batches = _client_batches(gen, V_ROUNDS + 1, V_CLIENTS, VB, N_CLASSES)
-    ev = image_batch(gen, EVAL_B, N_CLASSES)
-    ev = {"x": ev["images"], "labels": ev["labels"]}
-
-    report = sess.wire_report(batches[0])      # the meta probe, no kernels
-    for r in report:
-        print(f"  wire {r['name']} {r['direction']} {r['shape']} "
-              f"{r['dtype']}: {r['bytes']} B physical={r['physical']}")
-    want_report = [("cut_act", "up"), ("cut_grad", "down")]
-    if [(r["name"], r["direction"]) for r in report] != want_report or any(
-            r["shape"] != (VB, 32, 32, 64) or r["bytes"] != V_CUT_BYTES
-            or not r["physical"] for r in report):
-        fail(f"vanilla wire_report {report}: expected cut_act up and cut_grad "
-             f"down, ({VB},32,32,64), {V_CUT_BYTES} B each, physical")
-
-    # the first round also loads every cuDNN/cuBLAS kernel the turns use:
-    # it is timed on its own, the per-round time is that of rounds 2..
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -1566,130 +1613,459 @@ def vanilla_path(torch) -> dict:
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    losses += sess.fit(lambda r: batches[r + 1], rounds=V_ROUNDS - 1)
+    losses += sess.fit(lambda r: batches[r + 1], rounds=rounds - 1)
     end.record()
     end.synchronize()
-    wall_s = time.perf_counter() - t0
+    host_ms = (time.perf_counter() - t0) / (rounds - 1) * 1e3
     launches = ops.launch_counts()
-    round_ms = start.elapsed_time(end) / (V_ROUNDS - 1)
+    round_ms = start.elapsed_time(end) / (rounds - 1)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"  losses: first 5 {[round(x, 4) for x in losses[:5]]}, last 5 "
           f"{[round(x, 4) for x in losses[-5:]]}")
-    print(f"  first round {first_s:.3f} s; then {round_ms:.3f} ms per round, "
-          f"{round_ms / V_CLIENTS:.3f} ms per turn (CUDA events over rounds "
-          f"2-{V_ROUNDS}, host {wall_s / (V_ROUNDS - 1) * 1e3:.3f} ms per "
-          f"round), {VB * V_CLIENTS / round_ms * 1e3:.1f} examples/s, peak "
-          f"{peak_gib:.2f} GiB")
-    print(f"  launches over the {V_ROUNDS} rounds: {launches}")
     if not all(map(math.isfinite, losses)):
-        fail(f"vanilla: non-finite training loss: {losses}")
+        fail(f"non-finite training loss: {losses}")
     if not statistics.mean(losses[-5:]) < statistics.mean(losses[:5]):
-        fail(f"vanilla: loss did not fall: {losses}")
-    # the wire kernels: the cut activation up and its gradient down every
-    # turn; the four client leaves at every handoff taken (every turn but
-    # the very first)
-    per_kernel = 2 * turns + 4 * (turns - 1)
-    hold_launches(launches, {"wire_quant": per_kernel,
-                             "wire_dequant": per_kernel,
-                             "splitcat_linear_q8": 0, "splitcat_linear": 0,
-                             "rmsnorm": 0, "ssd_scan": 0,
-                             "flash_attention": 0})
+        fail(f"loss did not fall: {losses}")
+    return losses, first_s, round_ms, host_ms, launches, peak_gib
 
-    meter = sess.engine.meter
-    h = [V_ROUNDS - 1] + [V_ROUNDS] * (V_CLIENTS - 1)
-    want_gb = [(V_ROUNDS * 2 * V_CUT_BYTES + k * V_HANDOFF_BYTES) / 1e9
-               for k in h]
-    print(f"  meter: up {meter.bytes_up}, down {meter.bytes_down}, handoff "
-          f"{meter.sync_bytes} B; {sess.meter()}")
-    if (meter.bytes_up != [V_ROUNDS * V_CUT_BYTES] * V_CLIENTS
-            or meter.bytes_down != meter.bytes_up
-            or meter.sync_bytes != [k * V_HANDOFF_BYTES for k in h]
-            or sess.meter()["client_gb"] != want_gb):
-        fail(f"vanilla meter {sess.meter()['client_gb']} GB, expected "
-             f"{want_gb} ({2 * V_CUT_BYTES} wire B a turn, "
-             f"{V_HANDOFF_BYTES} B a handoff)")
 
-    accs = sess.evaluate_all(ev).tolist()
-    print(f"  evaluate_all ({EVAL_B} held-out rows): {accs}")
-    if len(accs) != V_CLIENTS or min(accs) < 3 / N_CLASSES:
-        fail(f"vanilla: evaluation accuracies {accs} after {V_ROUNDS} rounds, "
-             f"below three times chance ({1 / N_CLASSES})")
-    leak = sess.leakage_report(ev, client=0)
-    print(f"  leakage (distance correlation, raw vs wire): {leak}")
+def _physical_equals_fake(torch, make_plan, phys, state, batches,
+                          rounds: int, what: str):
+    """From one state, `rounds` rounds over the physical and the fake wire
+    with deterministic cuDNN: per-turn losses and the final state
+    bitwise equal."""
+    from repro_torch.api import quantize_int8
+    from repro_torch.engine import copy_tree
+    from repro_torch.nn.module import tree_leaves
 
-    # where a round's time goes: one profiled round of V_CLIENTS turns
-    busy_ms = profile_device(torch, f"vanilla round ({V_CLIENTS} turns)",
-                             lambda: sess.run_round(batches[V_ROUNDS]),
-                             round_ms / 1e3, steps=1)
-
-    # the physical wire trains bitwise like the fake wire
-    st = sess.state
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     runs = {}
     for name, wire in (("physical", phys), ("fake", [quantize_int8()])):
-        s2 = _vanilla_plan(CONFIG, wire, V_CLIENTS).compile()
-        s2.state = copy_tree(st)
-        ls = torch.cat([s2.run_round(batches[r]) for r in range(3)])
+        s2 = make_plan(wire).compile()
+        s2.state = copy_tree(state)
+        ls = torch.cat([s2.run_round(batches[r]) for r in range(rounds)])
         runs[name] = (ls, s2.state)
     torch.backends.cudnn.deterministic = False
     (lp, sp_), (lf, sf) = runs["physical"], runs["fake"]
     same_state = all(torch.equal(a, b) for a, b in
                      zip(tree_leaves(sp_), tree_leaves(sf)))
     if not torch.equal(lp, lf) or not same_state:
-        fail(f"vanilla: physical wire losses {lp.tolist()} != fake wire "
+        fail(f"{what}: physical wire losses {lp.tolist()} != fake wire "
              f"losses {lf.tolist()} (states equal: {same_state})")
-    print(f"  physical wire == fake wire over 3 rounds ({3 * V_CLIENTS} "
-          f"turns), deterministic cuDNN: per-turn losses and final state "
-          f"bitwise ({lp.tolist()})")
-    del sess, runs, st
+    print(f"  physical wire == fake wire over {rounds} rounds, deterministic "
+          f"cuDNN: losses and final state bitwise ({lp.tolist()})")
+
+
+def turn_path(torch, mode: str) -> dict:
+    """Full-width VGG-16 as a turn kind (vanilla, u_shaped or multihop),
+    4 clients round-robin with the p2p handoff over the physical wire."""
+    from repro_torch.api import leakage_probe, quantize_int8
+    from repro_torch.configs.vgg_cifar10 import CONFIG
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.engine import tree_at
+    from repro_torch.nn.module import param_count
+
+    spec = TURN_KINDS[mode]
+    turns = V_CLIENTS * V_ROUNDS
+    print(f"{mode} path: {CONFIG.name} (13 convs + FC1 + FC2, fp32) cut at "
+          f"{spec['cuts']}, {V_CLIENTS} clients round-robin with the p2p "
+          f"handoff, batch {VB} per client per turn, {V_ROUNDS} rounds "
+          f"({turns} turns), AdamW({LR}), physical int8 wire")
+    phys = [quantize_int8(physical=True), leakage_probe()]
+
+    def make_plan(wire):
+        return _turn_plan(CONFIG, mode, wire, V_CLIENTS, spec["cuts"])
+    sess = make_plan(phys).compile()
+    sess.init(seed=SEED)
+    n_client = param_count(tree_at(sess.state["clients"], 0))
+    n_server = param_count(sess.state["server"])
+    print(f"  client params {n_client} per client; server {n_server}; "
+          f"model {n_client + n_server}")
+    if (n_client, n_client + n_server) != (spec["client_params"],
+                                           VGG16_PARAMS):
+        fail(f"{mode}: {n_client} client / {n_client + n_server} model "
+             f"parameters, expected {spec['client_params']} / "
+             f"{VGG16_PARAMS}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    batches = _client_batches(gen, V_ROUNDS + 1, V_CLIENTS, VB, N_CLASSES)
+    ev = image_batch(gen, EVAL_B, N_CLASSES)
+    ev = {"x": ev["images"], "labels": ev["labels"]}
+
+    report = sess.wire_report(batches[0])      # the meta probe, no kernels
+    for r in report:
+        print(f"  wire {r['name']} {r['direction']} {r['shape']} "
+              f"{r['dtype']}: {r['bytes']} B physical={r['physical']}")
+    want = [w[:4] for w in spec["report"]]
+    if [(r["name"], r["direction"], r["shape"], r["bytes"])
+            for r in report] != want or not all(r["physical"]
+                                                for r in report):
+        fail(f"{mode} wire_report {report}: expected {want}, all physical")
+
+    losses, first_s, round_ms, host_ms, launches, peak_gib = _timed_fit(
+        torch, sess, batches, V_ROUNDS)
+    print(f"  first round {first_s:.3f} s; then {round_ms:.3f} ms per round, "
+          f"{round_ms / V_CLIENTS:.3f} ms per turn (CUDA events over rounds "
+          f"2-{V_ROUNDS}, host {host_ms:.3f} ms per round), "
+          f"{VB * V_CLIENTS / round_ms * 1e3:.1f} examples/s, peak "
+          f"{peak_gib:.2f} GiB")
+    print(f"  launches over the {V_ROUNDS} rounds: {launches}")
+    # the wire kernels: once a crossing every turn (relay hops too), and
+    # once a client leaf at every handoff taken (every turn but the first)
+    per_kernel = len(spec["report"]) * turns + spec["leaves"] * (turns - 1)
+    hold_launches(launches, {"wire_quant": per_kernel,
+                             "wire_dequant": per_kernel, **NO_OTHER_KERNEL})
+
+    meter = sess.engine.meter
+    up = sum(w[3] for w in spec["report"] if w[4] and w[1] == "up")
+    down = sum(w[3] for w in spec["report"] if w[4] and w[1] == "down")
+    h = [V_ROUNDS - 1] + [V_ROUNDS] * (V_CLIENTS - 1)
+    want_gb = [(V_ROUNDS * (up + down) + k * spec["handoff"]) / 1e9
+               for k in h]
+    totals = sess.meter()
+    print(f"  meter: up {meter.bytes_up}, down {meter.bytes_down}, handoff "
+          f"{meter.sync_bytes} B; {totals}")
+    if (meter.bytes_up != [V_ROUNDS * up] * V_CLIENTS
+            or meter.bytes_down != [V_ROUNDS * down] * V_CLIENTS
+            or meter.sync_bytes != [k * spec["handoff"] for k in h]
+            or totals["client_gb"] != want_gb):
+        fail(f"{mode} meter {totals['client_gb']} GB, expected {want_gb} "
+             f"({up} + {down} billed wire B a turn, {spec['handoff']} B a "
+             f"handoff)")
+
+    accs = sess.evaluate_all(ev).tolist()
+    print(f"  evaluate_all ({EVAL_B} held-out rows): {accs}")
+    if len(accs) != V_CLIENTS or min(accs) < 3 / N_CLASSES:
+        fail(f"{mode}: evaluation accuracies {accs} after {V_ROUNDS} rounds, "
+             f"below three times chance ({1 / N_CLASSES})")
+    if sess.engine.topology.client_fwd is not None:
+        leak = sess.leakage_report(ev, client=0)
+        print(f"  leakage (distance correlation, raw vs wire): {leak}")
+
+    # where a round's time goes: one profiled round of V_CLIENTS turns
+    busy_ms = profile_device(torch, f"{mode} round ({V_CLIENTS} turns)",
+                             lambda: sess.run_round(batches[V_ROUNDS]),
+                             round_ms / 1e3, steps=1)
+    _physical_equals_fake(torch, make_plan, phys, sess.state, batches, 3,
+                          mode)
+    del sess
     torch.cuda.empty_cache()
     return {"launches": launches, "first_round_s": first_s,
             "round_ms": round_ms, "turn_ms": round_ms / V_CLIENTS,
             "examples_per_s": VB * V_CLIENTS / round_ms * 1e3,
             "busy_ms": busy_ms, "peak_gib": peak_gib,
-            "wire_bytes_per_turn": 2 * V_CUT_BYTES,
-            "handoff_bytes": V_HANDOFF_BYTES,
+            "wire_bytes_per_turn": up + down,
+            "handoff_bytes": spec["handoff"],
+            "client_tflops": statistics.mean(totals["client_tflops"]),
+            "client_gb": statistics.mean(totals["client_gb"]),
             "first_loss": losses[0], "last_loss": losses[-1],
             "eval_accuracy": accs}
 
 
-def reduced_vanilla_against_cpu(torch):
-    """SMOKE VGG cut after its second conv, 3 clients, batch 8, 3 rounds
-    over the physical wire, from the same weights on the card (kernels)
-    and on the CPU (plain versions): per-turn losses and final parameters
-    allclose, meters equal."""
-    from repro_torch.api import quantize_int8
-    from repro_torch.configs.vgg_cifar10 import SMOKE
+def _reduced_against_cpu(torch, what: str, make_plan, batches):
+    """One plan on the card (kernels) and on the CPU (plain versions) from
+    the same state, 3 rounds over the physical wire: per-turn losses and
+    the whole final state allclose, meters equal."""
     from repro_torch.nn.module import tree_leaves, tree_map
 
     rtol, atol = 1e-4, 1e-5
-    wire = [quantize_int8(physical=True)]
-    on_cpu = _vanilla_plan(SMOKE, wire, 3).compile(device="cpu")
-    on_card = _vanilla_plan(SMOKE, wire, 3).compile()
+    on_cpu = make_plan().compile(device="cpu")
+    on_card = make_plan().compile()
     on_cpu.init(seed=3)
     on_card.state = tree_map(lambda t: t.to("cuda"), on_cpu.state)
-    batches = _client_batches(torch.Generator().manual_seed(4), 3, 3, 8,
-                              SMOKE.n_classes)
     l_card = torch.cat([on_card.run_round(b) for b in batches]).cpu()
     l_cpu = torch.cat([on_cpu.run_round(b) for b in batches])
-    pairs = list(zip(tree_leaves(on_card.state["clients"])
-                     + tree_leaves(on_card.state["server"]),
-                     tree_leaves(on_cpu.state["clients"])
-                     + tree_leaves(on_cpu.state["server"])))
-    worst = max((a.cpu() - b).abs().max().item() for a, b in pairs)
-    print(f"reduced vanilla training, card vs CPU plain path: losses "
-          f"{l_card.tolist()} vs {l_cpu.tolist()}; largest parameter "
+    pairs = list(zip(tree_leaves(on_card.state), tree_leaves(on_cpu.state)))
+    worst = max((a.cpu().double() - b.double()).abs().max().item()
+                for a, b in pairs)
+    print(f"reduced {what}, card vs CPU plain path: losses "
+          f"{l_card.tolist()} vs {l_cpu.tolist()}; largest state "
           f"difference {worst:.3e}")
     if not torch.allclose(l_card, l_cpu, rtol=rtol, atol=atol):
-        fail("reduced vanilla training: card losses differ from the CPU's")
+        fail(f"reduced {what}: card losses differ from the CPU's")
     if not all(torch.allclose(a.cpu(), b, rtol=rtol, atol=atol)
                for a, b in pairs):
-        fail(f"reduced vanilla training: final parameters differ beyond "
-             f"rtol {rtol}, atol {atol}")
+        fail(f"reduced {what}: final state differs beyond rtol {rtol}, "
+             f"atol {atol}")
     if on_card.meter() != on_cpu.meter():
-        fail(f"reduced vanilla training: card meter {on_card.meter()} != "
-             f"CPU meter {on_cpu.meter()}")
+        fail(f"reduced {what}: card meter {on_card.meter()} != CPU meter "
+             f"{on_cpu.meter()}")
+
+
+def reduced_turn_against_cpu(torch, mode: str):
+    """SMOKE VGG as the turn kind `mode`, 3 clients, batch 8."""
+    from repro_torch.api import quantize_int8
+    from repro_torch.configs.vgg_cifar10 import SMOKE
+
+    batches = _client_batches(torch.Generator().manual_seed(4), 3, 3, 8,
+                              SMOKE.n_classes)
+    _reduced_against_cpu(
+        torch, f"{mode} training",
+        lambda: _turn_plan(SMOKE, mode, [quantize_int8(physical=True)], 3,
+                           TURN_KINDS[mode]["smoke"]), batches)
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: configuration (ii), the branch kinds on two VGG-16 branches
+# ---------------------------------------------------------------------------
+
+BRANCH_KINDS = {
+    "multitask": ["branch_0_act", "branch_1_act", "branch_0_grad",
+                  "branch_1_grad"],
+    "extended_vanilla": ["branch_0_act", "branch_1_act", "mid_act",
+                         "mid_grad", "branch_0_grad", "branch_1_grad"]}
+
+
+def _task_labels(torch, batch, n_classes: int = N_CLASSES):
+    """Two tasks' labels (2, rows): task 1's are (labels + 1) % n_classes,
+    as tests/test_api.py:modal_batch makes them."""
+    labels = batch["labels"]
+    return {**batch, "labels": torch.stack([labels,
+                                            (labels + 1) % n_classes])}
+
+
+def branch_path(torch, mode: str) -> dict:
+    """`Plan(mode=mode)` over the vertical slice's two VGG-16 branches (13
+    convs + FC1, 512 features each) over the physical wire, 30 rounds."""
+    from repro_torch.api import leakage_probe, quantize_int8
+    from repro_torch.configs.vgg_cifar10 import CONFIG
+
+    names = BRANCH_KINDS[mode]
+    print(f"{mode} path: 2 x VGG-16 branches ({CONFIG.name}, 13 convs + "
+          f"FC1, fp32) -> " + ("two 1024 -> 10 heads, task 1's labels "
+                               "(labels + 1) % 10" if mode == "multitask"
+                               else "a 1024 -> 512 ReLU mid client -> a "
+                               "512 -> 10 trunk") +
+          f", batch {TB} per modality, {ROUNDS} rounds, AdamW({LR}), "
+          "physical int8 wire")
+    phys = [quantize_int8(physical=True), leakage_probe()]
+
+    def make_plan(wire):
+        return _branch_plan(CONFIG, 512, wire, mode)[1]
+    sess = make_plan(phys).compile()
+    sess.init(seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    batches = _modality_batches(torch, gen, ROUNDS + 5, TB, N_CLASSES)
+    ev = _modality_batches(torch, gen, 1, EVAL_B, N_CLASSES)[0]
+    if mode == "multitask":
+        batches = [_task_labels(torch, b) for b in batches]
+        ev = _task_labels(torch, ev)
+
+    report = sess.wire_report(batches[0])      # the meta probe, no kernels
+    for r in report:
+        print(f"  wire {r['name']} {r['direction']} {r['shape']} "
+              f"{r['dtype']}: {r['bytes']} B physical={r['physical']}")
+    if [r["name"] for r in report] != names or any(
+            r["shape"] != (TB, 512) or r["bytes"] != TB * 512 + TB * 4
+            or not r["physical"] for r in report):
+        fail(f"{mode} wire_report {report}: expected {names}, each "
+             f"({TB},512) at {TB * 512 + TB * 4} B, physical")
+
+    losses, first_s, round_ms, host_ms, launches, peak_gib = _timed_fit(
+        torch, sess, batches, ROUNDS)
+    print(f"  first round {first_s:.3f} s; then {round_ms:.3f} ms per round "
+          f"(CUDA events over rounds 2-{ROUNDS}, host {host_ms:.3f} ms), "
+          f"{TB / round_ms * 1e3:.1f} examples/s, peak {peak_gib:.2f} GiB")
+    print(f"  launches over the {ROUNDS} rounds: {launches}")
+    hold_launches(launches, {"wire_quant": len(names) * ROUNDS,
+                             "wire_dequant": len(names) * ROUNDS,
+                             **NO_OTHER_KERNEL})
+    meter = sess.engine.meter
+    billed = sum(meter.bytes_up) + sum(meter.bytes_down)
+    print(f"  meter: {billed} wire B over {ROUNDS} rounds = "
+          f"{billed / ROUNDS:.0f} B per round; {sess.meter()}")
+    if billed != ROUNDS * WIRE_BYTES_PER_ROUND:
+        fail(f"{mode} meter billed {billed} B, expected "
+             f"{ROUNDS * WIRE_BYTES_PER_ROUND}")
+
+    acc = float(sess.evaluate(ev))
+    accs = [acc]
+    if mode == "multitask":     # each task on its own
+        with torch.no_grad():
+            st = sess.state
+            logits = sess.engine.topology.evaluate(st["clients"],
+                                                   st["server"], ev)
+        accs = (logits.argmax(-1) == ev["labels"]).float().mean(-1).tolist()
+    print(f"  evaluate ({EVAL_B} held-out rows): {acc:.4f}"
+          + (f"; by task {accs}" if mode == "multitask" else ""))
+    if min(accs) <= 3 / N_CLASSES:
+        fail(f"{mode}: evaluation accuracy {accs} after {ROUNDS} rounds, "
+             f"not above three times chance ({1 / N_CLASSES})")
+    # the label dcor over one task's labels
+    labels = ev["labels"][0] if mode == "multitask" else ev["labels"]
+    leak = sess.leakage_report({**ev, "labels": labels}, client=0)
+    print(f"  leakage (distance correlation, raw vs wire): {leak}")
+    it = iter(range(ROUNDS, ROUNDS + 4))
+    busy_ms = profile_device(torch, f"{mode} round",
+                             lambda: sess.run_round(batches[next(it)]),
+                             round_ms / 1e3)
+    _physical_equals_fake(torch, make_plan, phys, sess.state, batches, 3,
+                          mode)
+    del sess
+    torch.cuda.empty_cache()
+    return {"launches": launches, "first_round_s": first_s,
+            "round_ms": round_ms, "examples_per_s": TB / round_ms * 1e3,
+            "busy_ms": busy_ms, "peak_gib": peak_gib,
+            "wire_bytes_per_round": billed // ROUNDS,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "eval_accuracy": accs}
+
+
+def reduced_branch_against_cpu(torch, mode: str):
+    """SMOKE VGG branches as the branch kind `mode`, batch 8, hw 16."""
+    from repro_torch.api import quantize_int8
+    from repro_torch.configs.vgg_cifar10 import SMOKE
+
+    batches = _modality_batches(torch, torch.Generator().manual_seed(4), 3,
+                                8, SMOKE.n_classes, hw=16)
+    if mode == "multitask":
+        batches = [_task_labels(torch, b, SMOKE.n_classes) for b in batches]
+    _reduced_against_cpu(
+        torch, f"{mode} training",
+        lambda: _branch_plan(SMOKE, 128, [quantize_int8(physical=True)],
+                             mode)[1], batches)
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: the paper's comparison, fedavg and large-batch SGD
+# ---------------------------------------------------------------------------
+
+F_LOCAL_STEPS = 2
+# VGG-16's 30 leaves as int8 + one fp32 scale a last-axis row, against
+# 4 bytes a parameter dense
+MODEL_WIRE_BYTES, MODEL_DENSE_BYTES = 15_120_370, 4 * VGG16_PARAMS
+
+
+def _baseline_plan(cfg, mode: str, wire, n_clients: int):
+    from repro_torch import optim
+    from repro_torch.api import Plan
+
+    return Plan(mode=mode, model=_vgg_segmodel(cfg), n_clients=n_clients,
+                optimizer=optim.adamw(LR), wire=wire,
+                local_steps=F_LOCAL_STEPS if mode == "fedavg" else 1)
+
+
+def baseline_path(torch, mode: str) -> dict:
+    """Full-width VGG-16 under fedavg (2 local steps) or large-batch SGD,
+    4 clients of 128 rows, 30 rounds, the model pulled and pushed through
+    the physical wire."""
+    from repro_torch.api import leakage_probe, quantize_int8
+    from repro_torch.configs.vgg_cifar10 import CONFIG
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.nn.module import param_count, tree_leaves
+
+    print(f"{mode} path: {CONFIG.name} (fp32), {V_CLIENTS} clients, batch "
+          f"{VB} per client, {V_ROUNDS} rounds"
+          + (f" of {F_LOCAL_STEPS} local steps" if mode == "fedavg" else "")
+          + f", AdamW({LR}), the model pulled and pushed over the physical "
+          "int8 wire")
+    phys = [quantize_int8(physical=True), leakage_probe()]
+
+    def make_plan(wire):
+        return _baseline_plan(CONFIG, mode, wire, V_CLIENTS)
+    sess = make_plan(phys).compile()
+    sess.init(seed=SEED)
+    n_leaves = len(tree_leaves(sess.state["global"]))
+    if param_count(sess.state["global"]) != VGG16_PARAMS or n_leaves != 30:
+        fail(f"{mode}: {param_count(sess.state['global'])} parameters in "
+             f"{n_leaves} leaves, expected {VGG16_PARAMS} in 30")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    batches = _client_batches(gen, V_ROUNDS + 1, V_CLIENTS, VB, N_CLASSES)
+    ev = image_batch(gen, EVAL_B, N_CLASSES)
+    ev = {"x": ev["images"], "labels": ev["labels"]}
+
+    report = sess.wire_report(batches[0])      # meta tensors, no kernels
+    print(f"  wire report: {report}; dense model "
+          f"{sess.engine._param_bytes} B")
+    want = [{"name": "model_pull", "direction": "down",
+             "bytes": MODEL_WIRE_BYTES, "physical": True},
+            {"name": "model_push", "direction": "up",
+             "bytes": MODEL_WIRE_BYTES, "physical": True}]
+    if report != want or sess.engine._param_bytes != MODEL_DENSE_BYTES:
+        fail(f"{mode} wire_report {report} (dense "
+             f"{sess.engine._param_bytes} B), expected {want} "
+             f"({MODEL_DENSE_BYTES} B dense)")
+
+    losses, first_s, round_ms, host_ms, launches, peak_gib = _timed_fit(
+        torch, sess, batches, V_ROUNDS)
+    passes = V_CLIENTS * (F_LOCAL_STEPS if mode == "fedavg" else 1)
+    print(f"  first round {first_s:.3f} s; then {round_ms:.3f} ms per round "
+          f"({passes} forward and backward passes; CUDA events over rounds "
+          f"2-{V_ROUNDS}, host {host_ms:.3f} ms), peak {peak_gib:.2f} GiB")
+    print(f"  launches over the {V_ROUNDS} rounds: {launches}")
+    # 30 leaves pulled, then 30 stacked (4, ...) leaves pushed, a round
+    hold_launches(launches, {"wire_quant": 2 * n_leaves * V_ROUNDS,
+                             "wire_dequant": 2 * n_leaves * V_ROUNDS,
+                             **NO_OTHER_KERNEL})
+    meter = sess.engine.meter
+    totals = sess.meter()
+    print(f"  meter: up {meter.bytes_up}, down {meter.bytes_down} B "
+          f"({2 * MODEL_WIRE_BYTES} B a client a round); {totals}")
+    if (meter.bytes_up != [V_ROUNDS * MODEL_WIRE_BYTES] * V_CLIENTS
+            or meter.bytes_down != meter.bytes_up
+            or meter.sync_bytes != [0] * V_CLIENTS
+            or totals["client_gb"] != [V_ROUNDS * 2 * MODEL_WIRE_BYTES
+                                       / 1e9] * V_CLIENTS):
+        fail(f"{mode} meter {totals['client_gb']} GB, expected "
+             f"{2 * MODEL_WIRE_BYTES} B a client a round")
+
+    acc = float(sess.evaluate(ev))
+    print(f"  evaluate, the global model ({EVAL_B} held-out rows): "
+          f"{acc:.4f}")
+    if acc <= 3 / N_CLASSES:
+        fail(f"{mode}: evaluation accuracy {acc} after {V_ROUNDS} rounds, "
+             f"not above three times chance ({1 / N_CLASSES})")
+    busy_ms = profile_device(torch, f"{mode} round",
+                             lambda: sess.run_round(batches[V_ROUNDS]),
+                             round_ms / 1e3, steps=1)
+    _physical_equals_fake(torch, make_plan, phys, sess.state, batches, 3,
+                          mode)
+    del sess
+    torch.cuda.empty_cache()
+    return {"launches": launches, "first_round_s": first_s,
+            "round_ms": round_ms,
+            "examples_per_s": VB * V_CLIENTS / round_ms * 1e3,
+            "busy_ms": busy_ms, "peak_gib": peak_gib,
+            "model_wire_bytes": MODEL_WIRE_BYTES,
+            "client_tflops": statistics.mean(totals["client_tflops"]),
+            "client_gb": statistics.mean(totals["client_gb"]),
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "eval_accuracy": acc}
+
+
+def reduced_baseline_against_cpu(torch, mode: str):
+    """The whole SMOKE VGG under `mode`, 3 clients, batch 8."""
+    from repro_torch.api import quantize_int8
+    from repro_torch.configs.vgg_cifar10 import SMOKE
+
+    batches = _client_batches(torch.Generator().manual_seed(4), 3, 3, 8,
+                              SMOKE.n_classes)
+    _reduced_against_cpu(
+        torch, f"{mode} training",
+        lambda: _baseline_plan(SMOKE, mode, [quantize_int8(physical=True)],
+                               3), batches)
+
+
+def table1(vanilla: dict, fedavg: dict, large_batch: dict):
+    """The paper's Table 1 comparison as measured here (the meters over
+    each run: 30 rounds of 4 clients x 128 rows), beside the analytic
+    rows of `paper_table1_setup(4)` (50,000 rows, 100 epochs)."""
+    from repro_torch.core.accounting import paper_table1_setup
+
+    for name, res in (("splitNN (vanilla, cut 2)", vanilla),
+                      ("fedavg (2 local steps)", fedavg),
+                      ("large_batch", large_batch)):
+        print(f"table 1, measured: {name}: client TFLOPs "
+              f"{res['client_tflops']:.6f}, client GB {res['client_gb']:.6f} "
+              f"(mean over {V_CLIENTS} clients, {V_ROUNDS} rounds)")
+    for cut in (1, 2):
+        t = paper_table1_setup(V_CLIENTS, cut_layer=cut)
+        print(f"table 1, analytic paper_table1_setup({V_CLIENTS}, "
+              f"cut_layer={cut}): splitNN {t.splitnn()}, fedavg "
+              f"{t.fedavg()}, large_batch {t.lbsgd()}")
+    if not vanilla["client_tflops"] < large_batch["client_tflops"]:
+        fail(f"splitNN's client TFLOPs {vanilla['client_tflops']} are not "
+             f"below large_batch's {large_batch['client_tflops']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1735,17 +2111,31 @@ def main():
     run = main_path(torch)
     reduced_against_cpu(torch)
     train = train_path(torch)
-    reduced_training_against_cpu(torch)
+    reduced_branch_against_cpu(torch, "vertical")
     ssm = ssm_path(torch)
     reduced_ssm_against_cpu(torch)
     hybrid = hybrid_path(torch)
     reduced_hybrid_against_cpu(torch)
-    vanilla = vanilla_path(torch)
-    reduced_vanilla_against_cpu(torch)
+    turn = {}
+    for mode in TURN_KINDS:
+        turn[mode] = turn_path(torch, mode)
+        reduced_turn_against_cpu(torch, mode)
+    branch = {}
+    for mode in BRANCH_KINDS:
+        branch[mode] = branch_path(torch, mode)
+        reduced_branch_against_cpu(torch, mode)
+    baseline = {}
+    for mode in ("fedavg", "large_batch"):
+        baseline[mode] = baseline_path(torch, mode)
+        reduced_baseline_against_cpu(torch, mode)
+    table1(turn["vanilla"], baseline["fedavg"], baseline["large_batch"])
 
     # the wire launches per payload add up to what each path was held to
     paths = (("serving", run), ("training", train), ("ssm_serving", ssm),
-             ("hybrid_serving", hybrid), ("vanilla_training", vanilla))
+             ("hybrid_serving", hybrid),
+             *((f"{m}_training", r) for m, r in turn.items()),
+             *((f"{m}_training", r) for m, r in branch.items()),
+             *((f"{m}_training", r) for m, r in baseline.items()))
     for path, res in paths:
         want = sum(p[-1] for p in payloads if p[0] == path)
         for name in ("wire_quant", "wire_dequant"):
@@ -1754,7 +2144,7 @@ def main():
                      f"but its payloads in phase 2 add up to {want}")
     print("wire launches by payload add up to each path's count")
 
-    # phase 4: the record; launches are the five main paths' together
+    # phase 4: the record; launches are the main paths' together
     kq = wire[((4, 1, 200064), torch.bfloat16)]
     fa = fa_t["RecurrentGemma-2B prefill"]
     src = "src/repro_torch/kernels/csrc/"
@@ -1821,8 +2211,9 @@ def main():
         {k: v for k, v in ssm.items() if k != "launches"}))
     print("hybrid serving path: " + json.dumps(
         {k: v for k, v in hybrid.items() if k != "launches"}))
-    print("vanilla training path: " + json.dumps(
-        {k: v for k, v in vanilla.items() if k != "launches"}))
+    for path, res in paths[4:]:
+        print(f"{path.replace('_', ' ')} path: " + json.dumps(
+            {k: v for k, v in res.items() if k != "launches"}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """`Plan` — the declarative description of a training run (port of
 `repro/api/plan.py`).
 
-A `Plan` names the collaboration mode, where the cut falls, who the
+A `Plan` names the collaboration mode (the paper's six split topologies
+and the two baselines it compares against), where the cut falls, who the
 parties are (`n_clients`), how turns are scheduled, the optimizers, the
 loss and an ordered stack of `WireTransform` middleware applied at the
 cut.  `Plan.compile()` lowers it onto the step-program IR and wraps the
@@ -12,14 +13,22 @@ engine in a `Session`:
     sess.fit(data, rounds=30)
     print(sess.meter(), sess.wire_report(batches))
 
-Ported modes and their required fields:
+Modes and their required fields:
 
-  vanilla   model (SegModel), cut; round_robin, sync "p2p" or "none"
-  vertical  branch, trunk=(init, apply)
+  vanilla           model (SegModel), cut
+  u_shaped          model (SegModel), cuts=(c1, c2)
+  vertical          branch, trunk=(init, apply)
+  multihop          model (SegModel), cuts=[c0, c1, ...]
+  multitask         branch, heads=((init, apply), ...)
+  extended_vanilla  branch, mid=(init, apply), trunk=(init, apply)
+  fedavg            model (SegModel or FullFns), local_steps
+  large_batch       model (SegModel or FullFns)
 
-The other six modes, LM training (a `SplitFns` model) and the parallel
-and pipelined schedules raise, naming ROADMAP.md.  `compile()` runs on
-the GPU unless given `device="cpu"`, and raises without one.
+The turn kinds run round-robin (sync "p2p" or "none"), the branch kinds
+their joint round.  LM training (a `SplitFns` model, in a split or a
+baseline mode), the parallel and pipelined schedules of the turn kinds,
+`microbatches > 1` and fleets raise, naming ROADMAP.md.  `compile()`
+runs on the GPU unless given `device="cpu"`, and raises without one.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import torch
 
 from repro_torch import optim
 from repro_torch.api import session as _session
+from repro_torch.api.baseline import FedAvgEngine, LargeBatchEngine
 from repro_torch.api.wire import WireStack, WireTransform, with_wire
 from repro_torch.core import split as sp
 from repro_torch.device import resolve_device
@@ -38,7 +48,8 @@ from repro_torch.engine import topology as topo
 
 MODES = ("vanilla", "u_shaped", "vertical", "multihop", "multitask",
          "extended_vanilla", "fedavg", "large_batch")
-PORTED_MODES = ("vanilla", "vertical")
+PORTED_MODES = MODES
+BASELINE_MODES = MODES[6:]
 BRANCH_MODES = ("vertical", "multitask", "extended_vanilla")
 
 
@@ -61,6 +72,29 @@ class SplitFns:
     full_apply: Callable | None = None   # (params, batch) -> logits
 
 
+@dataclasses.dataclass(frozen=True)
+class FullFns:
+    """Whole-model hooks for the baseline modes (no cut)."""
+    init: Callable            # gen -> params
+    apply: Callable           # (params, batch) -> logits
+
+
+def _full_fns(model) -> FullFns:
+    """Any accepted model form as the baselines' (init, apply)."""
+    if isinstance(model, FullFns):
+        return model
+    if isinstance(model, sp.SegModel):
+        return FullFns(
+            init=model.init,
+            apply=lambda p, b: model.apply_range(p, b["x"], 0,
+                                                 model.n_segments))
+    if isinstance(model, SplitFns):
+        raise NotImplementedError(
+            "a baseline over SplitFns (LM training) is not ported yet: the "
+            "port's LM kernels have no backward; see ROADMAP.md")
+    raise TypeError(f"cannot run a baseline over {type(model).__name__}")
+
+
 def _clipped(opt, max_norm: float):
     def update(grads, state, params=None):
         grads, _ = optim.clip_by_global_norm(grads, max_norm)
@@ -71,18 +105,24 @@ def _clipped(opt, max_norm: float):
 @dataclasses.dataclass(frozen=True)
 class Plan:
     mode: str
-    model: Any = None                     # vanilla: SegModel
+    model: Any = None                     # SegModel | FullFns
     cut: int | None = None                # vanilla
-    branch: sp.Branch | None = None       # vertical: one per client
+    cuts: Sequence[int] | None = None     # u_shaped / multihop
+    branch: sp.Branch | None = None       # branch modes: one per client
     trunk: tuple | None = None            # (init, apply)
+    mid: tuple | None = None              # (init, apply) extended_vanilla
+    heads: Sequence[tuple] | None = None  # ((init, apply), ...) multitask
     n_clients: int = 1
     schedule: str | None = None           # None -> the mode's default
+    microbatches: int = 1                 # > 1: not ported (ROADMAP)
     sync: str = "p2p"                     # "p2p" | "none" (round_robin)
     loss_fn: Callable = softmax_xent
     optimizer: "optim.Optimizer | None" = None  # None -> adamw(1e-3)
     optimizer_server: "optim.Optimizer | None" = None
     wire: Sequence[WireTransform] = ()
+    local_steps: int = 1                  # fedavg
     clip_norm: float | None = None
+    fleet: Any = None                     # not ported (ROADMAP)
 
     def _require(self, cond, msg):
         if not cond:
@@ -104,20 +144,52 @@ class Plan:
             return "pipelined" if sched == "pipelined" else "parallel"
         return sched or "round_robin"
 
+    def _segmodel(self):
+        if isinstance(self.model, SplitFns):
+            raise NotImplementedError(
+                f"Plan(mode={self.mode!r}) over SplitFns (LM training) is "
+                "not ported yet: the port trains a SegModel; see "
+                "ROADMAP.md")
+        self._require(isinstance(self.model, sp.SegModel),
+                      "needs model= (SegModel)")
+        return self.model
+
     def _topology(self) -> topo.Topology:
-        if self.mode == "vanilla":
+        m = self.mode
+        if m == "vanilla":
             self._require(self.cut is not None, "needs cut=")
-            if isinstance(self.model, SplitFns):
-                raise NotImplementedError(
-                    "Plan(mode='vanilla') over SplitFns (LM training) is "
-                    "not ported yet: the port trains a SegModel; see "
-                    "ROADMAP.md")
-            self._require(isinstance(self.model, sp.SegModel),
-                          "needs model= (SegModel or SplitFns)")
-            return topo.vanilla(self.model, self.cut)
+            return topo.vanilla(self._segmodel(), self.cut)
+        if m == "u_shaped":
+            self._require(self.cuts is not None and len(self.cuts) == 2,
+                          "needs cuts=(c1, c2)")
+            return topo.u_shaped(self._segmodel(), *self.cuts)
+        if m == "multihop":
+            self._require(bool(self.cuts), "needs cuts=[c0, ...]")
+            return topo.multihop(self._segmodel(), list(self.cuts))
         self._require(self.branch is not None, "needs branch=")
-        self._require(self.trunk is not None, "needs trunk=(init, apply)")
-        return topo.vertical(self.branch, self.n_clients, *self.trunk)
+        if m == "vertical":
+            self._require(self.trunk is not None,
+                          "needs trunk=(init, apply)")
+            return topo.vertical(self.branch, self.n_clients, *self.trunk)
+        if m == "multitask":
+            self._require(bool(self.heads),
+                          "needs heads=((init, apply), ...)")
+            return topo.multitask(self.branch, self.n_clients,
+                                  [h[0] for h in self.heads],
+                                  [h[1] for h in self.heads])
+        self._require(self.mid is not None and self.trunk is not None,
+                      "needs mid=(init, apply) and trunk=(init, apply)")
+        return topo.extended_vanilla(self.branch, self.n_clients,
+                                     *self.mid, *self.trunk)
+
+    def _baseline_engine(self, stack: WireStack, opt):
+        fns = _full_fns(self.model)
+        kw = dict(init_fn=fns.init, apply_fn=fns.apply, loss_fn=self.loss_fn,
+                  optimizer=opt, n_clients=self.n_clients,
+                  wire_stack=stack if stack else None)
+        if self.mode == "fedavg":
+            return FedAvgEngine(local_steps=self.local_steps, **kw)
+        return LargeBatchEngine(**kw)
 
     def compile(self, device=None) -> "_session.Session":
         """Lower this plan onto one engine and wrap it in a `Session`
@@ -125,14 +197,21 @@ class Plan:
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, "
                              f"got {self.mode!r}")
-        if self.mode not in PORTED_MODES:
+        self._require(self.microbatches >= 1, "microbatches must be >= 1")
+        if self.microbatches > 1:
             raise NotImplementedError(
-                f"Plan(mode={self.mode!r}) is not ported yet: the port "
-                f"trains {PORTED_MODES}; see ROADMAP.md for the order of "
-                "the other modes")
+                "microbatches > 1 (the pipelined schedule) is not ported "
+                "yet; see ROADMAP.md")
+        if self.fleet is not None:
+            raise NotImplementedError(
+                "a fleet (clients sharded over several devices) is not "
+                "ported yet; see ROADMAP.md")
         dev = resolve_device(device)
         stack = WireStack(self.wire)
         opt_c, opt_s = self._optimizers()
+        if self.mode in BASELINE_MODES:
+            return _session.Session(self, self._baseline_engine(stack, opt_c),
+                                    stack, dev)
         engine = RoundEngine(
             topology=with_wire(self._topology(), stack), loss_fn=self.loss_fn,
             optimizer_client=opt_c, optimizer_server=opt_s,

@@ -1,13 +1,14 @@
 """`Session` — a compiled `Plan`, ready to train (port of
-`repro/api/session.py`, the split-mode surface).
+`repro/api/session.py`).
 
-`fit` drives rounds, `evaluate` scores a batch, `meter` reports
-per-client FLOPs and wire bytes, `wire_report` lists exactly what
-crosses the boundary per round (priced through the plan's
-`WireTransform` stack) and `leakage_report` quantifies how much of the
-raw input survives onto the wire (distance correlation).  State and
-batches live on the session's device; batches given elsewhere are moved
-there.
+One surface for all eight modes: `fit` drives rounds (a round is one
+turn per client; for `large_batch` one synchronous step), `evaluate`
+scores a batch, `meter` reports per-client FLOPs and wire bytes,
+`wire_report` lists exactly what crosses the boundary per round (priced
+through the plan's `WireTransform` stack; the baselines' model pull and
+push) and `leakage_report` quantifies how much of the raw input survives
+onto the wire (distance correlation).  State and batches live on the
+session's device; batches given elsewhere are moved there.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Iterable
 import torch
 
 from repro_torch.core import privacy
-from repro_torch.engine import stack_batches, tree_at
+from repro_torch.engine import RoundEngine, stack_batches, tree_at
 from repro_torch.nn.module import tree_map
 
 
@@ -35,6 +36,11 @@ class Session:
 
     # ---- lifecycle ---------------------------------------------------------
 
+    @property
+    def is_split(self) -> bool:
+        """A split mode (False: a baseline)."""
+        return isinstance(self.engine, RoundEngine)
+
     def _generator(self, gen, seed: int) -> torch.Generator:
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -49,7 +55,10 @@ class Session:
 
     def _engine_init(self, gen):
         """The paper's identical clients for the turn kinds; one draw per
-        branch for the branch fan-in kinds."""
+        branch for the branch fan-in kinds; one global model for the
+        baselines."""
+        if not self.is_split:
+            return self.engine.init(gen)
         return self.engine.init(
             gen, identical_clients=not self.engine.topology.parallel_only)
 
@@ -76,7 +85,7 @@ class Session:
 
     def run_round(self, batches):
         """One round.  Returns the per-turn losses ((n_clients,), or (1,)
-        for the branch modes)."""
+        for the branch modes; the baselines' per-client losses)."""
         if self.state is None:
             self.init()
         self.state, losses = self.engine.run_round(self.state,
@@ -108,17 +117,23 @@ class Session:
 
     def evaluate(self, batch, *, client: int = 0):
         """Accuracy on one (unstacked) eval batch, a 0-d tensor: client
-        `client` with the server (turn modes), or the joint fleet."""
+        `client` with the server (turn modes), the joint fleet (branch
+        modes) or the global model (baselines)."""
         if self.state is None:
             self.init()
+        if not self.is_split:
+            return self.engine.evaluate(self.state, self._prep(batch))
         return self.engine.evaluate(self.state, self._prep(batch),
                                     client=client)
 
     def evaluate_all(self, batch):
         """Per-client accuracies: (n_clients,) for the turn modes, shape
-        (1,) for the branch fan-in modes (one joint fleet)."""
+        (1,) for the branch fan-in modes and the baselines (one joint
+        model)."""
         if self.state is None:
             self.init()
+        if not self.is_split:
+            return self.evaluate(batch)[None]
         return self.engine.evaluate_all(self.state, self._prep(batch))
 
     def meter(self) -> dict:
@@ -133,7 +148,18 @@ class Session:
         each crossing's bytes come from the packed payload and are checked
         against the `bytes_fn` claim (`WireAccountingError` on drift);
         each record carries a `physical` flag naming which pricing
-        applied."""
+        applied.  The baselines report their model pull and push instead
+        (no cut: the whole model is the payload)."""
+        if not self.is_split:
+            if self.engine._wire_bytes is None:
+                self.engine._probe(self._state_for_probe(),
+                                   self._prep(batches))
+            pb = self.engine._wire_bytes
+            phys = bool(self.wire_stack) and self.wire_stack.physical
+            return [{"name": "model_pull", "direction": "down",
+                     "bytes": pb, "physical": phys},
+                    {"name": "model_push", "direction": "up",
+                     "bytes": pb, "physical": phys}]
         cost = self.engine.turn_cost(self._state_for_probe(),
                                      self._prep(batches))
         return [{"name": w.name, "direction": w.direction,
@@ -148,7 +174,14 @@ class Session:
         holds and what crosses the wire after the transform stack.  `batch`
         is one unstacked batch (the branch modes: the (K, B, ...) layout,
         `client` selecting the modality)."""
+        if not self.is_split:
+            raise ValueError("baseline modes ship the whole model, not a "
+                             "cut activation: leakage_report does not "
+                             "apply")
         topology = self.engine.topology
+        if topology.client_fwd is None:
+            raise ValueError(f"{topology.kind} topology exposes no client "
+                             "forward to probe")
         state = self._state_for_probe()
         batch = self._prep(batch)
         pc = tree_at(state["clients"], client)

@@ -16,6 +16,8 @@ against the `bytes_fn` claim (`WireAccountingError` on drift).
 Both flavours also squeeze the round-robin p2p weight handoff
 (`handoff=True`): the previously trained client's weights cross the same
 per-row int8 wire, leaf by leaf, before the next client adopts them.
+The baselines' model pull and push cross the whole stack leaf by leaf
+too (`tree_wire_bytes` prices them).
 
 `leakage_probe()` is the identity on the wire; it marks the stack so
 `Session.leakage_report` measures the distance correlation between raw
@@ -143,6 +145,12 @@ class WireStack:
         for tr in self.transforms:
             nbytes = tr.bytes_fn(tuple(shape), dtype, nbytes)
         return int(nbytes)
+
+    def tree_wire_bytes(self, tree) -> int:
+        """Full-stack wire bytes of a whole payload tree, leafwise: prices
+        the baselines' model pull and push through the stack."""
+        return sum(self.wire_bytes(tuple(leaf.shape), leaf.dtype)
+                   for leaf in tree_leaves(tree))
 
     # ---- p2p weight handoff ------------------------------------------------
 

@@ -18,10 +18,11 @@ and the port's.
   the ring's `pos` is a host int in the port, an int32 in the reference.
 * Everything else has the same layout in both packages, leaf for leaf:
   the CNN list-of-dict trees (HWIO conv and `(in, out)` dense weights,
-  `{}` for a pool) and a whole engine state of the vertical or vanilla
-  mode — stacked `clients`, `server`, `opt_c`, `opt_s` (with int32
-  `step`s) and the int32 `last_trained` (`tree_from_jax` /
-  `tree_to_numpy`).
+  `{}` for a pool) and a whole engine state of any `Plan` mode — a split
+  mode's stacked `clients`, `server`, `opt_c`, `opt_s` (with int32
+  `step`s) and the int32 `last_trained`, a baseline's `{"global",
+  "opt"}` — with tuples kept as tuples (the multihop relay slabs, the
+  multitask heads) (`tree_from_jax` / `tree_to_numpy`).
 
 Arrays cross as numpy: the caller turns the reference's tree into numpy
 arrays (`jax.tree_util.tree_map(np.asarray, tree)`) and hands it here,

@@ -1,5 +1,5 @@
 """The cut: segmented models, their wire records and the split training
-gradients (port of `repro/core/split.py:22-138, 189-220`).
+gradients (port of `repro/core/split.py:22-338`).
 
 A `SegModel` is a network as an ordered list of segments; the cut is an
 index into that list.  The client holds the parameters of segments
@@ -14,9 +14,10 @@ backpropagates the gradient it received, so no gradient flows through
 the wire's pack/unpack (as in the reference, whose vjps start from the
 received values).
 
-This module ports the vanilla and the vertical (multi-modal) splits;
-the u-shaped, multi-hop, multi-task and extended-vanilla grads follow
-(ROADMAP).
+The six splits: vanilla, u-shaped (labels stay with the client),
+vertical (multi-modal branches), multi-hop (a chain of slabs),
+multi-task (several server heads) and extended vanilla (an intermediate
+client between the branches and the server).
 """
 from __future__ import annotations
 
@@ -65,11 +66,27 @@ def _takes_offset(model: SegModel) -> bool:
     return "offset" in inspect.signature(model.apply_range).parameters
 
 
+def _apply_hop(model: SegModel, p, a, lo: int, hi: int):
+    """Segments [lo, hi) on `a`, `p` holding only those segments' params
+    when the model takes an offset."""
+    if _takes_offset(model):
+        return model.apply_range(p, a, lo, hi, offset=lo)
+    return model.apply_range(p, a, lo, hi)
+
+
 def server_apply(model: SegModel, cut: int, ps, a):
     """The server's segments [cut, n_segments) on the received `a`."""
-    if _takes_offset(model):
-        return model.apply_range(ps, a, cut, model.n_segments, offset=cut)
-    return model.apply_range(ps, a, cut, model.n_segments)
+    return _apply_hop(model, ps, a, cut, model.n_segments)
+
+
+def _apply_mid(model: SegModel, p, a, cut1: int, cut2: int):
+    """The u-shaped server's segments [cut1, cut2)."""
+    return _apply_hop(model, p, a, cut1, cut2)
+
+
+def _apply_tail(model: SegModel, p, a, cut2: int):
+    """The u-shaped client's tail, segments [cut2, n_segments)."""
+    return _apply_hop(model, p, a, cut2, model.n_segments)
 
 
 @dataclasses.dataclass
@@ -156,6 +173,40 @@ def vanilla_split_grads(model: SegModel, cut: int, params_c, params_s, x,
 
 
 # ---------------------------------------------------------------------------
+# U-shaped split: client [0, c1) + [c2, L) + loss; server [c1, c2).
+# Labels NEVER cross (the paper's no-label-sharing configuration).
+# ---------------------------------------------------------------------------
+
+def u_shaped_grads(model: SegModel, cut1: int, cut2: int, params_head,
+                   params_mid, params_tail, x, labels, loss_fn,
+                   wires: list | None = None):
+    """(loss, g_head, g_mid, g_tail, wires); the loss is detached.  Four
+    crossings in this order: `cut_act_1` up, `cut_act_2` down,
+    `cut_grad_2` up, `cut_grad_1` down."""
+    wires = wires if wires is not None else []
+    with torch.enable_grad():
+        ph = _leaf_params(params_head)
+        a1 = model.apply_range(ph, x, 0, cut1)
+        act1 = record(wires, "cut_act_1", a1.detach(), "up")
+
+        pm = _leaf_params(params_mid)
+        recv1 = as_dense(act1).detach().requires_grad_()
+        a2 = _apply_mid(model, pm, recv1, cut1, cut2)
+        act2 = record(wires, "cut_act_2", a2.detach(), "down")
+
+        pt = _leaf_params(params_tail)
+        recv2 = as_dense(act2).detach().requires_grad_()
+        loss = loss_fn(_apply_tail(model, pt, recv2, cut2), labels)
+        g_tail, g_act2 = _grads(loss, (pt, recv2))
+
+        g_act2 = record(wires, "cut_grad_2", g_act2, "up")
+        g_mid, g_act1 = _grads(a2, (pm, recv1), as_dense(g_act2))
+        g_act1 = record(wires, "cut_grad_1", g_act1, "down")
+        g_head = _grads(a1, ph, as_dense(g_act1))
+    return loss.detach(), g_head, g_mid, g_tail, wires
+
+
+# ---------------------------------------------------------------------------
 # Vertical (multi-modal) split: K client branches -> concat -> server trunk
 # ---------------------------------------------------------------------------
 
@@ -166,6 +217,27 @@ class Branch:
     apply: Callable                   # (params, x) -> features (B, f)
 
 
+def _branch_forwards(branches, params_branches, xs, wires):
+    """Each branch's forward on its modality, its activation recorded
+    up.  Returns ([(leaf params, activation)], [wire values])."""
+    owned, acts = [], []
+    for i, (br, pb, x) in enumerate(zip(branches, params_branches, xs)):
+        pb = _leaf_params(pb)
+        a = br.apply(pb, x)
+        acts.append(record(wires, f"branch_{i}_act", a.detach(), "up"))
+        owned.append((pb, a))
+    return owned, acts
+
+
+def _branch_backwards(owned, g_acts, wires) -> list:
+    """Each branch's gradient from its cut gradient, recorded down."""
+    g_branches = []
+    for i, ((pb, a), ga) in enumerate(zip(owned, g_acts)):
+        ga = record(wires, f"branch_{i}_grad", ga, "down")
+        g_branches.append(_grads(a, pb, as_dense(ga)))
+    return g_branches
+
+
 def vertical_split_grads(branches: list, params_branches, trunk_apply,
                          params_trunk, xs: list, labels, loss_fn,
                          wires: list | None = None):
@@ -174,21 +246,108 @@ def vertical_split_grads(branches: list, params_branches, trunk_apply,
     detached."""
     wires = wires if wires is not None else []
     with torch.enable_grad():
-        acts, owned = [], []
-        for i, (br, pb, x) in enumerate(zip(branches, params_branches, xs)):
-            pb = _leaf_params(pb)
-            a = br.apply(pb, x)
-            acts.append(record(wires, f"branch_{i}_act", a.detach(), "up"))
-            owned.append((pb, a))
-
+        owned, acts = _branch_forwards(branches, params_branches, xs, wires)
         pt = _leaf_params(params_trunk)
         recv = [as_dense(a).detach().requires_grad_() for a in acts]
         loss = loss_fn(trunk_apply(pt, torch.cat(recv, dim=-1)), labels)
-        g_all = _grads(loss, (pt, recv))
-        g_trunk, g_acts = g_all
-
-        g_branches = []
-        for i, ((pb, a), ga) in enumerate(zip(owned, g_acts)):
-            ga = record(wires, f"branch_{i}_grad", ga, "down")
-            g_branches.append(_grads(a, pb, as_dense(ga)))
+        g_trunk, g_acts = _grads(loss, (pt, recv))
+        g_branches = _branch_backwards(owned, g_acts, wires)
     return loss.detach(), g_branches, g_trunk, wires
+
+
+# ---------------------------------------------------------------------------
+# Multi-hop (Tor-like): a chain of slabs, each owning a contiguous range
+# ---------------------------------------------------------------------------
+
+def multihop_grads(model: SegModel, cuts: list, params_slabs, x, labels,
+                   loss_fn, wires: list | None = None):
+    """cuts: ascending segment boundaries, e.g. [2, 4, 6]; slab i runs
+    [cuts[i-1], cuts[i]) and the last slab [cuts[-1], n_segments) with
+    the loss.  Returns (loss, [g_slab_i], wires); the loss is detached.
+    Every hop's activation is recorded up and densified before the next
+    hop; the gradients come back down in reverse."""
+    wires = wires if wires is not None else []
+    bounds = [0] + list(cuts) + [model.n_segments]
+    with torch.enable_grad():
+        act, owned = x, []
+        for i in range(len(bounds) - 2):
+            p = _leaf_params(params_slabs[i])
+            inp = x if i == 0 else as_dense(act).detach().requires_grad_()
+            out = _apply_hop(model, p, inp, bounds[i], bounds[i + 1])
+            act = record(wires, f"hop_{i}_act", out.detach(), "up")
+            owned.append((p, inp, out))
+
+        p_last = _leaf_params(params_slabs[-1])
+        recv = as_dense(act).detach().requires_grad_()
+        loss = loss_fn(_apply_hop(model, p_last, recv, bounds[-2],
+                                  bounds[-1]), labels)
+        g_last, g_act = _grads(loss, (p_last, recv))
+        grads = [g_last]
+        for i in reversed(range(len(owned))):
+            g_act = record(wires, f"hop_{i}_grad", g_act, "down")
+            p, inp, out = owned[i]
+            if i == 0:      # the raw input takes no gradient
+                g_slab = _grads(out, p, as_dense(g_act))
+            else:
+                g_slab, g_act = _grads(out, (p, inp), as_dense(g_act))
+            grads.append(g_slab)
+    return loss.detach(), list(reversed(grads)), wires
+
+
+# ---------------------------------------------------------------------------
+# Multi-task: K client branches -> concat -> T server heads
+# ---------------------------------------------------------------------------
+
+def multitask_grads(branches: list, params_branches, heads: list,
+                    params_heads, xs: list, labels_per_task: list,
+                    loss_fns: list, wires: list | None = None):
+    """One loss per task.  Head t gets the gradient of task t's loss; each
+    branch gets the SUM over tasks of its cut gradient, which crosses the
+    wire once per branch.  Returns (losses (T,), [g_branch_i], [g_head_t],
+    wires); the losses are detached."""
+    wires = wires if wires is not None else []
+    with torch.enable_grad():
+        owned, acts = _branch_forwards(branches, params_branches, xs, wires)
+        recv = [as_dense(a).detach().requires_grad_() for a in acts]
+        losses, g_heads, g_total = [], [], None
+        for head, ph, lf, lab in zip(heads, params_heads, loss_fns,
+                                     labels_per_task):
+            ph = _leaf_params(ph)
+            lv = lf(head(ph, torch.cat(recv, dim=-1)), lab)
+            gh, gas = _grads(lv, (ph, recv))
+            losses.append(lv.detach())
+            g_heads.append(gh)
+            g_total = gas if g_total is None else [
+                a + b for a, b in zip(g_total, gas)]
+        g_branches = _branch_backwards(owned, g_total, wires)
+    return torch.stack(losses), g_branches, g_heads, wires
+
+
+# ---------------------------------------------------------------------------
+# Extended vanilla (paper §5.1 Fig. 4a): the concatenated branch features
+# pass through ANOTHER client before reaching the server
+# ---------------------------------------------------------------------------
+
+def extended_vanilla_grads(branches: list, params_branches, mid_apply,
+                           params_mid, trunk_apply, params_trunk, xs: list,
+                           labels, loss_fn, wires: list | None = None):
+    """Like `vertical_split_grads`, but an intermediate client applies
+    `mid_apply` to the concatenated features, and its output (`mid_act`
+    up, `mid_grad` down) crosses to the server trunk.  Returns (loss,
+    [g_branch_i], g_mid, g_trunk, wires); the loss is detached."""
+    wires = wires if wires is not None else []
+    with torch.enable_grad():
+        owned, acts = _branch_forwards(branches, params_branches, xs, wires)
+        recv = [as_dense(a).detach().requires_grad_() for a in acts]
+        pm = _leaf_params(params_mid)
+        mid_out = mid_apply(pm, torch.cat(recv, dim=-1))
+        m = record(wires, "mid_act", mid_out.detach(), "up")
+
+        pt = _leaf_params(params_trunk)
+        m_recv = as_dense(m).detach().requires_grad_()
+        loss = loss_fn(trunk_apply(pt, m_recv), labels)
+        g_trunk, g_m = _grads(loss, (pt, m_recv))
+        g_m = record(wires, "mid_grad", g_m, "down")
+        g_mid, g_acts = _grads(mid_out, (pm, recv), as_dense(g_m))
+        g_branches = _branch_backwards(owned, g_acts, wires)
+    return loss.detach(), g_branches, g_mid, g_trunk, wires

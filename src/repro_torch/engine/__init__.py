@@ -8,5 +8,8 @@ from repro_torch.engine.program import (Aggregate, ClientBwd,  # noqa: F401
                                         copy_tree, stack_batches,
                                         stack_trees, tree_at, tree_update,
                                         unstack_tree)
-from repro_torch.engine.topology import (Topology, lower,  # noqa: F401
-                                         vanilla, vertical)
+from repro_torch.engine.topology import (Topology,  # noqa: F401
+                                         extended_vanilla, lower,
+                                         lower_baseline, multihop,
+                                         multitask, u_shaped, vanilla,
+                                         vertical)

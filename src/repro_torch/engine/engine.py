@@ -9,8 +9,10 @@ runs ONE round per call.  The topology lowers to a `StepProgram` once;
       paper's serial round-robin with the p2p weight handoff.
 
 The parallel and pipelined schedules come with a later slice (ROADMAP).
-Branch fan-in topologies (vertical) have no turn axis; their joint round
-runs through `program.run_branch` (schedule "parallel").
+Branch fan-in topologies (vertical, multitask, extended_vanilla) have no
+turn axis; their joint round runs through `program.run_branch` (schedule
+"parallel").  The baselines (fedavg, large_batch) have engines of their
+own (`repro_torch.api.baseline`).
 
 Resource accounting: wire shapes are static per (topology, batch shape),
 so the engine probes the wire records ONCE per batch shape on meta
@@ -169,7 +171,9 @@ class RoundEngine:
     @torch.no_grad()
     def evaluate(self, state, batch, *, client: int = 0):
         """Accuracy on one batch (a 0-d tensor): of the joint fleet for
-        the branch kinds, of client `client` with the server otherwise."""
+        the branch kinds, of client `client` with the server otherwise.
+        Multitask logits (T, B, C) compare with (T, B) labels: the mean
+        over tasks."""
         if self.topology.parallel_only:
             logits = self.topology.evaluate(state["clients"],
                                             state["server"], batch)

@@ -13,9 +13,9 @@ Executors interpret the program:
   run_serial — the paper's round-robin (turn kinds): a Python loop over
                the client turns, each adopting the last trained client's
                weights first (the p2p handoff, `sync="p2p"`);
-  run_branch — the joint round of the branch fan-in kinds (vertical):
-               every branch contributes to ONE step, and each party then
-               steps its optimizer.
+  run_branch — the joint round of the branch fan-in kinds (vertical,
+               multitask, extended_vanilla): every branch contributes to
+               ONE step, and each party then steps its optimizer.
 
 The parallel and pipelined executors come with a later slice (ROADMAP).
 
