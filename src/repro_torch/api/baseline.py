@@ -12,7 +12,10 @@ model pull and push are the program's `WeightHandoff` edges.
 
 The reference runs the clients under `vmap`; here each client is one
 pass of a Python loop over the stacked client axis, stepping its own
-optimizer slice, as `run_serial` does.  Both meter per round
+optimizer slice, as `run_serial` does.  Under `Plan(schedule=
+"pipelined", microbatches=M)` each client's gradient is the mean over M
+microbatches of its batch (`program.microbatch_mean`); the pull and push
+are unchanged.  Both meter per round
 analytically (model pull and push bytes, 3 x forward FLOPs per batch),
 as the reference does.  The mesh-sharded `Fleet*` variants come with the
 fleet (ROADMAP).
@@ -30,7 +33,7 @@ from repro_torch.core.accounting import (Meter, bytes_of_tree, flops_of_fn,
 from repro_torch.core.split import _grads, _leaf_params
 from repro_torch.core.wire_compress import (as_dense, pack_int8,
                                             payload_nbytes)
-from repro_torch.engine.program import stack_trees, tree_at
+from repro_torch.engine.program import microbatch_mean, stack_trees, tree_at
 from repro_torch.engine.topology import lower_baseline
 from repro_torch.nn.module import tree_leaves, tree_map
 from repro_torch.optim import apply_updates
@@ -90,9 +93,21 @@ class _BaselineEngine(_WireModelMixin):
             self._param_bytes = bytes_of_tree(state["global"])
             self._wire_bytes = self._wire_model_bytes(state["global"])
 
+    def _check_microbatches(self):
+        if self.microbatches < 1:
+            raise ValueError("microbatches must be >= 1")
+
     def _grad(self, params, batch):
-        """(loss, full-model gradient) of one client batch; the loss is
-        detached."""
+        """(loss, full-model gradient) of one client batch, the loss
+        detached; with microbatches > 1 the mean over the M microbatches
+        of the batch (the full-batch gradient for mean-reduction
+        losses)."""
+        if self.microbatches == 1:
+            return self._batch_grad(params, batch)
+        return microbatch_mean(lambda mb: self._batch_grad(params, mb),
+                               batch, self.microbatches)
+
+    def _batch_grad(self, params, batch):
         with torch.enable_grad():
             p = _leaf_params(params)
             loss = self.loss_fn(self.apply_fn(p, batch), batch["labels"])
@@ -115,8 +130,10 @@ class FedAvgEngine(_BaselineEngine):
     n_clients: int
     local_steps: int = 1
     wire_stack: Any = None       # api.wire.WireStack | None
+    microbatches: int = 1        # Plan(schedule="pipelined") only
 
     def __post_init__(self):
+        self._check_microbatches()
         self.program = lower_baseline("fedavg",
                                       local_steps=self.local_steps)
         self.meter = Meter(self.n_clients)
@@ -178,8 +195,10 @@ class LargeBatchEngine(_BaselineEngine):
     optimizer: Any
     n_clients: int
     wire_stack: Any = None
+    microbatches: int = 1        # Plan(schedule="pipelined") only
 
     def __post_init__(self):
+        self._check_microbatches()
         self.program = lower_baseline("large_batch")
         self.meter = Meter(self.n_clients)
         self._flops_per_batch = None

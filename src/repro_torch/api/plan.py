@@ -24,11 +24,15 @@ Modes and their required fields:
   fedavg            model (SegModel or FullFns), local_steps
   large_batch       model (SegModel or FullFns)
 
-The turn kinds run round-robin (sync "p2p" or "none"), the branch kinds
-their joint round.  LM training (a `SplitFns` model, in a split or a
-baseline mode), the parallel and pipelined schedules of the turn kinds,
-`microbatches > 1` and fleets raise, naming ROADMAP.md.  `compile()`
-runs on the GPU unless given `device="cpu"`, and raises without one.
+The turn kinds run round-robin (sync "p2p" or "none") by default,
+`schedule="parallel"` (SplitFed: every client against one server, which
+steps on the mean cut gradient) or `schedule="pipelined",
+microbatches=M` (each client batch streamed through the cut as M
+microbatches).  The branch kinds run their joint round, streamed as M
+microbatches under the pipelined schedule; so are the baselines'
+gradients.  LM training (a `SplitFns` model, in a split or a baseline
+mode) and fleets raise, naming ROADMAP.md.  `compile()` runs on the GPU
+unless given `device="cpu"`, and raises without one.
 """
 from __future__ import annotations
 
@@ -114,7 +118,7 @@ class Plan:
     heads: Sequence[tuple] | None = None  # ((init, apply), ...) multitask
     n_clients: int = 1
     schedule: str | None = None           # None -> the mode's default
-    microbatches: int = 1                 # > 1: not ported (ROADMAP)
+    microbatches: int = 1                 # > 1: schedule="pipelined" only
     sync: str = "p2p"                     # "p2p" | "none" (round_robin)
     loss_fn: Callable = softmax_xent
     optimizer: "optim.Optimizer | None" = None  # None -> adamw(1e-3)
@@ -186,6 +190,7 @@ class Plan:
         fns = _full_fns(self.model)
         kw = dict(init_fn=fns.init, apply_fn=fns.apply, loss_fn=self.loss_fn,
                   optimizer=opt, n_clients=self.n_clients,
+                  microbatches=self.microbatches,
                   wire_stack=stack if stack else None)
         if self.mode == "fedavg":
             return FedAvgEngine(local_steps=self.local_steps, **kw)
@@ -198,10 +203,14 @@ class Plan:
             raise ValueError(f"mode must be one of {MODES}, "
                              f"got {self.mode!r}")
         self._require(self.microbatches >= 1, "microbatches must be >= 1")
-        if self.microbatches > 1:
-            raise NotImplementedError(
-                "microbatches > 1 (the pipelined schedule) is not ported "
-                "yet; see ROADMAP.md")
+        self._require(self.microbatches == 1
+                      or self.effective_schedule == "pipelined",
+                      "microbatches > 1 requires schedule='pipelined'")
+        if self.effective_schedule == "pipelined":
+            self._require(self.fleet is None,
+                          "the pipelined schedule is single-mesh only for "
+                          "now (ROADMAP: double-buffer the cut across the "
+                          "ring)")
         if self.fleet is not None:
             raise NotImplementedError(
                 "a fleet (clients sharded over several devices) is not "
@@ -216,5 +225,6 @@ class Plan:
             topology=with_wire(self._topology(), stack), loss_fn=self.loss_fn,
             optimizer_client=opt_c, optimizer_server=opt_s,
             n_clients=self.n_clients, schedule=self.effective_schedule,
-            sync=self.sync, wire_stack=stack if stack else None)
+            sync=self.sync, microbatches=self.microbatches,
+            wire_stack=stack if stack else None)
         return _session.Session(self, engine, stack, dev)

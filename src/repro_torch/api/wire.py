@@ -245,8 +245,9 @@ class WireTape(list):
 
 def with_wire(topology: Topology, stack: WireStack) -> Topology:
     """Wrap a topology so its grad paths run every boundary value through
-    `stack`: the training `turn_grads` / `round_grads` (a fresh tape per
-    call; records discarded, values transformed) and the metering
+    `stack`: the training `turn_grads` / `round_grads` and the staged
+    `pipeline_rest` (a fresh tape per call in place of its `wires`;
+    records discarded, values transformed) and the metering
     `turn_grads_wires` (the caller's list receives the stack-priced
     records)."""
     if not stack:
@@ -263,7 +264,12 @@ def with_wire(topology: Topology, stack: WireStack) -> Topology:
     def taped(*args):
         return fn(*args, WireTape(stack))
 
+    def tape_rest(rest):
+        return lambda *args: rest(*args[:-1], WireTape(stack))
+
     return dataclasses.replace(
         topology, turn_grads_wires=wired,
         turn_grads=None if topology.turn_grads is None else taped,
-        round_grads=None if topology.round_grads is None else taped)
+        round_grads=None if topology.round_grads is None else taped,
+        pipeline_rest=(None if topology.pipeline_rest is None
+                       else tape_rest(topology.pipeline_rest)))

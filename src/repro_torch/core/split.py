@@ -17,7 +17,10 @@ received values).
 The six splits: vanilla, u-shaped (labels stay with the client),
 vertical (multi-modal branches), multi-hop (a chain of slabs),
 multi-task (several server heads) and extended vanilla (an intermediate
-client between the branches and the server).
+client between the branches and the server).  The turn kinds' server
+sides (`vanilla_rest`, `u_shaped_rest`, `multihop_rest`) take the
+client's detached first activation, so the pipelined schedule can stage
+them per microbatch; their `*_grads` run the client around them.
 """
 from __future__ import annotations
 
@@ -151,6 +154,23 @@ def _grads(outputs, params, grad_outputs=None):
 # Vanilla split: client [0, cut) -> server [cut, L) + loss
 # ---------------------------------------------------------------------------
 
+def vanilla_rest(model: SegModel, cut: int, params_s, act, labels, loss_fn,
+                 wires: list):
+    """The server's side of a vanilla turn from the client's detached cut
+    activation `act`: `cut_act` recorded up, the server segments and the
+    loss on a fresh leaf of what arrived, `cut_grad` recorded down.
+    Returns (loss detached, g_server, the cut gradient as the client
+    receives it, dense)."""
+    act = record(wires, "cut_act", act, "up")
+    with torch.enable_grad():
+        ps = _leaf_params(params_s)
+        recv = as_dense(act).detach().requires_grad_()
+        loss = loss_fn(server_apply(model, cut, ps, recv), labels)
+        g_server, g_act = _grads(loss, (ps, recv))
+    g_act = record(wires, "cut_grad", g_act, "down")
+    return loss.detach(), g_server, as_dense(g_act)
+
+
 def vanilla_split_grads(model: SegModel, cut: int, params_c, params_s, x,
                         labels, loss_fn, wires: list | None = None):
     """One split training step's gradients: (loss, g_client, g_server,
@@ -160,16 +180,10 @@ def vanilla_split_grads(model: SegModel, cut: int, params_c, params_s, x,
     with torch.enable_grad():
         pc = _leaf_params(params_c)
         a = model.apply_range(pc, x, 0, cut)
-        act = record(wires, "cut_act", a.detach(), "up")
-
-        ps = _leaf_params(params_s)
-        recv = as_dense(act).detach().requires_grad_()
-        loss = loss_fn(server_apply(model, cut, ps, recv), labels)
-        g_server, g_act = _grads(loss, (ps, recv))
-
-        g_act = record(wires, "cut_grad", g_act, "down")
-        g_client = _grads(a, pc, as_dense(g_act))
-    return loss.detach(), g_client, g_server, wires
+        loss, g_server, g_act = vanilla_rest(
+            model, cut, params_s, a.detach(), labels, loss_fn, wires)
+        g_client = _grads(a, pc, g_act)
+    return loss, g_client, g_server, wires
 
 
 # ---------------------------------------------------------------------------
@@ -177,18 +191,14 @@ def vanilla_split_grads(model: SegModel, cut: int, params_c, params_s, x,
 # Labels NEVER cross (the paper's no-label-sharing configuration).
 # ---------------------------------------------------------------------------
 
-def u_shaped_grads(model: SegModel, cut1: int, cut2: int, params_head,
-                   params_mid, params_tail, x, labels, loss_fn,
-                   wires: list | None = None):
-    """(loss, g_head, g_mid, g_tail, wires); the loss is detached.  Four
-    crossings in this order: `cut_act_1` up, `cut_act_2` down,
-    `cut_grad_2` up, `cut_grad_1` down."""
-    wires = wires if wires is not None else []
+def u_shaped_rest(model: SegModel, cut1: int, cut2: int, params_mid,
+                  params_tail, act1, labels, loss_fn, wires: list):
+    """A u-shaped turn past the client's head, from its detached
+    activation `act1`: the server's mid, the client's tail with the loss,
+    and the two gradients back.  Returns (loss detached, g_mid, g_tail,
+    the head's cut gradient as received, dense)."""
+    act1 = record(wires, "cut_act_1", act1, "up")
     with torch.enable_grad():
-        ph = _leaf_params(params_head)
-        a1 = model.apply_range(ph, x, 0, cut1)
-        act1 = record(wires, "cut_act_1", a1.detach(), "up")
-
         pm = _leaf_params(params_mid)
         recv1 = as_dense(act1).detach().requires_grad_()
         a2 = _apply_mid(model, pm, recv1, cut1, cut2)
@@ -201,9 +211,25 @@ def u_shaped_grads(model: SegModel, cut1: int, cut2: int, params_head,
 
         g_act2 = record(wires, "cut_grad_2", g_act2, "up")
         g_mid, g_act1 = _grads(a2, (pm, recv1), as_dense(g_act2))
-        g_act1 = record(wires, "cut_grad_1", g_act1, "down")
-        g_head = _grads(a1, ph, as_dense(g_act1))
-    return loss.detach(), g_head, g_mid, g_tail, wires
+    g_act1 = record(wires, "cut_grad_1", g_act1, "down")
+    return loss.detach(), g_mid, g_tail, as_dense(g_act1)
+
+
+def u_shaped_grads(model: SegModel, cut1: int, cut2: int, params_head,
+                   params_mid, params_tail, x, labels, loss_fn,
+                   wires: list | None = None):
+    """(loss, g_head, g_mid, g_tail, wires); the loss is detached.  Four
+    crossings in this order: `cut_act_1` up, `cut_act_2` down,
+    `cut_grad_2` up, `cut_grad_1` down."""
+    wires = wires if wires is not None else []
+    with torch.enable_grad():
+        ph = _leaf_params(params_head)
+        a1 = model.apply_range(ph, x, 0, cut1)
+        loss, g_mid, g_tail, g_act1 = u_shaped_rest(
+            model, cut1, cut2, params_mid, params_tail, a1.detach(), labels,
+            loss_fn, wires)
+        g_head = _grads(a1, ph, g_act1)
+    return loss, g_head, g_mid, g_tail, wires
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +285,40 @@ def vertical_split_grads(branches: list, params_branches, trunk_apply,
 # Multi-hop (Tor-like): a chain of slabs, each owning a contiguous range
 # ---------------------------------------------------------------------------
 
+def multihop_rest(model: SegModel, cuts: list, params_chain, act, labels,
+                  loss_fn, wires: list):
+    """The chain past the data client, from hop 0's detached activation
+    `act`: each relay hop from a fresh leaf of what it received, its
+    activation recorded up and densified before the next; the last slab
+    with the loss; the gradients back down in reverse.  `params_chain`
+    holds slabs 1, 2, ...  Returns (loss detached, [g_slab_1, ...], hop
+    0's cut gradient as received, dense)."""
+    bounds = [0] + list(cuts) + [model.n_segments]
+    act = record(wires, "hop_0_act", act, "up")
+    with torch.enable_grad():
+        owned = []
+        for i in range(1, len(bounds) - 2):
+            p = _leaf_params(params_chain[i - 1])
+            inp = as_dense(act).detach().requires_grad_()
+            out = _apply_hop(model, p, inp, bounds[i], bounds[i + 1])
+            act = record(wires, f"hop_{i}_act", out.detach(), "up")
+            owned.append((p, inp, out))
+
+        p_last = _leaf_params(params_chain[-1])
+        recv = as_dense(act).detach().requires_grad_()
+        loss = loss_fn(_apply_hop(model, p_last, recv, bounds[-2],
+                                  bounds[-1]), labels)
+        g_last, g_act = _grads(loss, (p_last, recv))
+        grads = [g_last]
+        for i in reversed(range(len(owned))):
+            g_act = record(wires, f"hop_{i + 1}_grad", g_act, "down")
+            p, inp, out = owned[i]
+            g_slab, g_act = _grads(out, (p, inp), as_dense(g_act))
+            grads.append(g_slab)
+    g_act = record(wires, "hop_0_grad", g_act, "down")
+    return loss.detach(), list(reversed(grads)), as_dense(g_act)
+
+
 def multihop_grads(model: SegModel, cuts: list, params_slabs, x, labels,
                    loss_fn, wires: list | None = None):
     """cuts: ascending segment boundaries, e.g. [2, 4, 6]; slab i runs
@@ -267,31 +327,14 @@ def multihop_grads(model: SegModel, cuts: list, params_slabs, x, labels,
     Every hop's activation is recorded up and densified before the next
     hop; the gradients come back down in reverse."""
     wires = wires if wires is not None else []
-    bounds = [0] + list(cuts) + [model.n_segments]
     with torch.enable_grad():
-        act, owned = x, []
-        for i in range(len(bounds) - 2):
-            p = _leaf_params(params_slabs[i])
-            inp = x if i == 0 else as_dense(act).detach().requires_grad_()
-            out = _apply_hop(model, p, inp, bounds[i], bounds[i + 1])
-            act = record(wires, f"hop_{i}_act", out.detach(), "up")
-            owned.append((p, inp, out))
-
-        p_last = _leaf_params(params_slabs[-1])
-        recv = as_dense(act).detach().requires_grad_()
-        loss = loss_fn(_apply_hop(model, p_last, recv, bounds[-2],
-                                  bounds[-1]), labels)
-        g_last, g_act = _grads(loss, (p_last, recv))
-        grads = [g_last]
-        for i in reversed(range(len(owned))):
-            g_act = record(wires, f"hop_{i}_grad", g_act, "down")
-            p, inp, out = owned[i]
-            if i == 0:      # the raw input takes no gradient
-                g_slab = _grads(out, p, as_dense(g_act))
-            else:
-                g_slab, g_act = _grads(out, (p, inp), as_dense(g_act))
-            grads.append(g_slab)
-    return loss.detach(), list(reversed(grads)), wires
+        p0 = _leaf_params(params_slabs[0])
+        a0 = _apply_hop(model, p0, x, 0, cuts[0])
+        loss, g_chain, g_act = multihop_rest(
+            model, cuts, params_slabs[1:], a0.detach(), labels, loss_fn,
+            wires)
+        g0 = _grads(a0, p0, g_act)
+    return loss, [g0] + g_chain, wires
 
 
 # ---------------------------------------------------------------------------

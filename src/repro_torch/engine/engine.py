@@ -6,20 +6,28 @@ runs ONE round per call.  The topology lowers to a `StepProgram` once;
 `schedule=` picks the interpreter for the turn kinds:
 
   schedule="round_robin" (or "serial") — `program.run_serial`, the
-      paper's serial round-robin with the p2p weight handoff.
+      paper's serial round-robin with the p2p weight handoff;
+  schedule="parallel" — `program.run_parallel`, SplitFed: every client's
+      turn against the same server, which steps on the mean cut
+      gradient; no handoff;
+  schedule="pipelined" — `program.run_pipelined`, the round-robin with
+      each client batch streamed through the cut as `microbatches`
+      microbatches; M=1 is the serial math.
 
-The parallel and pipelined schedules come with a later slice (ROADMAP).
 Branch fan-in topologies (vertical, multitask, extended_vanilla) have no
-turn axis; their joint round runs through `program.run_branch` (schedule
-"parallel").  The baselines (fedavg, large_batch) have engines of their
-own (`repro_torch.api.baseline`).
+turn axis; their joint round runs through `program.run_branch`, or
+`program.run_branch_pipelined` under the pipelined schedule with M > 1.
+The baselines (fedavg, large_batch) have engines of their own
+(`repro_torch.api.baseline`).
 
 Resource accounting: wire shapes are static per (topology, batch shape),
 so the engine probes the wire records ONCE per batch shape on meta
 tensors (`accounting.probe_wire_records`) and then bills each round
 analytically.  WHICH crossings each client pays for is read off the
 program's `SendCut`/`RecvGrad` edges (`program.billed_wires`); the p2p
-handoff is billed to each client that received one.
+handoff is billed to each client that received one (round-robin and
+pipelined).  Wire bytes do not depend on the microbatch count: M
+payloads of B/M rows carry the bytes of one of B rows.
 """
 from __future__ import annotations
 
@@ -31,7 +39,8 @@ import torch
 from repro_torch.core.accounting import (Meter, TurnCost, bytes_of_tree,
                                          flops_of_fn, probe_wire_records)
 from repro_torch.engine.program import (EXECUTORS, ExecContext, run_branch,
-                                        stack_trees, tree_at)
+                                        run_branch_pipelined, stack_trees,
+                                        tree_at)
 from repro_torch.engine.topology import Topology, lower
 from repro_torch.nn.module import split_keys
 
@@ -47,23 +56,28 @@ class RoundEngine:
     optimizer_server: Any
     n_clients: int
     schedule: str = "round_robin"
-    sync: str = "p2p"                   # "p2p" | "none" (round_robin)
+    sync: str = "p2p"                   # "p2p" | "none" (serial, pipelined)
     wire_stack: Any = None              # api.wire.WireStack | None
+    microbatches: int = 1               # pipelined schedule only
 
     def __post_init__(self):
         if self.schedule == "serial":       # IR executor name, accepted
             self.schedule = "round_robin"
         if self.schedule not in SCHEDULES:
             raise ValueError(f"schedule must be one of {SCHEDULES}")
-        branch = self.topology.parallel_only
-        if branch and self.schedule == "round_robin":
+        if self.topology.parallel_only and self.schedule == "round_robin":
             raise ValueError(f"{self.topology.kind} topology is parallel-only")
-        ported = "parallel" if branch else "round_robin"
-        if self.schedule != ported:
-            raise NotImplementedError(
-                f"schedule={self.schedule!r} for the {self.topology.kind} "
-                f"topology is not ported yet: the port runs it {ported!r}; "
-                "see ROADMAP.md")
+        if self.microbatches < 1:
+            raise ValueError("microbatches must be >= 1")
+        if self.microbatches > 1 and self.schedule != "pipelined":
+            raise ValueError("microbatches > 1 requires "
+                             "schedule='pipelined'")
+        if (self.schedule == "pipelined"
+                and not self.topology.parallel_only
+                and self.topology.pipeline_fwd is None):
+            raise ValueError(
+                f"{self.topology.kind} topology exposes no staged turn "
+                "(pipeline_fwd/rest/bwd): pipelined schedule unavailable")
         self.meter = Meter(self.n_clients)
         self._turn_costs: dict = {}     # batch-shape key -> TurnCost
         self._wire_handoff = bool(self.wire_stack is not None
@@ -73,7 +87,8 @@ class RoundEngine:
             n_clients=self.n_clients, sync=self.sync, loss_fn=self.loss_fn,
             optimizer_client=self.optimizer_client,
             optimizer_server=self.optimizer_server,
-            wire_stack=self.wire_stack, wire_handoff=self._wire_handoff)
+            wire_stack=self.wire_stack, wire_handoff=self._wire_handoff,
+            microbatches=self.microbatches)
 
     # ---- state ------------------------------------------------------------
 
@@ -108,12 +123,14 @@ class RoundEngine:
         meters the round."""
         first = int(state["last_trained"]) < 0
         self.turn_cost(state, batches)          # probe once per shape
-        if self.program.round_type == "branch":
-            state, losses = run_branch(self.program, self._ctx, state,
-                                       batches)
+        prog, ctx = self.program, self._ctx
+        if prog.round_type != "branch":
+            state, losses = EXECUTORS[self.schedule](prog, ctx, state,
+                                                     batches)
+        elif self.schedule == "pipelined" and self.microbatches > 1:
+            state, losses = run_branch_pipelined(prog, ctx, state, batches)
         else:
-            state, losses = EXECUTORS[self.schedule](self.program, self._ctx,
-                                                     state, batches)
+            state, losses = run_branch(prog, ctx, state, batches)
         self._account_round(state, batches, first_round=first)
         return state, losses
 
@@ -149,14 +166,15 @@ class RoundEngine:
     def _account_round(self, state, batches, *, first_round: bool):
         """Bill the round from the program's wire edges: each client pays
         for the `SendCut`/`RecvGrad` steps whose `owner`/`client` metadata
-        point at it, and under the round-robin p2p schedule for every
-        handoff it received (all but client 0's in the first round)."""
+        point at it, and under the round-robin and pipelined p2p schedules
+        for every handoff it received (all but client 0's in the first
+        round); the parallel schedule has no handoff."""
         cost = self.turn_cost(state, batches)
         by_name: dict = {}
         for w in cost.wires:
             by_name.setdefault(w.name, []).append(w)
         handoff = (self.program.round_type == "turn"
-                   and self.schedule == "round_robin"
+                   and self.schedule in ("round_robin", "pipelined")
                    and self.sync == "p2p" and self.n_clients > 1)
         for ci in range(self.n_clients):
             self.meter.add_flops(ci, cost.flops)

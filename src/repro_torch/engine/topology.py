@@ -11,12 +11,23 @@ functions in `repro_torch.core.split`; it owns no scheduling.  The
     round_grads(clients, ps, batch, lf) -> (loss, stacked g_clients, g_s)
 
 the turn kinds through `turn_grads`, one client at a time; the branch
-fan-in kinds through `round_grads`, all clients in one step.  `lower()`
-turns a Topology into the `StepProgram` the executors interpret;
-`lower_baseline()` does the same for the fedavg and large_batch
-comparison modes.  The six paper configurations (Gupta & Raskar §3;
-Ceballos et al. 2020 for vertical; Fig. 4 for multi-hop / extended /
-multi-task):
+fan-in kinds through `round_grads`, all clients in one step.  The turn
+kinds also attach the staged form of one turn that the pipelined
+executor streams microbatch by microbatch:
+
+    pipeline_fwd(pc, batch)                   -> the client's first act
+    pipeline_rest(pc, ps, act, batch, lf, wires)
+                                -> (loss, g_rest, g_server, g_act)
+    pipeline_bwd(pc, batch, g_act, g_rest)    -> g_client
+
+`rest` is everything past the first crossing (the server, and the
+u-shaped client's tail, whose gradient comes back in `g_rest`); `bwd`
+rematerializes the client's forward and pulls the received cut gradient
+back through it.  `lower()` turns a Topology into the `StepProgram` the
+executors interpret; `lower_baseline()` does the same for the fedavg and
+large_batch comparison modes.  The six paper configurations (Gupta &
+Raskar §3; Ceballos et al. 2020 for vertical; Fig. 4 for multi-hop /
+extended / multi-task):
 
   vanilla          client [0, cut), server [cut, L) + loss
   u_shaped         client head + tail + loss, server mid; labels never
@@ -28,8 +39,7 @@ multi-task):
   extended_vanilla K modality branches -> concat -> an intermediate
                    client -> server trunk
 
-`vanilla_fns` (LM training) and the staged `pipeline_*` turns come with
-later slices (ROADMAP).
+`vanilla_fns` (LM training) comes with a later slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -59,6 +69,11 @@ class Topology:
     round_grads: Callable | None = None  # (clients, ps, batch, loss_fn)
     # the step-sequence IR this topology lowers to
     steps: tuple = ()
+    # the staged turn (pipelined executor); turn kinds only
+    pipeline_fwd: Callable | None = None   # (pc, batch) -> act
+    # (pc, ps, act, batch, loss_fn, wires) -> (loss, g_rest, g_s, g_act)
+    pipeline_rest: Callable | None = None
+    pipeline_bwd: Callable | None = None   # (pc, batch, g_act, g_rest) -> g_c
 
     @property
     def parallel_only(self) -> bool:
@@ -67,10 +82,12 @@ class Topology:
 
 def lower(topology: Topology) -> ir.StepProgram:
     """Topology -> the one `StepProgram` every executor interprets."""
+    branch = topology.parallel_only
     return ir.StepProgram(
-        kind=topology.kind,
-        round_type="branch" if topology.parallel_only else "turn",
-        steps=tuple(topology.steps), topology=topology)
+        kind=topology.kind, round_type="branch" if branch else "turn",
+        steps=tuple(topology.steps), topology=topology,
+        split_batch=(ir.split_branch_batch if branch
+                     else ir.split_turn_batch))
 
 
 def lower_baseline(mode: str, *, local_steps: int = 1) -> ir.StepProgram:
@@ -127,6 +144,14 @@ def _branch_fanout_steps(n_clients: int) -> tuple:
     return tuple(out) + (ir.Aggregate(what="step"),)
 
 
+def _remat_grads(fwd: Callable, params, g_out):
+    """A staged client backward: `fwd` rerun on fresh leaves of `params`,
+    and the received gradient `g_out` pulled back through it."""
+    with torch.enable_grad():
+        p = sp._leaf_params(params)
+        return sp._grads(fwd(p), p, g_out)
+
+
 def _branch_features(branch, n_clients, clients, batch):
     """Every branch's features on its modality, concatenated."""
     return torch.cat([branch.apply(pc, batch["x"][i]) for i, pc in
@@ -164,10 +189,20 @@ def vanilla(model: sp.SegModel, cut: int) -> Topology:
     def evaluate(pc, ps, batch):
         return sp.server_apply(model, cut, ps, client_fwd(pc, batch))
 
+    def pipeline_rest(pc, ps, act, batch, loss_fn, wires):
+        loss, g_s, g_act = sp.vanilla_rest(model, cut, ps, act,
+                                           batch["labels"], loss_fn, wires)
+        return loss, {}, g_s, g_act
+
+    def pipeline_bwd(pc, batch, g_act, g_rest):
+        return _remat_grads(lambda p: client_fwd(p, batch), pc, g_act)
+
     return Topology(kind="vanilla", init=init,
                     turn_grads=_drop_wires(turn_grads_wires),
                     turn_grads_wires=turn_grads_wires, evaluate=evaluate,
-                    client_fwd=client_fwd, steps=VANILLA_STEPS)
+                    client_fwd=client_fwd, steps=VANILLA_STEPS,
+                    pipeline_fwd=client_fwd, pipeline_rest=pipeline_rest,
+                    pipeline_bwd=pipeline_bwd)
 
 
 # ---------------------------------------------------------------------------
@@ -231,10 +266,24 @@ def u_shaped(model: sp.SegModel, cut1: int, cut2: int) -> Topology:
             batch["labels"], loss_fn, wires)
         return loss, {"head": g_head, "tail": g_tail}, g_mid
 
+    def head_fwd(pc, batch):
+        return model.apply_range(pc["head"], batch["x"], 0, cut1)
+
     def evaluate(pc, ps, batch):
-        act = model.apply_range(pc["head"], batch["x"], 0, cut1)
-        act = sp._apply_mid(model, ps, act, cut1, cut2)
+        act = sp._apply_mid(model, ps, head_fwd(pc, batch), cut1, cut2)
         return sp._apply_tail(model, pc["tail"], act, cut2)
+
+    def pipeline_rest(pc, ps, act1, batch, loss_fn, wires):
+        loss, g_mid, g_tail, g_act1 = sp.u_shaped_rest(
+            model, cut1, cut2, ps, pc["tail"], act1, batch["labels"],
+            loss_fn, wires)
+        return loss, {"tail": g_tail}, g_mid, g_act1
+
+    def pipeline_bwd(pc, batch, g_act1, g_rest):
+        g_head = _remat_grads(
+            lambda p: model.apply_range(p, batch["x"], 0, cut1), pc["head"],
+            g_act1)
+        return {"head": g_head, "tail": g_rest["tail"]}
 
     steps = _turn_steps(
         ir.ClientFwd(stage="head"),
@@ -253,7 +302,8 @@ def u_shaped(model: sp.SegModel, cut1: int, cut2: int) -> Topology:
     return Topology(kind="u_shaped", init=init,
                     turn_grads=_drop_wires(turn_grads_wires),
                     turn_grads_wires=turn_grads_wires, evaluate=evaluate,
-                    steps=steps)
+                    steps=steps, pipeline_fwd=head_fwd,
+                    pipeline_rest=pipeline_rest, pipeline_bwd=pipeline_bwd)
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +340,14 @@ def multihop(model: sp.SegModel, cuts: list) -> Topology:
             act = sp._apply_hop(model, slab, act, bounds[i], bounds[i + 1])
         return act
 
+    def pipeline_rest(pc, ps, act, batch, loss_fn, wires):
+        loss, g_chain, g_act = sp.multihop_rest(
+            model, cuts, list(ps), act, batch["labels"], loss_fn, wires)
+        return loss, {}, tuple(g_chain), g_act
+
+    def pipeline_bwd(pc, batch, g_act, g_rest):
+        return _remat_grads(lambda p: client_fwd(p, batch), pc, g_act)
+
     n_relay = len(cuts) - 1
     steps = _turn_steps(
         ir.ClientFwd(stage="hop_0"),
@@ -305,7 +363,9 @@ def multihop(model: sp.SegModel, cuts: list) -> Topology:
     return Topology(kind="multihop", init=init,
                     turn_grads=_drop_wires(turn_grads_wires),
                     turn_grads_wires=turn_grads_wires, evaluate=evaluate,
-                    client_fwd=client_fwd, steps=steps)
+                    client_fwd=client_fwd, steps=steps,
+                    pipeline_fwd=client_fwd, pipeline_rest=pipeline_rest,
+                    pipeline_bwd=pipeline_bwd)
 
 
 # ---------------------------------------------------------------------------

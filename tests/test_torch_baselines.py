@@ -415,8 +415,14 @@ def test_full_fns_and_unported_baseline_options():
     for mode in MODES:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Plan(mode=mode, model=split).compile(device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # microbatches are ported under the pipelined schedule
+        # (tests/test_torch_schedules.py)
+        with pytest.raises(ValueError,
+                           match="requires schedule='pipelined'"):
             Plan(mode=mode, model=tm, microbatches=2).compile(device="cpu")
+        eng = Plan(mode=mode, model=tm, schedule="pipelined",
+                   microbatches=2).compile(device="cpu").engine
+        assert eng.microbatches == 2
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Plan(mode=mode, model=tm, fleet=object()).compile(device="cpu")
         with pytest.raises(TypeError, match="cannot run a baseline"):

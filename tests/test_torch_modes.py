@@ -594,11 +594,14 @@ def test_engine_states_bridge_both_ways():
 def test_unported_schedules_and_models_raise():
     _, tm = _models()
     for kind in ("u_shaped", "multihop"):
+        # both schedules are ported (tests/test_torch_schedules.py);
+        # microbatches need the pipelined one
         for sched in ("parallel", "pipelined"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                Plan(mode=kind, model=tm, cuts=CUTS[kind], n_clients=2,
-                     schedule=sched).compile(device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            eng = Plan(mode=kind, model=tm, cuts=CUTS[kind], n_clients=2,
+                       schedule=sched).compile(device="cpu").engine
+            assert eng.schedule == sched
+        with pytest.raises(ValueError,
+                           match="requires schedule='pipelined'"):
             Plan(mode=kind, model=tm, cuts=CUTS[kind],
                  microbatches=2).compile(device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -615,9 +618,13 @@ def test_unported_schedules_and_models_raise():
         Plan(mode="multitask", branch=tb).compile(device="cpu")
     with pytest.raises(ValueError, match="needs mid="):
         Plan(mode="extended_vanilla", branch=tb).compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Plan(mode="multitask", branch=tb, heads=(_dense_pair(32, 4)[1],),
-             schedule="pipelined").compile(device="cpu")
+    heads = (_dense_pair(32, 4)[1],)
+    eng = Plan(mode="multitask", branch=tb, heads=heads, schedule="pipelined",
+               microbatches=2).compile(device="cpu").engine
+    assert (eng.schedule, eng.microbatches) == ("pipelined", 2)
+    with pytest.raises(ValueError, match="single-mesh"):
+        Plan(mode="multitask", branch=tb, heads=heads, schedule="pipelined",
+             microbatches=2, fleet=object()).compile(device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -490,13 +490,17 @@ def test_distance_correlation_matches_reference():
 def test_unported_modes_and_devices_raise():
     _, tb, _, tt, _, _ = _mlp_branches()
     assert PORTED_MODES == MODES
-    # every mode is ported; the pipelined schedule and microbatches are not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Plan(mode="vertical", branch=tb, trunk=tt,
-             schedule="pipelined").compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every mode and schedule is ported; microbatches need the pipelined
+    # schedule, and a fleet is not ported
+    eng = Plan(mode="vertical", branch=tb, trunk=tt, schedule="pipelined",
+               microbatches=2).compile(device="cpu").engine
+    assert (eng.schedule, eng.microbatches) == ("pipelined", 2)
+    with pytest.raises(ValueError, match="requires schedule='pipelined'"):
         Plan(mode="vertical", branch=tb, trunk=tt,
              microbatches=2).compile(device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Plan(mode="vertical", branch=tb, trunk=tt,
+             fleet=object()).compile(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         parse_wire("dp_noise:0.1")
     assert [t.name for t in parse_wire("quantize_int8:physical,"

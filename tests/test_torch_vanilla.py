@@ -500,10 +500,19 @@ def test_identical_clients_and_unported_schedules_raise():
     st = sess.init(seed=1)
     for a in tmod.tree_leaves(st["clients"]):
         assert all(torch.equal(a[0], a[i]) for i in range(1, N_CLIENTS))
-    for sched in ("parallel", "pipelined"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Plan(mode="vanilla", model=tm, cut=CUT, n_clients=N_CLIENTS,
-                 schedule=sched).compile(device="cpu")
+    # both schedules are ported (tests/test_torch_schedules.py);
+    # microbatches need the pipelined one
+    for sched, m in (("parallel", 1), ("pipelined", 2)):
+        eng = Plan(mode="vanilla", model=tm, cut=CUT, n_clients=N_CLIENTS,
+                   schedule=sched, microbatches=m).compile(
+                       device="cpu").engine
+        assert (eng.schedule, eng.microbatches) == (sched, m)
+    with pytest.raises(ValueError, match="requires schedule='pipelined'"):
+        Plan(mode="vanilla", model=tm, cut=CUT,
+             microbatches=2).compile(device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Plan(mode="vanilla", model=tm, cut=CUT,
+             fleet=object()).compile(device="cpu")
     fns = SplitFns(init=None, split=None, client_apply=None,
                    server_apply=None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
