@@ -20,7 +20,12 @@ Phases, each of which ends the run with a nonzero exit on any error:
    causal GQA prefill and RecurrentGemma's 2048-row window over a
    4096-row prompt) within the stated tolerances; each kernel's median
    time beside the plain version's, its bound and, where one PyTorch call
-   computes the same function, that call's time.
+   computes the same function, that call's time.  Then the training
+   gradient of rmsnorm, flash attention and the SSD at the LM training
+   shapes (fp32, every input requiring grad): one kernel launch and a
+   grad_fn, no launch in backward, and the plain version's autograd
+   gradients within rtol 1e-5; the backward timed beside `F.rms_norm`'s
+   and `scaled_dot_product_attention`'s.
 3. Serving: phi4-mini-3.8B at full width (all 32 layers, bf16, random
    weights from a seeded generator), split at layer 4, served through
    `ServeSession` over the physical int8 wire with the fused entry:
@@ -121,6 +126,29 @@ Phases, each of which ends the run with a nonzero exit on any error:
    each beside its own schedule's time a round; then vanilla pipelined at
    M=1 against round-robin over the same batches: losses, state and meter
    bitwise under deterministic cuDNN.
+3j. LM split training, `Plan(mode="vanilla", model=lm_split_fns(model,
+   cut))` over the physical wire, fp32, AdamW(1e-4), random weights from a
+   seeded generator, batch 4 x seq 512 a turn of `lm_batch` tokens drawn
+   from the first 1,024 ids, 30 rounds: Mamba2-130M whole (24 layers, d
+   768, 437.1M parameters with the dense conv), cut 4, 2 clients
+   round-robin with the p2p handoff; and phi4-mini at full width (d 3072,
+   24/8 heads of 128, SwiGLU 8192, vocab 200,064, tied) cut to 4 of its 32
+   layers (1,017.3M parameters: with their gradients and AdamW moments,
+   and the tied table held by the client and by the server, 32 layers
+   would not fit one 80 GB card), cut 2, 1 client.  Each: the loss falls,
+   `wire_report` bills 4 x 512 x (d + 4) B each way a turn, Mamba2's
+   handoff the analytic sum over its client's 37 leaves (105,380,640 B)
+   with `client_gb` exact, launches exact (rmsnorm 49 and ssd_scan 24 a
+   Mamba2 forward, rmsnorm 9 and flash_attention 4 a phi4-mini one, none
+   in backward, the wire kernels 2 a turn plus the handoff's leaves),
+   physical == fake bitwise over 3 rounds under deterministic algorithms,
+   a round's time and one profiled round.  Then Mamba2 over 3 rounds
+   pipelined at M=2 (its meter equal to round-robin's over the same 3
+   rounds, the client forward twice a microbatch), in parallel, and as
+   `large_batch` over `FullFns` (the 218 leaves' pull and push, 438,203,812
+   B each); and reduced phi4-mini, Mamba2 and RecurrentGemma (a sequence
+   past its window) trained on the card == the plain CPU path over 3
+   rounds.
 4. A `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
@@ -130,6 +158,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -267,6 +296,8 @@ def wire_payloads(torch) -> list:
             for p in _branch_payloads(torch, mode, "pipelined")]
     out += [p for mode in BASELINES
             for p in _baseline_payloads(torch, mode, "pipelined")]
+    # phase 3j: the LM paths' cut, handoff and model payloads
+    out += _lm_payloads(torch)
     out += [(None, "no path", (4, 1, 3072), torch.float32, 0),
             (None, "no path", (4, 128, 3072), torch.float32, 0)]
     return out
@@ -357,9 +388,11 @@ def check_wire(torch, gen) -> tuple:
              ((4, 1, 200064), torch.bfloat16), ((4, 1, 3072), torch.float32),
              ((4, 128, 3072), torch.float32)}
     vanilla = torch.Generator(device="cuda").manual_seed(64)
+    lm = torch.Generator(device="cuda").manual_seed(768)
     own = {(128, 512): torch.Generator(device="cuda").manual_seed(512),
            **{shape: vanilla for path, _, shape, _, _ in wire_payloads(torch)
-              if path == "vanilla_training"}}
+              if path == "vanilla_training"},
+           **{shape: lm for _, _, shape, _, _ in _lm_payloads(torch)}}
     rest = torch.Generator(device="cuda").manual_seed(17)
     one = torch.zeros(1, device="cuda")
     two = torch.zeros(1, device="cuda")
@@ -901,6 +934,196 @@ def check_flash(torch) -> tuple:
         del qb, kb, vb, y, qt, kt, vt, mask
         torch.cuda.empty_cache()
     return max_err, timings
+
+
+def time_events_ms(torch, fn, reps: int = 10) -> float:
+    """Median device time of one call of `fn` from CUDA events around it,
+    after a warm-up call: for work a CUDA graph cannot capture (an
+    autograd backward)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def check_grads(torch) -> dict:
+    """Rows 5-7's gradient on the card at the LM training shapes, fp32:
+    every input requires grad, so each wrapper goes through its autograd
+    Function; its forward must launch the kernel once (held to the plain
+    forward as above: rmsnorm at 1e-5, flash at 2e-5, the SSD within 1e-3
+    x rms + 1e-4 x |v|), its output carry a grad_fn, and its
+    backward (the plain version recomputed on the saved inputs) launch
+    nothing and give the plain version's autograd gradients within rtol
+    1e-5, atol 1e-6 x the largest (the same arithmetic; only a library's
+    choice of summation order could part them).  The SSD's x, B and C are
+    views into one projection, as Mamba2 hands them over.  Timed: the
+    kernel's forward at the shape (fp32: flash runs its `flash_fwd`
+    kernel, not the bf16 `wgmma` one) beside the plain forward, the
+    Function's backward (recompute and differentiate), the plain
+    version's backward alone, and where a PyTorch call computes the same
+    function (`F.rms_norm`, `scaled_dot_product_attention`) that call's
+    forward and backward.  Returns {kernel: (backward ms, plain backward
+    ms, library backward ms)} at each kernel's first shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssd_scan import ssd_chunked_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(2048)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def close(tol):
+        def ok(a, b):
+            return torch.allclose(a, b, rtol=tol, atol=tol)
+        return ok
+
+    def ssd_close(a, b):
+        """The kernel tiles 64 rows, the plain form the model's chunk of
+        256: their decays round differently (check_ssd's rule)."""
+        tol = 1e-3 * b.square().mean().sqrt() + 1e-4 * b.abs()
+        return bool(((a - b).abs() <= tol).all())
+
+    def rms(d):
+        def make():
+            return [randn(LB, LS, d), 1 + 0.1 * randn(d)], {}
+
+        def lib(x, s):
+            return F.rms_norm(x, (d,), s, 1e-6)
+        return (f"rmsnorm ({LB},{LS},{d})", "rmsnorm", make, ops.rmsnorm,
+                ref.rmsnorm_ref, lib, close(1e-5))
+
+    def flash(window):
+        def make():
+            return ([randn(LB, LS, 24, 128), randn(LB, LS, 8, 128),
+                     randn(LB, LS, 8, 128)], {"window": window})
+
+        def lib(q, k, v, window):
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            if window is None:
+                o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True)
+            else:
+                mask = ref.causal_mask(LS, LS, window=window, device=q.device)
+                o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                   enable_gqa=True)
+            return o.transpose(1, 2)
+        return (f"flash_attention q ({LB},{LS},24,128) k/v ({LB},{LS},8,128) "
+                f"causal, window {window}", "flash_attention", make,
+                ops.flash_attention, ref.flash_attention_ref, lib,
+                close(2e-5))
+
+    def ssd(carried):
+        def make():
+            h, p, n = 24, 64, 128
+            # x at 0.5 and B/C at 0.3, as check_ssd draws them
+            proj = torch.cat([0.5 * randn(LB, LS, h * p),
+                              0.3 * randn(LB, LS, 2 * n)], dim=-1)
+            dt = F.softplus(randn(LB, LS, h))
+            A = -torch.linspace(1.0, 16.0, h, device="cuda")
+            init = randn(LB, h, p, n) if carried else None
+            return ([proj, dt, A] + ([init] if carried else []),
+                    {"chunk": 256, "return_state": True})
+        return (f"ssd_scan x ({LB},{LS},24,64) B/C ({LB},{LS},1,128), "
+                f"{'carried' if carried else 'zero'} state", "ssd_scan",
+                make, ops.ssd_scan, ssd_chunked_plain, None, ssd_close)
+
+    def ssd_args(ins):
+        """(proj, dt, A[, init]) -> the scan's arguments, x/B/C as views."""
+        proj, dt, A = ins[:3]
+        x = proj[..., :24 * 64].unflatten(-1, (24, 64))
+        Bm = proj[..., 24 * 64:24 * 64 + 128].unflatten(-1, (1, 128))
+        Cm = proj[..., 24 * 64 + 128:].unflatten(-1, (1, 128))
+        return (x, dt, A, Bm, Cm), (ins[3] if len(ins) > 3 else None)
+
+    out = {}
+    for tag, name, make, fn, plain, lib, fwd_close in (
+            rms(768), rms(3072), flash(None), flash(128), ssd(False),
+            ssd(True)):
+        ins, kw = make()
+
+        def call(f, leaves):
+            if name != "ssd_scan":
+                return f(*leaves, **kw)
+            args, init = ssd_args(leaves)
+            return f(*args, initial_state=init, **kw)
+        runs = []
+        for f in (fn, plain):
+            leaves = [t.detach().clone().requires_grad_() for t in ins]
+            before = ops.launch_counts()
+            o = call(f, leaves)
+            o = list(o) if isinstance(o, tuple) else [o]
+            runs.append((leaves, o, before, ops.launch_counts()))
+        (leaves, o, before, after), (p_leaves, p_o, _, _) = runs
+        if after[name] - before[name] != 1 or any(
+                after[k] != before[k] for k in after if k != name):
+            fail(f"{tag}: a grad-requiring input launched "
+                 f"{ {k: after[k] - before[k] for k in after} }, not one "
+                 f"{name}")
+        if any(t.grad_fn is None for t in o):
+            fail(f"{tag}: the kernel's output has no grad_fn")
+        for a, b in zip(o, p_o):
+            if not fwd_close(a, b):
+                fail(f"{tag}: forward max abs err "
+                     f"{(a - b).abs().max().item():.3e} against the plain "
+                     "version")
+        cts = [randn(*t.shape) for t in o]
+        g = torch.autograd.grad(o, leaves, cts, retain_graph=True)
+        g_p = torch.autograd.grad(p_o, p_leaves, cts, retain_graph=True)
+        if ops.launch_counts() != after:
+            fail(f"{tag}: the backward launched a kernel")
+        worst = 0.0
+        for a, b in zip(g, g_p):
+            scale = b.abs().max().item()
+            worst = max(worst, (a - b).abs().max().item() / max(scale,
+                                                                1e-30))
+            if not torch.allclose(a, b, rtol=1e-5, atol=1e-6 * scale):
+                fail(f"{tag}: gradient max abs err "
+                     f"{(a - b).abs().max().item():.3e} against the plain "
+                     f"version's autograd (rtol 1e-5, atol 1e-6 x "
+                     f"{scale:.3e})")
+        fixed = [t.detach() for t in ins]
+        t_fwd = time_ms(torch, [lambda: call(fn, fixed)], calls=8, reps=9)
+        t_fwd_plain = time_ms(torch, [lambda: call(plain, fixed)], calls=4,
+                              reps=5)
+        t_bwd = time_events_ms(torch, lambda: torch.autograd.grad(
+            o, leaves, cts, retain_graph=True))
+        t_plain = time_events_ms(torch, lambda: torch.autograd.grad(
+            p_o, p_leaves, cts, retain_graph=True))
+        t_lib = t_lib_fwd = None
+        if lib is not None:
+            try:
+                t_lib_fwd = time_ms(torch, [lambda: lib(*fixed, **kw)],
+                                    calls=8, reps=9)
+                l_leaves = [t.detach().clone().requires_grad_() for t in ins]
+                l_o = lib(*l_leaves, **kw)
+                t_lib = time_events_ms(torch, lambda: torch.autograd.grad(
+                    l_o, l_leaves, cts[0], retain_graph=True))
+                del l_o, l_leaves
+            except (AttributeError, RuntimeError, TypeError) as e:
+                print(f"  library yardstick not timed: {e}")
+        lib_s = (f"{t_lib_fwd:.4f} / {t_lib:.4f} ms" if t_lib is not None
+                 else "none")
+        print(f"{tag} fp32, inputs requiring grad: kernel forward (1 "
+              f"launch, grad_fn), gradient within rtol 1e-5 of the plain "
+              f"autograd (largest {worst:.2e} of the leaf's scale); "
+              f"forward: kernel {t_fwd:.4f} ms, plain {t_fwd_plain:.4f} ms; "
+              f"backward (plain recompute + autograd) {t_bwd:.4f} ms, "
+              f"plain backward alone {t_plain:.4f} ms; library forward / "
+              f"backward {lib_s}")
+        out.setdefault(name, (t_bwd, t_plain, t_lib))
+        del runs, leaves, o, p_leaves, p_o, g, g_p, cts
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1690,7 +1913,8 @@ def _timed_fit(torch, sess, batches, rounds: int):
           f"{[round(x, 4) for x in losses[-5:]]}")
     if not all(map(math.isfinite, losses)):
         fail(f"non-finite training loss: {losses}")
-    if not statistics.mean(losses[-5:]) < statistics.mean(losses[:5]):
+    k = min(5, rounds // 2)            # the first and last 5 (or 1 of 3)
+    if not statistics.mean(losses[-k:]) < statistics.mean(losses[:k]):
         fail(f"loss did not fall: {losses}")
     return losses, first_s, round_ms, host_ms, launches, peak_gib
 
@@ -2251,10 +2475,414 @@ def pipelined_m1_equals_round_robin(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 3j: LM split training (Mamba2-130M whole, phi4-mini at full width)
+# ---------------------------------------------------------------------------
+
+# batch x sequence a turn (Mamba2's 512 rows are two SSD chunks), rounds
+LB, LS, L_ROUNDS = 4, 512, 30
+# the token ids the LM batches draw from (`lm_batch`'s noisy bigram rule
+# over the first LM_DATA_VOCAB ids; the models keep their full vocab and
+# their logits cover it).  Over the full vocabulary the rule walks through
+# ids that recur about once in 30 rounds, and 30 AdamW steps from a random
+# init learn nothing there (chip_lm_vocab.py measures both; PERF.md)
+LM_DATA_VOCAB = 1024
+# arch -> (layers kept, None for all; cut; clients).  phi4-mini keeps 4
+# of its 32 layers: at full width in fp32 its 1,017M parameters (the
+# 614.6M-row tied embedding held by the client and, as `tied_head`, by
+# the server) with their gradients and AdamW moments fill about 40 GB,
+# and 32 layers would not fit one 80 GB card
+LM_RUNS = {"mamba2_130m": (None, 4, 2), "phi4_mini_3_8b": (4, 2, 1)}
+# the LM paths: (arch, mode, schedule, rounds); the other schedules and
+# the baseline run 3 rounds of Mamba2
+LM_PATHS = [("mamba2_130m", "vanilla", None, L_ROUNDS),
+            ("phi4_mini_3_8b", "vanilla", None, L_ROUNDS),
+            ("mamba2_130m", "vanilla", "pipelined", 3),
+            ("mamba2_130m", "vanilla", "parallel", 3),
+            ("mamba2_130m", "large_batch", None, 3)]
+# the reduced card == CPU checks: arch -> (reduced overrides, seq, cut);
+# RecurrentGemma's sequence runs past its window
+LM_REDUCED = {"phi4_mini_3_8b": (dict(vocab=64), 12, 1),
+              "mamba2_130m": (dict(vocab=64), 16, 1),
+              "recurrentgemma_2b": (dict(vocab=64, n_layers=6, window=8),
+                                    20, 3)}
+
+
+def _lm_config(torch, arch):
+    """The full-width config in fp32, cut to its kept layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    layers = LM_RUNS[arch][0]
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def _lm_leaves(torch, arch, side: str) -> list:
+    """The leaf shapes of the client's tree (side "client") or of the whole
+    model ("model"), from an init on meta tensors."""
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import tree_leaves
+
+    model = build_model(_lm_config(torch, arch))
+    params = model.init(torch.Generator(), "meta")
+    if side == "client":
+        params = model.split_params(params, LM_RUNS[arch][1])[0]
+    return [tuple(t.shape) for t in tree_leaves(params)]
+
+
+def _int8_bytes(shapes) -> int:
+    """Leaves through the int8 wire: one byte a value plus one fp32 scale
+    a last-axis row."""
+    return sum(math.prod(s) + 4 * (math.prod(s) // s[-1]) for s in shapes)
+
+
+def _lm_path_name(arch, mode, schedule=None) -> str:
+    return path_name(f"{arch}_{mode}", schedule)
+
+
+def _lm_payloads(torch) -> list:
+    """Every payload the LM paths hand the wire kernels, with their
+    launches a run: a vanilla turn's cut activation up and gradient down
+    once a microbatch (rows / M), the client's leaves at every handoff
+    taken (every turn but the first, with more than one client, none in
+    parallel); a large_batch round every model leaf pulled and pushed
+    stacked over the clients."""
+    from collections import Counter
+
+    f32, out = torch.float32, []
+    for arch, mode, schedule, rounds in LM_PATHS:
+        name = _lm_path_name(arch, mode, schedule)
+        n, m = LM_RUNS[arch][2], MICROBATCHES.get(schedule, 1)
+        d = _lm_config(torch, arch).d_model
+        if mode == "large_batch":
+            for shape, k in Counter(_lm_leaves(torch, arch,
+                                               "model")).items():
+                out += [(name, "model pull", shape, f32, k * rounds),
+                        (name, "model push", (n,) + shape, f32, k * rounds)]
+            continue
+        turns = n * rounds
+        out.append((name, "cut_act up / cut_grad down", (LB // m, LS, d),
+                    f32, 2 * m * turns))
+        if n > 1 and schedule != "parallel":
+            out += [(name, "handoff", shape, f32, k * (turns - 1))
+                    for shape, k in Counter(_lm_leaves(
+                        torch, arch, "client")).items()]
+    return out
+
+
+def _lm_plan(torch, arch, wire, mode="vanilla", schedule=None):
+    """`Plan` of an LM: vanilla over `lm_split_fns` at the run's cut, or a
+    baseline over `FullFns(model.init, model.forward)`."""
+    from repro_torch import optim
+    from repro_torch.api import FullFns, Plan, lm_split_fns
+    from repro_torch.models import build_model
+
+    _, cut, n = LM_RUNS[arch]
+    model = build_model(_lm_config(torch, arch))
+    kw = dict(optimizer=optim.adamw(LR), wire=wire, n_clients=n,
+              schedule=schedule, microbatches=MICROBATCHES.get(schedule, 1))
+    if mode == "vanilla":
+        return Plan(mode=mode, model=lm_split_fns(model, cut), cut=cut,
+                    **kw)
+    return Plan(mode=mode, model=FullFns(model.init, model.forward), **kw)
+
+
+def _lm_batches(gen, n: int, n_clients: int, rows: int, seq: int,
+                vocab: int) -> list:
+    """`n` rounds of per-client `data/synthetic.py:lm_batch`es."""
+    from repro_torch.data.synthetic import lm_batch
+
+    return [[lm_batch(gen, rows, seq, vocab) for _ in range(n_clients)]
+            for _ in range(n)]
+
+
+def _lm_launches(torch, arch, mode, schedule, rounds) -> dict:
+    """Every kernel's launches over `rounds` rounds, as the code implies.
+    A forward launches rmsnorm twice a block with an MLP (norm1, norm2),
+    twice a Mamba2 block (norm1 and the gated norm) and once for the
+    final norm, ssd_scan once a Mamba2 block and flash_attention once an
+    attention block; backward launches nothing (the Functions recompute
+    the plain versions).  A pipelined turn runs the client's forward twice
+    a microbatch (the staged forward and the backward's recompute) and
+    the server's once."""
+    cfg = _lm_config(torch, arch)
+    _, cut, n = LM_RUNS[arch]
+    m = MICROBATCHES.get(schedule, 1)
+    mamba = cfg.family == "ssm"
+
+    def fwd(layers, final):
+        return {"rmsnorm": 2 * layers + final,
+                "ssd_scan": layers if mamba else 0,
+                "flash_attention": 0 if mamba else layers}
+    wire = {}
+    if mode == "large_batch":
+        per_round = [fwd(cfg.n_layers, 1)] * n
+        leaves = len(_lm_leaves(torch, arch, "model"))
+        wire = {k: 2 * leaves * rounds for k in ("wire_quant",
+                                                 "wire_dequant")}
+    else:
+        client = 2 * m if schedule == "pipelined" else 1
+        per_round = ([fwd(cut, 0)] * client
+                     + [fwd(cfg.n_layers - cut, 1)] * m) * n
+        turns = n * rounds
+        handoffs = (turns - 1 if n > 1 and schedule != "parallel" else 0)
+        k = 2 * m * turns + handoffs * len(_lm_leaves(torch, arch, "client"))
+        wire = {"wire_quant": k, "wire_dequant": k}
+    out = {k: rounds * sum(f[k] for f in per_round)
+           for k in ("rmsnorm", "ssd_scan", "flash_attention")}
+    return {**wire, **out, "splitcat_linear_q8": 0, "splitcat_linear": 0}
+
+
+def _lm_runs_equal(torch, make_plan, batches, rounds: int, what: str):
+    """From one seeded init, `rounds` rounds over the physical and the fake
+    wire under deterministic algorithms (embedding and gather backward
+    accumulate with atomics on CUDA otherwise): per-turn losses, the whole
+    final state and the meter bitwise equal.  The first run's state waits
+    on the host, so the card holds one run at a time."""
+    from repro_torch.api import leakage_probe, quantize_int8
+    from repro_torch.nn.module import tree_leaves
+
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for wire in ([quantize_int8(physical=True), leakage_probe()],
+                     [quantize_int8()]):
+            s = make_plan(wire).compile()
+            s.init(seed=SEED)
+            ls = torch.cat([s.run_round(batches[r]) for r in range(rounds)])
+            leaves = tree_leaves(s.state)
+            runs.append((ls.cpu(), [t.cpu() for t in leaves] if not runs
+                         else leaves, s.meter()))
+            del s, leaves
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (la, sa, ma), (lb, sb, mb) = runs
+    same = len(sa) == len(sb) and all(torch.equal(a, b.cpu())
+                                      for a, b in zip(sa, sb))
+    if not torch.equal(la, lb) or not same or ma != mb:
+        fail(f"{what}: physical wire losses {la.tolist()} != fake wire "
+             f"losses {lb.tolist()} (states equal: {same}; meters {ma}, "
+             f"{mb})")
+    print(f"  physical wire == fake wire over {rounds} rounds, "
+          f"deterministic algorithms: losses, final state and meter "
+          f"bitwise ({la.tolist()})")
+    del runs, sa, sb
+    torch.cuda.empty_cache()
+
+
+def _lm_client_grads(torch, sess, batch, what: str):
+    """One vanilla turn's gradients on the trained state, at the run's
+    shapes: client 0's leaves against the server's.  Every leaf of the
+    client's layers gets a finite nonzero gradient, and its embedding one
+    on exactly the rows of the turn's token ids, so autograd reached the
+    client through every kernel above it.  The falling loss cannot show
+    this: with tied embeddings the server's head and final norm lower it
+    by themselves."""
+    from repro_torch.engine import tree_at
+    from repro_torch.nn.module import tree_leaves
+
+    eng = sess.engine
+    _, g_c, _ = eng.topology.turn_grads(tree_at(sess.state["clients"], 0),
+                                        sess.state["server"], batch,
+                                        eng.loss_fn)
+    norms = [float(g.norm()) for g in tree_leaves(g_c["groups"])]
+    emb = g_c["embed"]["table"]
+    used = torch.zeros(emb.shape[0], dtype=torch.bool, device=emb.device)
+    used[batch["tokens"].flatten()] = True
+    rows = emb.abs().amax(dim=-1) > 0
+    print(f"  client 0's gradient on the trained state: {len(norms)} layer "
+          f"leaves, norms {min(norms):.3e} to {max(norms):.3e}; embedding "
+          f"rows with a gradient {int(rows.sum())}, the turn's ids "
+          f"{int(used.sum())}")
+    if not (norms and all(math.isfinite(v) and v > 0 for v in norms)
+            and torch.equal(rows, used)):
+        fail(f"{what}: the client's gradient did not reach every leaf: "
+             f"layer norms {norms}, embedding rows {int(rows.sum())} with "
+             f"a gradient against {int(used.sum())} ids in the turn")
+    del g_c, emb
+
+
+def lm_path(torch, arch, mode="vanilla", schedule=None,
+            rounds=L_ROUNDS) -> dict:
+    """One LM training path on the card over the physical wire: vanilla
+    (round-robin with the p2p handoff, or under `schedule`) or the
+    large_batch baseline over `FullFns`."""
+    from repro_torch.api import leakage_probe, quantize_int8
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.engine import tree_at
+    from repro_torch.nn.module import param_count
+
+    cfg = _lm_config(torch, arch)
+    _, cut, n = LM_RUNS[arch]
+    m = MICROBATCHES.get(schedule, 1)
+    name = _lm_path_name(arch, mode, schedule)
+    how = (f"cut {cut}, {n} client{'s' if n > 1 else ''} "
+           + {None: "round-robin" + (" with the p2p handoff" if n > 1
+                                     else ""),
+              "parallel": "in parallel (SplitFed)",
+              "pipelined": f"round-robin with the p2p handoff, each turn "
+                           f"as {m} microbatches"}[schedule]
+           if mode == "vanilla" else f"{n} clients, the whole model pulled "
+           "and pushed")
+    print(f"{name.replace('_', ' ')} path: {cfg.name} {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab}, fp32, {mode} {how}, "
+          f"batch {LB} x seq {LS} per client (token ids below "
+          f"{LM_DATA_VOCAB}), {rounds} rounds, AdamW({LR}), "
+          "physical int8 wire")
+    phys = [quantize_int8(physical=True), leakage_probe()]
+
+    def make_plan(wire):
+        return _lm_plan(torch, arch, wire, mode, schedule)
+    torch.cuda.reset_peak_memory_stats()
+    sess = make_plan(phys).compile()
+    sess.init(seed=SEED)
+    if mode == "vanilla":
+        n_client = param_count(tree_at(sess.state["clients"], 0))
+        n_server = param_count(sess.state["server"])
+        print(f"  client params {n_client}; server {n_server}")
+    else:
+        print(f"  model params {param_count(sess.state['global'])}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    batches = _lm_batches(gen, rounds + 1, n, LB, LS, LM_DATA_VOCAB)
+    ev = lm_batch(gen, LB, LS, LM_DATA_VOCAB)
+
+    report = sess.wire_report(batches[0])       # meta tensors, no kernels
+    d = cfg.d_model
+    if mode == "vanilla":
+        cut_bytes = LB * LS * (d + 4)
+        want = [("cut_act", "up", (LB, LS, d), cut_bytes),
+                ("cut_grad", "down", (LB, LS, d), cut_bytes)]
+        got = [(r["name"], r["direction"], r["shape"], r["bytes"])
+               for r in report]
+    else:
+        model_bytes = _int8_bytes(_lm_leaves(torch, arch, "model"))
+        want = [("model_pull", "down", model_bytes),
+                ("model_push", "up", model_bytes)]
+        got = [(r["name"], r["direction"], r["bytes"]) for r in report]
+    print(f"  wire report: {got}")
+    if got != want or not all(r["physical"] for r in report):
+        fail(f"{name} wire_report {report}: expected {want}, all physical")
+
+    losses, first_s, round_ms, host_ms, launches, peak_gib = _timed_fit(
+        torch, sess, batches, rounds)
+    print(f"  first round {first_s:.3f} s; then {round_ms:.3f} ms per round "
+          f"(CUDA events over rounds 2-{rounds}, host {host_ms:.3f} ms), "
+          f"{LB * LS * n / round_ms * 1e3:.1f} tokens/s, peak "
+          f"{peak_gib:.2f} GiB")
+    print(f"  launches over the {rounds} rounds: {launches}")
+    hold_launches(launches, _lm_launches(torch, arch, mode, schedule,
+                                         rounds))
+
+    meter, totals = sess.engine.meter, sess.meter()
+    print(f"  meter: up {meter.bytes_up}, down {meter.bytes_down}, handoff "
+          f"{meter.sync_bytes} B; {totals}")
+    if mode == "vanilla":
+        handoff = _int8_bytes(_lm_leaves(torch, arch, "client"))
+        h = ([0] * n if schedule == "parallel" or n == 1
+             else [rounds - 1] + [rounds] * (n - 1))
+        want_m = ([rounds * cut_bytes] * n, [rounds * cut_bytes] * n,
+                  [k * handoff for k in h])
+        want_gb = [(rounds * 2 * cut_bytes + k * handoff) / 1e9 for k in h]
+        if any(h):
+            print(f"  handoff {handoff} B a handoff (the analytic sum over "
+                  f"the client's leaves)")
+    else:
+        want_m = ([rounds * model_bytes] * n, [rounds * model_bytes] * n,
+                  [0] * n)
+        want_gb = [rounds * 2 * model_bytes / 1e9] * n
+    metered = [list(meter.bytes_up), list(meter.bytes_down),
+               list(meter.sync_bytes)]         # before the profiled round
+    if tuple(metered) != want_m or totals["client_gb"] != want_gb:
+        fail(f"{name} meter {totals['client_gb']} GB, expected {want_gb}")
+
+    acc = float(sess.evaluate(ev))
+    print(f"  evaluate (next-token accuracy on {LB} x {LS} held-out "
+          f"tokens): {acc:.4f}")
+    if mode == "vanilla":
+        print(f"  leakage (distance correlation, tokens vs wire): "
+              f"{sess.leakage_report(ev)}")
+    busy_ms = profile_device(torch, f"{name} round",
+                             lambda: sess.run_round(batches[rounds]),
+                             round_ms / 1e3, steps=1)
+    if mode == "vanilla":
+        _lm_client_grads(torch, sess, batches[0][0], name)
+    del sess
+    torch.cuda.empty_cache()
+    if schedule is None and mode == "vanilla":
+        _lm_runs_equal(torch, make_plan, batches, 3, name)
+    return {"launches": launches, "first_round_s": first_s,
+            "round_ms": round_ms, "tokens_per_s": LB * LS * n / round_ms * 1e3,
+            "busy_ms": busy_ms, "peak_gib": peak_gib, "meter": metered,
+            "client_gb": statistics.mean(totals["client_gb"]),
+            "client_tflops": statistics.mean(totals["client_tflops"]),
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "eval_accuracy": acc}
+
+
+def reduced_lm_against_cpu(torch, arch):
+    """A reduced LM trained on the card (kernels; the Functions' plain
+    backward) and on the CPU (plain versions), 2 clients round-robin with
+    the p2p handoff over the dense wire, SGD with momentum (as the CPU
+    parity tests: tests/test_torch_lm_plan.py says why AdamW and the
+    quantized wires part runs by whole steps and levels)."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+
+    red, seq, cut = LM_REDUCED[arch]
+    cfg = get_config(arch).reduced(**red)
+    batches = _lm_batches(torch.Generator().manual_seed(4), 3, 2, 2, seq,
+                          cfg.vocab)
+
+    def make_plan():
+        from repro_torch.api import Plan, lm_split_fns
+        from repro_torch.models import build_model
+
+        return Plan(mode="vanilla", model=lm_split_fns(build_model(cfg), cut),
+                    cut=cut, n_clients=2, optimizer=optim.sgd(0.02, 0.9))
+    _reduced_against_cpu(torch, f"{arch} vanilla LM", make_plan, batches)
+
+
+def lm_phase(torch) -> dict:
+    """Phase 3j: every LM path, the pipelined meter against round-robin's,
+    and the three families' reduced card == CPU checks."""
+    from repro_torch.api import quantize_int8
+
+    out = {(arch, mode, schedule): lm_path(torch, arch, mode, schedule,
+                                           rounds)
+           for arch, mode, schedule, rounds in LM_PATHS}
+    # the round-robin schedule over the same 3 rounds' batch shapes
+    sess = _lm_plan(torch, "mamba2_130m", [quantize_int8(physical=True)]
+                    ).compile()
+    sess.init(seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    for b in _lm_batches(gen, 3, LM_RUNS["mamba2_130m"][2], LB, LS,
+                         LM_DATA_VOCAB):
+        sess.run_round(b)
+    meter = sess.engine.meter
+    rr = [meter.bytes_up, meter.bytes_down, meter.sync_bytes]
+    del sess, meter
+    torch.cuda.empty_cache()
+    pipe = out[("mamba2_130m", "vanilla", "pipelined")]["meter"]
+    if pipe != rr:
+        fail(f"Mamba2 pipelined meter {pipe} != round-robin meter {rr} over "
+             "the same 3 rounds")
+    print(f"Mamba2 pipelined (M=2) meter == round-robin's over the same 3 "
+          f"rounds, byte for byte: {pipe}")
+    for arch in LM_REDUCED:
+        reduced_lm_against_cpu(torch, arch)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("run from the root of a checkout: src/repro_torch not found")
+    # phase 3j's physical == fake check runs under deterministic
+    # algorithms, whose cuBLAS needs this set before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
@@ -2288,6 +2916,7 @@ def main():
     rn_err, rn_t = check_rmsnorm(torch)
     ssd_err, ssd_t = check_ssd(torch)
     fa_err, fa_t = check_flash(torch)
+    bwd = check_grads(torch)
 
     # phase 3: each main path, then its small-input reference check
     run = main_path(torch)
@@ -2313,6 +2942,7 @@ def main():
     table1(turn["vanilla"], baseline["fedavg"], baseline["large_batch"])
     sched = schedules_phase(torch, {"vertical": train, **turn, **branch,
                                     **baseline})
+    lm = lm_phase(torch)
 
     # the wire launches per payload add up to what each path was held to
     paths = (("serving", run), ("training", train), ("ssm_serving", ssm),
@@ -2320,7 +2950,8 @@ def main():
              *((path_name(m), r) for m, r in turn.items()),
              *((path_name(m), r) for m, r in branch.items()),
              *((path_name(m), r) for m, r in baseline.items()),
-             *((path_name(m, sc), r) for (m, sc), r in sched.items()))
+             *((path_name(m, sc), r) for (m, sc), r in sched.items()),
+             *((_lm_path_name(a, m, sc), r) for (a, m, sc), r in lm.items()))
     for path, res in paths:
         want = sum(p[-1] for p in payloads if p[0] == path)
         for name in ("wire_quant", "wire_dequant"):
@@ -2379,6 +3010,9 @@ def main():
     ]
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
+        if k["name"] in bwd:     # the training gradient (phase 2)
+            (k["backward_ms"], k["backward_plain_ms"],
+             k["backward_library_ms"]) = bwd[k["name"]]
     print("kernel times above are at the main paths' shapes: wire_quant "
           "and wire_dequant on the (4,1,200064) bf16 logits, "
           "splitcat_linear_q8 on the (4,1,3072) x (3072,5120) bf16 entry, "
@@ -2387,7 +3021,10 @@ def main():
           "bf16 block norm, ssd_scan on the Mamba2 prefill's "
           "(4,512,24,64) bf16 scan from a zero state, flash_attention on "
           "the RecurrentGemma-2B prefill's q (4,4096,10,256), k/v "
-          "(4,4096,1,256) bf16, window 2048")
+          "(4,4096,1,256) bf16, window 2048; the backward times of "
+          "rmsnorm, ssd_scan and flash_attention at the LM training "
+          "shapes (4,512,768), x (4,512,24,64) from a zero state and q "
+          "(4,512,24,128) causal, fp32")
     print("serving path: " + json.dumps(
         {k: v for k, v in run.items() if k != "launches"}))
     print("training path: " + json.dumps(

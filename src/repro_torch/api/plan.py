@@ -15,14 +15,15 @@ engine in a `Session`:
 
 Modes and their required fields:
 
-  vanilla           model (SegModel), cut
+  vanilla           model (SegModel or SplitFns), cut
   u_shaped          model (SegModel), cuts=(c1, c2)
   vertical          branch, trunk=(init, apply)
   multihop          model (SegModel), cuts=[c0, c1, ...]
   multitask         branch, heads=((init, apply), ...)
   extended_vanilla  branch, mid=(init, apply), trunk=(init, apply)
-  fedavg            model (SegModel or FullFns), local_steps
-  large_batch       model (SegModel or FullFns)
+  fedavg            model (SegModel, FullFns or SplitFns with
+                    full_apply), local_steps
+  large_batch       model (as fedavg)
 
 The turn kinds run round-robin (sync "p2p" or "none") by default,
 `schedule="parallel"` (SplitFed: every client against one server, which
@@ -30,9 +31,10 @@ steps on the mean cut gradient) or `schedule="pipelined",
 microbatches=M` (each client batch streamed through the cut as M
 microbatches).  The branch kinds run their joint round, streamed as M
 microbatches under the pipelined schedule; so are the baselines'
-gradients.  LM training (a `SplitFns` model, in a split or a baseline
-mode) and fleets raise, naming ROADMAP.md.  `compile()` runs on the GPU
-unless given `device="cpu"`, and raises without one.
+gradients.  The LM family trains vanilla over `lm_split_fns(model, cut)`
+and in the baselines over `FullFns(model.init, model.forward)`; fleets
+raise, naming ROADMAP.md.  `compile()` runs on the GPU unless given
+`device="cpu"`, and raises without one.
 """
 from __future__ import annotations
 
@@ -66,14 +68,23 @@ def softmax_xent(logits, labels):
 
 @dataclasses.dataclass(frozen=True)
 class SplitFns:
-    """Vanilla-split hooks over an opaque model (the LM family): init the
-    full tree, split it at the cut, run each side.  Training over them is
-    not ported yet (ROADMAP.md)."""
+    """Vanilla-split hooks over an opaque model (the `models.lm.LM`
+    family): init the full tree, split it at the cut, run each side."""
     init: Callable            # gen -> full params
     split: Callable           # full params -> (client, server)
     client_apply: Callable    # (pc, batch) -> cut activation
     server_apply: Callable    # (ps, act) -> logits
     full_apply: Callable | None = None   # (params, batch) -> logits
+
+
+def lm_split_fns(model, cut: int) -> SplitFns:
+    """`SplitFns` for any model exposing the LM split hooks."""
+    return SplitFns(
+        init=model.init,
+        split=lambda p: model.split_params(p, cut),
+        client_apply=lambda pc, b: model.apply_client(pc, b, cut),
+        server_apply=lambda ps, a: model.apply_server(ps, a, cut),
+        full_apply=model.forward)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,9 +104,10 @@ def _full_fns(model) -> FullFns:
             apply=lambda p, b: model.apply_range(p, b["x"], 0,
                                                  model.n_segments))
     if isinstance(model, SplitFns):
-        raise NotImplementedError(
-            "a baseline over SplitFns (LM training) is not ported yet: the "
-            "port's LM kernels have no backward; see ROADMAP.md")
+        if model.full_apply is None:
+            raise ValueError("SplitFns.full_apply is required for the "
+                             "baseline modes")
+        return FullFns(init=model.init, apply=model.full_apply)
     raise TypeError(f"cannot run a baseline over {type(model).__name__}")
 
 
@@ -109,7 +121,7 @@ def _clipped(opt, max_norm: float):
 @dataclasses.dataclass(frozen=True)
 class Plan:
     mode: str
-    model: Any = None                     # SegModel | FullFns
+    model: Any = None                     # SegModel | SplitFns | FullFns
     cut: int | None = None                # vanilla
     cuts: Sequence[int] | None = None     # u_shaped / multihop
     branch: sp.Branch | None = None       # branch modes: one per client
@@ -149,11 +161,6 @@ class Plan:
         return sched or "round_robin"
 
     def _segmodel(self):
-        if isinstance(self.model, SplitFns):
-            raise NotImplementedError(
-                f"Plan(mode={self.mode!r}) over SplitFns (LM training) is "
-                "not ported yet: the port trains a SegModel; see "
-                "ROADMAP.md")
         self._require(isinstance(self.model, sp.SegModel),
                       "needs model= (SegModel)")
         return self.model
@@ -162,14 +169,22 @@ class Plan:
         m = self.mode
         if m == "vanilla":
             self._require(self.cut is not None, "needs cut=")
-            return topo.vanilla(self._segmodel(), self.cut)
+            if isinstance(self.model, SplitFns):
+                return topo.vanilla_fns(self.model.init, self.model.split,
+                                        self.model.client_apply,
+                                        self.model.server_apply)
+            self._require(isinstance(self.model, sp.SegModel),
+                          "needs model= (SegModel or SplitFns)")
+            return topo.vanilla(self.model, self.cut)
         if m == "u_shaped":
+            model = self._segmodel()
             self._require(self.cuts is not None and len(self.cuts) == 2,
                           "needs cuts=(c1, c2)")
-            return topo.u_shaped(self._segmodel(), *self.cuts)
+            return topo.u_shaped(model, *self.cuts)
         if m == "multihop":
+            model = self._segmodel()
             self._require(bool(self.cuts), "needs cuts=[c0, ...]")
-            return topo.multihop(self._segmodel(), list(self.cuts))
+            return topo.multihop(model, list(self.cuts))
         self._require(self.branch is not None, "needs branch=")
         if m == "vertical":
             self._require(self.trunk is not None,

@@ -173,7 +173,8 @@ class Session:
         """Distance correlation between the raw input client `client`
         holds and what crosses the wire after the transform stack.  `batch`
         is one unstacked batch (the branch modes: the (K, B, ...) layout,
-        `client` selecting the modality)."""
+        `client` selecting the modality); the raw input is its "x", or
+        else its first value (an LM batch's "tokens")."""
         if not self.is_split:
             raise ValueError("baseline modes ship the whole model, not a "
                              "cut activation: leakage_report does not "
@@ -183,13 +184,16 @@ class Session:
             raise ValueError(f"{topology.kind} topology exposes no client "
                              "forward to probe")
         state = self._state_for_probe()
+        first = next(iter(batch))          # the caller's order: _prep sorts
         batch = self._prep(batch)
         pc = tree_at(state["clients"], client)
         if topology.parallel_only:
             x_raw = batch["x"][client]
             probe = {**batch, "x": batch["x"][client:client + 1]}
         else:
-            x_raw, probe = batch["x"], batch
+            # the raw input the client holds: "x", or the batch's first
+            # value (an LM batch's "tokens"), as the reference reads it
+            x_raw, probe = batch.get("x", batch[first]), batch
         act = topology.client_fwd(pc, probe)
         wire_val = self.wire_stack.pre_probe(act) if self.wire_stack else act
         return privacy.leakage_report(x_raw, wire_val, batch.get("labels"))

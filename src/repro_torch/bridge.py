@@ -16,6 +16,14 @@ and the port's.
   "h"}` and the attention ring's `{"k", "v", "pos"}`; each leaf keeps its
   dtype (a conv window and the ring the model's, a state float32), and
   the ring's `pos` is a host int in the port, an int32 in the reference.
+* A whole LM training state (`lm_state_from_jax` / `lm_state_to_numpy`):
+  a `Plan` over `lm_split_fns` or over the LM's `FullFns` keeps each
+  "groups" list in the LM layout above, inside trees that are otherwise
+  the same in both packages.  Under a client-stacked subtree (a split
+  mode's `clients` and `opt_c`, fedavg's per-client `opt`) a group leaf
+  is (n_clients, n_repeat, ...) in the reference, so the repeats are its
+  second axis; elsewhere its first.  Optimizer moments follow the params
+  they track, and every leaf keeps its dtype.
 * Everything else has the same layout in both packages, leaf for leaf:
   the CNN list-of-dict trees (HWIO conv and `(in, out)` dense weights,
   `{}` for a pool) and a whole engine state of any `Plan` mode — a split
@@ -123,6 +131,52 @@ def _map_stack(reps: list):
     if isinstance(first, dict):
         return {k: _map_stack([r[k] for r in reps]) for k in first}
     return np.stack(reps)
+
+
+def _in_groups(tree, fn):
+    """`tree` with `fn` applied to the list under every "groups" key."""
+    if isinstance(tree, dict):
+        return {k: fn(v) if k == "groups" else _in_groups(v, fn)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_in_groups(v, fn) for v in tree)
+    return tree
+
+
+def _client_stacked(state: dict) -> set:
+    """The top-level keys of an engine state whose trees carry a leading
+    client axis."""
+    if "clients" in state:                       # a split mode
+        return {"clients", "opt_c"}
+    step = state.get("opt", {}).get("step")      # fedavg stacks its opt
+    return {"opt"} if step is not None and np.ndim(step) == 1 else set()
+
+
+def lm_state_from_jax(np_state: dict, device="cpu") -> dict:
+    """A reference LM engine state (as numpy arrays) -> the port's, each
+    group's repeat axis unstacked into the port's list of repeats."""
+    stacked = _client_stacked(np_state)
+
+    def unstack(groups, axis):
+        return [[_map(lambda a, r=r: np.take(a, r, axis=axis), g)
+                 for r in range(tree_leaves(g)[0].shape[axis])]
+                for g in groups]
+    out = {k: _in_groups(v, lambda gs, k=k: unstack(gs, int(k in stacked)))
+           for k, v in np_state.items()}
+    return tree_from_jax(out, device)
+
+
+def lm_state_to_numpy(state: dict) -> dict:
+    """Inverse of `lm_state_from_jax`: the reference's layout as numpy
+    arrays."""
+    stacked = _client_stacked(state)
+
+    def stack(groups, axis):
+        return [_map(lambda *reps: np.stack(reps, axis=axis), *g)
+                for g in groups]
+    out = tree_to_numpy(state)
+    return {k: _in_groups(v, lambda gs, k=k: stack(gs, int(k in stacked)))
+            for k, v in out.items()}
 
 
 def tree_from_jax(np_tree, device="cpu", dtype=None):

@@ -18,7 +18,7 @@ The six splits: vanilla, u-shaped (labels stay with the client),
 vertical (multi-modal branches), multi-hop (a chain of slabs),
 multi-task (several server heads) and extended vanilla (an intermediate
 client between the branches and the server).  The turn kinds' server
-sides (`vanilla_rest`, `u_shaped_rest`, `multihop_rest`) take the
+sides (`cut_rest`, `u_shaped_rest`, `multihop_rest`) take the
 client's detached first activation, so the pipelined schedule can stage
 them per microbatch; their `*_grads` run the client around them.
 """
@@ -154,36 +154,49 @@ def _grads(outputs, params, grad_outputs=None):
 # Vanilla split: client [0, cut) -> server [cut, L) + loss
 # ---------------------------------------------------------------------------
 
-def vanilla_rest(model: SegModel, cut: int, params_s, act, labels, loss_fn,
-                 wires: list):
+def cut_rest(server_fn: Callable, params_s, act, labels, loss_fn,
+             wires: list):
     """The server's side of a vanilla turn from the client's detached cut
-    activation `act`: `cut_act` recorded up, the server segments and the
-    loss on a fresh leaf of what arrived, `cut_grad` recorded down.
+    activation `act`: `cut_act` recorded up, `server_fn(params_s, a)` and
+    the loss on a fresh leaf of what arrived, `cut_grad` recorded down.
     Returns (loss detached, g_server, the cut gradient as the client
     receives it, dense)."""
     act = record(wires, "cut_act", act, "up")
     with torch.enable_grad():
         ps = _leaf_params(params_s)
         recv = as_dense(act).detach().requires_grad_()
-        loss = loss_fn(server_apply(model, cut, ps, recv), labels)
+        loss = loss_fn(server_fn(ps, recv), labels)
         g_server, g_act = _grads(loss, (ps, recv))
     g_act = record(wires, "cut_grad", g_act, "down")
     return loss.detach(), g_server, as_dense(g_act)
 
 
-def vanilla_split_grads(model: SegModel, cut: int, params_c, params_s, x,
-                        labels, loss_fn, wires: list | None = None):
-    """One split training step's gradients: (loss, g_client, g_server,
-    wires); the loss is detached.  The ONLY values linking the two sides
-    are the cut activation (up) and its gradient (down)."""
+def cut_split_grads(client_fn: Callable, server_fn: Callable, params_c,
+                    params_s, batch, labels, loss_fn,
+                    wires: list | None = None):
+    """One vanilla turn's gradients over opaque sides: the client runs
+    `client_fn(params_c, batch)` to the cut, `cut_rest` runs the server,
+    and the client backpropagates the cut gradient it received.  Returns
+    (loss, g_client, g_server, wires); the loss is detached.  The ONLY
+    values linking the two sides are the cut activation (up) and its
+    gradient (down)."""
     wires = wires if wires is not None else []
     with torch.enable_grad():
         pc = _leaf_params(params_c)
-        a = model.apply_range(pc, x, 0, cut)
-        loss, g_server, g_act = vanilla_rest(
-            model, cut, params_s, a.detach(), labels, loss_fn, wires)
+        a = client_fn(pc, batch)
+        loss, g_server, g_act = cut_rest(server_fn, params_s, a.detach(),
+                                         labels, loss_fn, wires)
         g_client = _grads(a, pc, g_act)
     return loss, g_client, g_server, wires
+
+
+def vanilla_split_grads(model: SegModel, cut: int, params_c, params_s, x,
+                        labels, loss_fn, wires: list | None = None):
+    """`cut_split_grads` over a SegModel's segments [0, cut) and [cut, L)."""
+    return cut_split_grads(
+        lambda pc, x: model.apply_range(pc, x, 0, cut),
+        lambda ps, a: server_apply(model, cut, ps, a), params_c, params_s,
+        x, labels, loss_fn, wires)
 
 
 # ---------------------------------------------------------------------------

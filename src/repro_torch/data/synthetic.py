@@ -1,5 +1,5 @@
 """Deterministic synthetic datasets on explicit generators (port of
-`repro/data/synthetic.py:42-62`).
+`repro/data/synthetic.py:18-62`).
 
 No dataset downloads.  Each function draws from the `torch.Generator` it
 is given, on the generator's device; the class structure (templates,
@@ -14,6 +14,28 @@ import torch
 
 def _fixed(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def lm_batch(gen: torch.Generator, batch: int, seq: int, vocab: int):
+    """A noisy bigram process, next = (5 * cur + noise) % vocab with noise
+    in [0, 7), so LM training loss demonstrably falls: {"tokens",
+    "labels"}, each (batch, seq) int64, labels the tokens shifted by
+    one."""
+    dev = gen.device
+    cur = torch.randint(0, vocab, (batch,), generator=gen, device=dev)
+    noise = torch.randint(0, 7, (batch, seq), generator=gen, device=dev)
+    toks = [cur]
+    for t in range(seq):
+        cur = (5 * cur + noise[:, t]) % vocab
+        toks.append(cur)
+    toks = torch.stack(toks, dim=1)                      # (B, S+1)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def lm_stream(gen: torch.Generator, batch: int, seq: int, vocab: int):
+    """An endless stream of `lm_batch`es drawn from `gen`."""
+    while True:
+        yield lm_batch(gen, batch, seq, vocab)
 
 
 def image_batch(gen: torch.Generator, batch: int, n_classes: int,

@@ -1,5 +1,5 @@
 """Declarative split-learning topologies and their lowering onto the
-step-program IR (port of `repro/engine/topology.py:57-208, 260-572`).
+step-program IR (port of `repro/engine/topology.py:57-572`).
 
 A `Topology` names where the cut(s) fall and lowers onto the grad
 functions in `repro_torch.core.split`; it owns no scheduling.  The
@@ -39,7 +39,9 @@ extended / multi-task):
   extended_vanilla K modality branches -> concat -> an intermediate
                    client -> server trunk
 
-`vanilla_fns` (LM training) comes with a later slice (ROADMAP).
+`vanilla_fns` is the vanilla kind over opaque client and server
+functions (the LM family's `apply_client` / `apply_server`) instead of a
+SegModel.
 """
 from __future__ import annotations
 
@@ -171,37 +173,50 @@ VANILLA_STEPS = _turn_steps(
 
 
 def vanilla(model: sp.SegModel, cut: int) -> Topology:
-    """Client segments [0, cut), server [cut, L) and the loss.  Batch
-    layout per turn: {"x": (B, ...), "labels": (B,)}."""
+    """Client segments [0, cut), server [cut, L) and the loss:
+    `vanilla_fns` over the segments.  Batch layout per turn: {"x": (B,
+    ...), "labels": (B,)}."""
+    return vanilla_fns(
+        model.init,
+        lambda full: (model.param_slice(full, 0, cut),
+                      model.param_slice(full, cut, model.n_segments)),
+        lambda pc, batch: model.apply_range(pc, batch["x"], 0, cut),
+        lambda ps, a: sp.server_apply(model, cut, ps, a))
+
+
+def vanilla_fns(init_full: Callable, split: Callable, client_apply: Callable,
+                server_apply: Callable) -> Topology:
+    """Vanilla topology over opaque client/server apply functions (the
+    `models.lm.LM` split hooks, or a SegModel's segments): the wire
+    protocol of `core.split.cut_split_grads`, where only the cut
+    activation (up) and its gradient (down) cross.  Batch layout per
+    turn: what `client_apply` reads, plus "labels" for the loss (an LM's
+    {"tokens": (B, S), "labels": (B, S)})."""
     def init(gen):
-        full = model.init(gen)
-        return (model.param_slice(full, 0, cut),
-                model.param_slice(full, cut, model.n_segments))
-
-    def turn_grads_wires(pc, ps, batch, loss_fn, wires):
-        loss, g_c, g_s, _ = sp.vanilla_split_grads(
-            model, cut, pc, ps, batch["x"], batch["labels"], loss_fn, wires)
-        return loss, g_c, g_s
-
-    def client_fwd(pc, batch):
-        return model.apply_range(pc, batch["x"], 0, cut)
-
-    def evaluate(pc, ps, batch):
-        return sp.server_apply(model, cut, ps, client_fwd(pc, batch))
+        return split(init_full(gen))
 
     def pipeline_rest(pc, ps, act, batch, loss_fn, wires):
-        loss, g_s, g_act = sp.vanilla_rest(model, cut, ps, act,
-                                           batch["labels"], loss_fn, wires)
+        loss, g_s, g_act = sp.cut_rest(server_apply, ps, act,
+                                       batch["labels"], loss_fn, wires)
         return loss, {}, g_s, g_act
 
+    def turn_grads_wires(pc, ps, batch, loss_fn, wires):
+        loss, g_c, g_s, _ = sp.cut_split_grads(
+            client_apply, server_apply, pc, ps, batch, batch["labels"],
+            loss_fn, wires)
+        return loss, g_c, g_s
+
+    def evaluate(pc, ps, batch):
+        return server_apply(ps, client_apply(pc, batch))
+
     def pipeline_bwd(pc, batch, g_act, g_rest):
-        return _remat_grads(lambda p: client_fwd(p, batch), pc, g_act)
+        return _remat_grads(lambda p: client_apply(p, batch), pc, g_act)
 
     return Topology(kind="vanilla", init=init,
                     turn_grads=_drop_wires(turn_grads_wires),
                     turn_grads_wires=turn_grads_wires, evaluate=evaluate,
-                    client_fwd=client_fwd, steps=VANILLA_STEPS,
-                    pipeline_fwd=client_fwd, pipeline_rest=pipeline_rest,
+                    client_fwd=client_apply, steps=VANILLA_STEPS,
+                    pipeline_fwd=client_apply, pipeline_rest=pipeline_rest,
                     pipeline_bwd=pipeline_bwd)
 
 

@@ -13,6 +13,14 @@ the plain `grouped_attention`, as the reference does.
 A CUDA tensor launches the kernel (or raises); a CPU or meta tensor takes
 the plain version, `kernels.ref.flash_attention_ref`.  `launches` counts
 kernel launches.
+
+Training: on a CUDA tensor with grad enabled and an input that requires
+grad, the call goes through `_FlashFn`, whose forward launches the same
+kernel and whose backward is the designated gradient: it recomputes the
+plain version on the saved q, k and v and differentiates it.  The
+reference has no backward kernel either (its LM trains through the plain
+grouped einsum), so the forward always runs on the kernel and the
+backward launches nothing.
 """
 from __future__ import annotations
 
@@ -53,6 +61,30 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type in ("cpu", "meta"):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashFn.apply(q, k, v, causal, window, scale)
+    return _launch(q, k, v, causal, window, scale)
+
+
+class _FlashFn(torch.autograd.Function):
+    """The kernel forward; the backward differentiates the plain version
+    recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, scale=scale)
+        return _launch(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = ref.plain_grads(
+            lambda q, k, v: ref.flash_attention_ref(q, k, v, **ctx.kw),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], g)
+        return (*grads, None, None, None)
+
+
+def _launch(q, k, v, causal, window, scale):
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for device {q.device}")
     Bsz, S, H, D = q.shape

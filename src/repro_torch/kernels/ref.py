@@ -23,6 +23,24 @@ INV127 = float(np.float32(1.0 / 127.0))
 EPS = float(np.float32(1e-12))
 
 
+def plain_grads(fn, saved, needs, *grad_outputs) -> tuple:
+    """The backward of a kernel's autograd Function: the plain version
+    `fn` recomputed on fresh leaves of the `saved` inputs under grad and
+    differentiated at `grad_outputs`.  One entry per input, None where
+    `needs` (the Function's `needs_input_grad`) asks for none or the
+    input is None."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().requires_grad_(bool(n))
+               for t, n in zip(saved, needs)]
+        outs = fn(*ins)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        want = [t for t in ins if t is not None and t.requires_grad]
+        gs = iter(torch.autograd.grad(outs, want, grad_outputs,
+                                      allow_unused=True) if want else ())
+    return tuple(next(gs) if t is not None and t.requires_grad else None
+                 for t in ins)
+
+
 def wire_quant_ref(x: torch.Tensor):
     """Per-last-axis-row symmetric int8 quantize + pack -> (q int8,
     fp32 row scales (..., 1)).  `torch.round` rounds half to even, as

@@ -9,6 +9,14 @@ the final norm, Mamba2's gated norm) goes through it.
 A CUDA tensor launches the kernel (or raises); a CPU or meta tensor takes
 the plain version, `kernels.ref.rmsnorm_ref`.  `launches` counts kernel
 launches.
+
+Training: on a CUDA tensor with grad enabled and an input that requires
+grad, the call goes through `_RMSNormFn`, whose forward launches the
+same kernel and whose backward is the designated gradient: it recomputes
+the plain version on the saved inputs and differentiates it.  The
+reference has no backward kernel either (its LM is differentiated
+through plain `jnp`), so the forward always runs on the kernel and the
+backward launches nothing.
 """
 from __future__ import annotations
 
@@ -32,6 +40,30 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     """x (..., D) float32/bfloat16, scale (D,) -> (..., D) in x's type."""
     if x.device.type in ("cpu", "meta"):
         return ref.rmsnorm_ref(x, scale, eps=eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNormFn.apply(x, scale, eps)
+    return _launch(x, scale, eps)
+
+
+class _RMSNormFn(torch.autograd.Function):
+    """The kernel forward; the backward differentiates the plain version
+    recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _launch(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        gx, gs = ref.plain_grads(
+            lambda x, s: ref.rmsnorm_ref(x, s, eps=ctx.eps),
+            ctx.saved_tensors, ctx.needs_input_grad, g)
+        return gx, gs, None
+
+
+def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float):
     if x.device.type != "cuda":
         raise ValueError(f"no rmsnorm kernel for device {x.device}")
     if x.dtype not in _TYPES or scale.dtype not in _TYPES:

@@ -22,6 +22,16 @@ every device, as the reference asserts.  One call runs the kernel's two
 passes (the chain of states across tiles, then the tiles' outputs) over a
 float32 scratch the wrapper allocates; `launches` counts calls of the
 kernel.
+
+Training: on a CUDA tensor with grad enabled and an input that requires
+grad, the call goes through `_SSDFn`, whose forward launches the same
+kernel and whose backward is the designated gradient: it recomputes
+`ssd_chunked_plain` at the caller's chunk on the saved inputs (x, B and C
+are views into one projection, as the forward got them) and
+differentiates it with respect to x, dt, A, B, C and the initial state.
+The reference has no backward kernel either (its Mamba2 trains through
+the plain chunked form), so the forward always runs on the kernel and the
+backward launches nothing.
 """
 from __future__ import annotations
 
@@ -29,7 +39,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 launches = {"ssd_scan": 0}
 
@@ -119,6 +129,34 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None,
         return ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=chunk,
                                  initial_state=initial_state,
                                  return_state=return_state)
+    ins = (x, dt, A, Bm, Cm, initial_state)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ins):
+        return _SSDFn.apply(*ins, chunk, return_state)
+    return _launch(*ins, chunk, return_state)
+
+
+class _SSDFn(torch.autograd.Function):
+    """The kernel forward; the backward differentiates the plain chunked
+    form recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, initial_state, chunk, return_state):
+        ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state)
+        ctx.kw = dict(chunk=chunk, return_state=return_state)
+        return _launch(x, dt, A, Bm, Cm, initial_state, chunk, return_state)
+
+    @staticmethod
+    def backward(ctx, *g):
+        grads = ref.plain_grads(
+            lambda x, dt, A, Bm, Cm, init: ssd_chunked_plain(
+                x, dt, A, Bm, Cm, initial_state=init, **ctx.kw),
+            ctx.saved_tensors, ctx.needs_input_grad[:6], *g)
+        return (*grads, None, None)
+
+
+def _launch(x, dt, A, Bm, Cm, initial_state, chunk: int,
+            return_state: bool):
     if x.device.type != "cuda":
         raise ValueError(f"no ssd_scan kernel for device {x.device}")
     Bsz, S, H, P = x.shape

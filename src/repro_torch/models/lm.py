@@ -1,4 +1,5 @@
-"""Decoder-only LM for split serving (port of `repro/models/lm.py`).
+"""Decoder-only LM for split training and serving (port of
+`repro/models/lm.py`).
 
 Model params:
     {"embed": {"table"}, "groups": [g0, ...], "final_norm": {"scale"},
@@ -12,8 +13,10 @@ Caches follow the same layout.
 
 Split hooks: `split_params(params, cut)` gives the client the embedding
 and layers [0, cut) and the server the rest plus the final norm and the
-head; each half prefills and decodes against its own caches, so only
-the cut activation crosses.  The port builds the dense family, the SSM
+head.  Training runs the no-cache forward (`forward`, `loss`, and the
+halves `apply_client` / `apply_server`); serving prefills and decodes
+each half against its own caches.  Either way only the cut activation
+crosses.  The port builds the dense family, the SSM
 family (Mamba2) and the hybrid family (RecurrentGemma's composite
 super-blocks).  Each block's returned cache is written back into its
 slot of the group's cache list: the attention ring is updated in place
@@ -117,6 +120,15 @@ def group_init(gen, g: GroupSpec, device=None) -> list:
             for _ in range(g.n_repeat)]
 
 
+def group_apply(params: list, g: GroupSpec, x):
+    """The no-cache forward of a group: its repeats in order, each
+    running the group's specs in order."""
+    for layer_params in params:
+        for i, spec in enumerate(g.specs):
+            x = T.block_apply(layer_params[str(i)], spec, x)
+    return x
+
+
 def group_init_cache(g: GroupSpec, batch: int, max_len: int,
                      device=None) -> list:
     return [{str(i): T.block_init_cache(spec, batch, max_len, device)
@@ -150,8 +162,10 @@ class LM:
     groups: tuple                 # tuple[GroupSpec]
 
     def init(self, gen: torch.Generator, device=None):
-        """Random params drawn from `gen` (a generator on `device`)."""
+        """Random params drawn from `gen`, on `device` (default the
+        generator's)."""
         c = self.cfg
+        device = gen.device if device is None else device
         kw = dict(dtype=c.dtype, device=device)
         p = {"embed": L.embedding_init(gen, c.vocab, c.d_model, **kw),
              "groups": [group_init(gen, g, device) for g in self.groups],
@@ -160,15 +174,43 @@ class LM:
             p["head"] = L.dense_init(gen, c.d_model, c.vocab, **kw)
         return p
 
+    # ---- embedding / head / no-cache forward (train) ----
+    def embed(self, params, batch):
+        return L.embedding_apply(params["embed"], batch["tokens"])
+
+    def head(self, params, x):
+        x = L.rmsnorm_apply(params["final_norm"], x)
+        if self.cfg.tie_embeddings:
+            return L.embedding_attend(params["embed"], x)
+        return L.dense_apply(params["head"], x)
+
+    def forward(self, params, batch):
+        """{"tokens": (B, S)} -> logits (B, S, V)."""
+        x = self.embed(params, batch)
+        for g, gp in zip(self.groups, params["groups"]):
+            x = group_apply(gp, g, x)
+        return self.head(params, x)
+
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy in float32 over `labels`, over the
+        positions `loss_mask` keeps when given."""
+        lp = torch.log_softmax(self.forward(params, batch).float(), dim=-1)
+        nll = -lp.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        return nll.mean()
+
     def flat_layers(self) -> int:
         return sum(g.n_layers for g in self.groups)
 
     def split_params(self, params, cut: int):
         """Client: embed + layers [0, cut).  Server: layers [cut, L) +
         final norm + head.  With tied embeddings the server's head is the
-        client's embedding table, SHARED (the same tensor, not a copy):
-        both halves run in one process here, and a deployment would hold
-        a copy on the server, as the reference notes."""
+        client's embedding table, SHARED at the split (the same tensor,
+        not a copy); a training engine stacks the client's copy, so from
+        then on `embed` and `tied_head` are two leaves that train apart,
+        as the reference's two trees do."""
         client = {"embed": params["embed"]}
         server = {"final_norm": params["final_norm"]}
         if "head" in params:
@@ -215,6 +257,24 @@ class LM:
                         g, n_repeat=(hi - cut) // g.layers_per_repeat))
         return out
 
+    def apply_client(self, client_params, batch, cut: int):
+        """The client half's no-cache forward: embed + layers [0, cut)
+        -> the cut activation (B, S, D)."""
+        x = self.embed(client_params, batch)
+        for g, gp in zip(self._groups_for_range(cut, "client"),
+                         client_params["groups"]):
+            x = group_apply(gp, g, x)
+        return x
+
+    def apply_server(self, server_params, act, cut: int):
+        """The server half's no-cache forward: layers [cut, L) + final
+        norm + head on the cut activation -> logits (B, S, V)."""
+        x = act
+        for g, gp in zip(self._groups_for_range(cut, "server"),
+                         server_params["groups"]):
+            x = group_apply(gp, g, x)
+        return self.server_head(server_params, x)
+
     def server_head(self, server_params, x):
         """Final norm + unembedding on the server side of a split."""
         x = L.rmsnorm_apply(server_params["final_norm"], x)
@@ -235,7 +295,7 @@ class LM:
     def prefill_client(self, client_params, batch, cut: int, caches):
         """Teacher-forced client half: embed + layers [0, cut).  Returns
         (cut activation (B, S, D), caches)."""
-        x = L.embedding_apply(client_params["embed"], batch["tokens"])
+        x = self.embed(client_params, batch)
         for g, gp, c in zip(self._groups_for_range(cut, "client"),
                             client_params["groups"], caches):
             x, _ = group_prefill(gp, g, x, c)

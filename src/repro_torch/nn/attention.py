@@ -4,8 +4,9 @@
 Shapes: x is (B, S, D); heads are (B, S, H, head_dim); a KV cache is
 {"k", "v": (B, cache_len, K, head_dim), "pos": int}.
 
-Prefill attends through `ops.flash_attention` (the flash kernel on a
-CUDA tensor, the plain grouped einsum on a CPU or meta one); decode
+Training (`gqa_apply`) and prefill attend through `ops.flash_attention`
+(the flash kernel on a CUDA tensor, the plain grouped einsum on a CPU or
+meta one); decode
 attends over the ring with the plain `grouped_attention`, as the
 reference does.  Unlike the reference, which returns new caches, the
 port writes the new K/V rows into the cache tensors in place and
@@ -153,21 +154,41 @@ def gqa_decode(params, cfg: AttnConfig, x, cache, *, qkv=None):
     return y, cache
 
 
-def gqa_prefill(params, cfg: AttnConfig, x, cache):
-    """Teacher-forced full-sequence forward that fills a fresh cache
-    (pos == 0) and leaves pos = S.  For S beyond a sliding-window ring
-    only the last `cache_len` rows are kept."""
+def _attend(params, cfg: AttnConfig, x, positions, mask):
+    """The full-sequence attention: q/k/v with rope, attention and the
+    output projection.  Returns (y, k, v), k and v after rope."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, cfg, x)
-    positions = torch.arange(S, device=x.device)
     q = apply_rope(q, positions, theta=cfg.rope_theta,
                    fraction=cfg.rope_fraction)
     k = apply_rope(k, positions, theta=cfg.rope_theta,
                    fraction=cfg.rope_fraction)
-    out = ops.flash_attention(q, k, v, causal=True, window=cfg.window,
-                              scale=1.0 / math.sqrt(cfg.head_dim))
-    y = L.dense_apply(params["wo"], out.reshape(B, S, -1))
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if mask is None:
+        out = ops.flash_attention(q, k, v, causal=True, window=cfg.window,
+                                  scale=scale)
+    else:
+        out = grouped_attention(q, k, v, mask, scale=scale)
+    return L.dense_apply(params["wo"], out.reshape(B, S, -1)), k, v
 
+
+def gqa_apply(params, cfg: AttnConfig, x, *, positions=None, mask=None):
+    """Full-sequence forward (train).  With `mask=None` it is causal,
+    within `cfg.window` when set, through `ops.flash_attention`; an
+    explicit (S, T) or (B, S, T) `mask` takes the plain
+    `grouped_attention`."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    return _attend(params, cfg, x, positions, mask)[0]
+
+
+def gqa_prefill(params, cfg: AttnConfig, x, cache):
+    """Teacher-forced full-sequence forward that fills a fresh cache
+    (pos == 0) and leaves pos = S.  For S beyond a sliding-window ring
+    only the last `cache_len` rows are kept."""
+    S = x.shape[1]
+    y, k, v = _attend(params, cfg, x, torch.arange(S, device=x.device),
+                      None)
     cache_len = cache["k"].shape[1]
     keep = min(S, cache_len)
     slots = torch.arange(S - keep, S, device=x.device) % cache_len

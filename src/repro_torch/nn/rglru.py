@@ -9,9 +9,10 @@ GeLU branch, then the output projection.  The recurrence per channel:
     a_t = a^(c r_t)   with a = sigmoid(Lambda),  c = 8
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t x_t)
 
-in float32 (`lam` stays float32 in a bf16 model).  Prefill runs the
-recurrence as a log-depth scan in plain torch (the reference's
-`jax.lax.associative_scan` has no kernel); decode is the O(1) step.
+in float32 (`lam` stays float32 in a bf16 model).  Training
+(`rglru_block_apply`) and prefill run the recurrence as a log-depth scan
+in plain torch (the reference's `jax.lax.associative_scan` has no
+kernel); decode is the O(1) step.
 The cache is the last d_conv-1 raw (pre-conv) rows and the float32 h.
 """
 from __future__ import annotations
@@ -72,17 +73,30 @@ def rglru_scan(a, u):
     float32 -> h (B,S,W).  A doubling scan with the reference's combine
     (a1, u1) . (a2, u2) = (a1 a2, u1 a2 + u2): log2(S) rounds of whole-
     tensor products, not S steps; its sums group differently from XLA's
-    tree, so results agree to float32 rounding."""
-    h, a = u.clone(), a.clone()
+    tree, so results agree to float32 rounding.  Each round builds new
+    tensors (the untouched head beside the updated tail), so autograd
+    can differentiate it."""
+    h = u
     S = a.shape[1]
     step = 1
     while step < S:
         carry = h[:, :-step] * a[:, step:]
         if 2 * step < S:                # the last round needs no decays
-            a[:, step:] = a[:, :-step] * a[:, step:]
-        h[:, step:] += carry
+            a = torch.cat([a[:, :step], a[:, :-step] * a[:, step:]], dim=1)
+        h = torch.cat([h[:, :step], h[:, step:] + carry], dim=1)
         step *= 2
     return h
+
+
+def rglru_block_apply(params, cfg: RGLRUConfig, x):
+    """Full-sequence recurrent block forward from a zero state (train).
+    x: (B,S,D) -> (B,S,D)."""
+    gate = _gelu(L.dense_apply(params["in_gate"], x))
+    h = L.dense_apply(params["in_x"], x)
+    h = L.conv1d_apply(params["conv"], F.pad(h, (0, 0, cfg.d_conv - 1, 0)))
+    a, u = _rglru_gates(params, h)
+    y = rglru_scan(a, u).to(x.dtype)
+    return L.dense_apply(params["out"], y * gate)
 
 
 def rglru_init_cache(cfg: RGLRUConfig, batch: int, device=None):

@@ -95,6 +95,22 @@ def _residual(params, spec: BlockSpec, x, y):
     return h
 
 
+def _mixer_apply(params, spec: BlockSpec, x, *, positions=None, mask=None):
+    if spec.mixer == "mamba2":
+        return S.mamba2_apply(params, spec.ssm, x)
+    if spec.mixer == "rglru":
+        return R.rglru_block_apply(params, spec.rglru, x)
+    return A.gqa_apply(params, spec.attn, x, positions=positions, mask=mask)
+
+
+def block_apply(params, spec: BlockSpec, x, *, positions=None, mask=None):
+    """Full-sequence block forward from no cache (train)."""
+    y = _mixer_apply(params["mixer"], spec,
+                     _norm_apply(params["norm1"], spec, x),
+                     positions=positions, mask=mask)
+    return _residual(params, spec, x, y)
+
+
 def block_decode(params, spec: BlockSpec, x, cache):
     xn = _norm_apply(params["norm1"], spec, x)
     if spec.mixer == "mamba2":

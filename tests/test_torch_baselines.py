@@ -413,8 +413,14 @@ def test_full_fns_and_unported_baseline_options():
     split = SplitFns(init=None, split=None, client_apply=None,
                      server_apply=None)
     for mode in MODES:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # a baseline over SplitFns runs its full_apply, and without one
+        # raises the reference's error
+        with pytest.raises(ValueError, match="full_apply is required"):
             Plan(mode=mode, model=split).compile(device="cpu")
+        sess = Plan(mode=mode, model=dataclasses.replace(
+            split, init=fns.init, full_apply=fns.apply),
+            n_clients=2).compile(device="cpu")
+        assert set(sess.init(seed=2)) == {"global", "opt"}
         # microbatches are ported under the pipelined schedule
         # (tests/test_torch_schedules.py)
         with pytest.raises(ValueError,

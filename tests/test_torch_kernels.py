@@ -1136,3 +1136,99 @@ def test_flash_kernel_on_card(cuda, b, s, h, k, d, window, dtype):
           f"1 ulp of the float32 oracle; {int((err64 > bound).sum())} "
           f"beyond the float64 bound")
     assert bool((err64 <= bound).all())
+
+
+# the training path's gradient through rows 5-7: a grad-requiring input
+# on the card, at shapes that keep the training layout (x, B and C as
+# views into one projection, as Mamba2 hands them over)
+GRAD_CARD = ["rmsnorm", "flash", "flash_window", "ssd_zero", "ssd_carried"]
+# the SSD case: batch, seq, heads, groups, head dim, state; the projection
+# holds 4 other columns, then x (H*P), B and C (G*N each)
+GRAD_SSD = (2, 128, 4, 1, 32, 16)
+
+
+def _grad_card_inputs(case, cuda):
+    """The case's leaves and keywords.  The SSD's leaves are (proj, dt, A
+    [, initial state]): x, B and C are sliced from the grad-requiring
+    projection by `_grad_card_call`, so the kernel and the plain backward
+    see the strided views."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+    if case == "rmsnorm":
+        return [randn(2, 100, 768), 1 + 0.1 * randn(768)], {}
+    if case.startswith("flash"):
+        return ([randn(2, 130, 6, 64), randn(2, 130, 2, 64),
+                 randn(2, 130, 2, 64)],
+                {"window": 33 if case == "flash_window" else None})
+    b, s, h, g, p, n = GRAD_SSD
+    proj = torch.cat([randn(b, s, 4 + h * p), 0.3 * randn(b, s, 2 * g * n)],
+                     dim=-1)
+    dt = torch.nn.functional.softplus(randn(b, s, h))
+    A = -torch.linspace(1.0, 16.0, h, device=cuda)
+    init = [randn(b, h, p, n)] if case == "ssd_carried" else []
+    return [proj, dt, A] + init, {"chunk": 64, "return_state": True}
+
+
+def _grad_card_call(case, fn, leaves, kw):
+    if not case.startswith("ssd"):
+        return fn(*leaves, **kw)
+    _, _, h, g, p, n = GRAD_SSD
+    proj, dt, A = leaves[:3]
+    x = proj[..., 4:4 + h * p].unflatten(-1, (h, p))
+    Bm = proj[..., 4 + h * p:4 + h * p + g * n].unflatten(-1, (g, n))
+    Cm = proj[..., 4 + h * p + g * n:].unflatten(-1, (g, n))
+    return fn(x, dt, A, Bm, Cm, initial_state=(leaves[3] if len(leaves) > 3
+                                               else None), **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GRAD_CARD)
+def test_kernel_gradient_on_card(cuda, case):
+    """Every input requires grad: the wrapper launches its kernel once
+    (the counter moves) and returns outputs with a grad_fn; the backward
+    launches nothing, and its gradients equal the plain version's autograd
+    on the card at rtol = 1e-5, atol = 1e-6 x the largest gradient (the
+    backward recomputes that plain version on the same inputs, so only a
+    library's choice of summation order could part them).  The forward
+    is held to its plain version: rmsnorm at 1e-5, flash at 2e-5 and the
+    SSD within 1e-3 x rms + 1e-4 x |v| (chip_smoke.py's rule: at chunks
+    other than the kernel's 64-row tile the decays round differently)."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked_plain
+
+    ins, kw = _grad_card_inputs(case, cuda)
+    fn, plain, name, fwd_tol = {
+        "rmsnorm": (ops.rmsnorm, ref.rmsnorm_ref, "rmsnorm", 1e-5),
+        "flash": (ops.flash_attention, ref.flash_attention_ref,
+                  "flash_attention", 2e-5),
+        "ssd": (ops.ssd_scan, ssd_chunked_plain, "ssd_scan", None),
+    }[case.split("_")[0]]
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    plain_leaves = [t.detach().clone().requires_grad_() for t in ins]
+    before = ops.launch_counts()
+    out = _grad_card_call(case, fn, leaves, kw)
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == name) for k in after}
+    out = out if isinstance(out, tuple) else (out,)
+    want = _grad_card_call(case, plain, plain_leaves, kw)
+    want = want if isinstance(want, tuple) else (want,)
+    assert all(o.grad_fn is not None for o in out)
+    for o, w in zip(out, want):
+        if name == "ssd_scan":
+            tol = 1e-3 * w.square().mean().sqrt() + 1e-4 * w.abs()
+            assert bool(((o - w).abs() <= tol).all())
+        else:
+            torch.testing.assert_close(o, w, rtol=fwd_tol, atol=fwd_tol)
+    cts = [torch.randn(w.shape, generator=torch.Generator(
+        device=cuda).manual_seed(32 + i), device=cuda)
+        for i, w in enumerate(want)]
+    sum((o * c).sum() for o, c in zip(out, cts)).backward()
+    sum((w * c).sum() for w, c in zip(want, cts)).backward()
+    assert ops.launch_counts() == after
+    got = [t.grad for t in leaves]
+    exp = [t.grad for t in plain_leaves]
+    for g, e in zip(got, exp):
+        torch.testing.assert_close(g, e, rtol=1e-5,
+                                   atol=1e-6 * e.abs().max().item())

@@ -607,9 +607,10 @@ def test_unported_schedules_and_models_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Plan(mode=kind, model=tm, cuts=CUTS[kind],
                  fleet=object()).compile(device="cpu")
+        # SplitFns trains vanilla only, as in the reference
         fns = SplitFns(init=None, split=None, client_apply=None,
                        server_apply=None)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="needs model= \\(SegModel\\)"):
             Plan(mode=kind, model=fns, cuts=CUTS[kind]).compile(device="cpu")
     with pytest.raises(ValueError, match="needs cuts="):
         Plan(mode="u_shaped", model=tm, cuts=(2,)).compile(device="cpu")

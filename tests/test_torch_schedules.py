@@ -53,12 +53,14 @@ from repro.api.wire import with_wire as jwith_wire
 from repro.engine import program as jprog
 from repro.engine import topology as jtopo
 from repro_torch import bridge, optim
-from repro_torch.api import (Plan, SplitFns, WireStack, WireTape,
+from repro_torch.api import (Plan, WireStack, WireTape, lm_split_fns,
                              softmax_xent, with_wire)
+from repro_torch.configs import get_config
 from repro_torch.core import wire_compress as twc
 from repro_torch.engine import copy_tree
 from repro_torch.engine import program as prog
 from repro_torch.engine import topology as topo
+from repro_torch.models import build_model
 from repro_torch.nn import module as tmod
 
 GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -455,11 +457,12 @@ def test_plan_validates_the_schedules():
     with pytest.raises(ValueError, match="single-mesh"):
         _plans("vanilla", schedule="pipelined", microbatches=2,
                fleet=JFleetSpec(n_devices=1))[0].compile()
-    fns = SplitFns(init=None, split=None, client_apply=None,
-                   server_apply=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Plan(mode="vanilla", model=fns, cut=2, schedule="pipelined",
-             microbatches=2).compile(device="cpu")
+    # an LM's SplitFns takes the pipelined schedule too
+    lm = build_model(get_config("phi4_mini_3_8b").reduced(vocab=64))
+    eng = Plan(mode="vanilla", model=lm_split_fns(lm, 1), cut=1,
+               schedule="pipelined", microbatches=2).compile(
+                   device="cpu").engine
+    assert (eng.schedule, eng.microbatches) == ("pipelined", 2)
     # a batch the microbatch count does not divide
     sess = _plans("vanilla", schedule="pipelined",
                   microbatches=3)[1].compile(device="cpu")

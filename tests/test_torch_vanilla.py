@@ -513,10 +513,13 @@ def test_identical_clients_and_unported_schedules_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Plan(mode="vanilla", model=tm, cut=CUT,
              fleet=object()).compile(device="cpu")
+    # an LM's SplitFns lowers to the same vanilla program
     fns = SplitFns(init=None, split=None, client_apply=None,
                    server_apply=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Plan(mode="vanilla", model=fns, cut=CUT).compile(device="cpu")
+    eng = Plan(mode="vanilla", model=fns, cut=CUT).compile(
+        device="cpu").engine
+    assert eng.program.describe() == topo.lower(
+        topo.vanilla(tm, CUT)).describe()
     with pytest.raises(ValueError, match="needs cut="):
         Plan(mode="vanilla", model=tm).compile(device="cpu")
     assert Plan(mode="vanilla", model=tm, cut=CUT,
