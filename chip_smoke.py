@@ -25,7 +25,9 @@ Phases, each of which ends the run with a nonzero exit on any error:
    shapes (fp32, every input requiring grad): one kernel launch and a
    grad_fn, no launch in backward, and the plain version's autograd
    gradients within rtol 1e-5; the backward timed beside `F.rms_norm`'s
-   and `scaled_dot_product_attention`'s.
+   and `scaled_dot_product_attention`'s.  The same in bf16 at the
+   training CLI's shapes (batch 8 x seq 512, RecurrentGemma's windowed
+   attention, the SSD at chunk 256 and 64), within rtol 2**-7.
 3. Serving: phi4-mini-3.8B at full width (all 32 layers, bf16, random
    weights from a seeded generator), split at layer 4, served through
    `ServeSession` over the physical int8 wire with the fused entry:
@@ -149,6 +151,32 @@ Phases, each of which ends the run with a nonzero exit on any error:
    B each); and reduced phi4-mini, Mamba2 and RecurrentGemma (a sequence
    past its window) trained on the card == the plain CPU path over 3
    rounds.
+3k. The training CLI, `repro_torch.launch.train.main(argv)` in-process
+   (its JSON line parsed, launch counters zeroed just before and read just
+   after), in each config's own bf16 with the CLI's AdamW(1e-3, decay
+   0.01), batch 8 a client, ids below 1,024: Mamba2-130M whole, split
+   over 2 clients at seq 512 with `--wire quantize_int8:physical,
+   dp_noise:0.05` for 30 steps with `--ckpt`, then 3 steps each under
+   `--schedule parallel`, `pipelined --microbatches 2`, at the default
+   seq 64 (one 64-row SSD chunk), and as `--mode monolithic`, `fedavg
+   --local-steps 2` and `large_batch`; RecurrentGemma-2B cut to 11 of its
+   26 layers (in bf16 with AdamW all 26 need about 77 GB of state before
+   activations), split over 1
+   client at seq 512 over the physical wire for 30 steps.  Each: launches
+   exact (dp_noise re-packs each crossing: 2 quantizes and 2 dequantizes),
+   `wire_report` and `client_gb` exact, the final loss below the first on
+   the 30-step runs, the checkpoints restoring bitwise on the card, ms a
+   round and a profiled round, the peak; physical == fake bitwise over 3
+   steps (no dp_noise) under deterministic algorithms for both models;
+   the CLI as its own process (`python -m repro_torch.launch.train`); and
+   phi4-mini, whose 32 layers do not fit one card, `--reduced` through
+   the CLI on the card against the CPU.
+   Then ResNet-CIFAR100 (stages (3,4,6,3), widths 64-512, 100 classes,
+   fp32) vanilla at cut 2, 4 clients round-robin with the p2p handoff,
+   batch 128, AdamW(1e-4), the physical wire, 30 rounds: the loss falls,
+   every client's accuracy above 3x chance, 8,912,896 B each way a turn
+   and 80,376 B a handoff with `client_gb` exact, 954 launches of each
+   wire kernel, physical == fake bitwise, SMOKE card == CPU.
 4. A `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
@@ -298,6 +326,10 @@ def wire_payloads(torch) -> list:
             for p in _baseline_payloads(torch, mode, "pipelined")]
     # phase 3j: the LM paths' cut, handoff and model payloads
     out += _lm_payloads(torch)
+    # phase 3k: the CLI's bf16 cut (twice under dp_noise) and handoff
+    # payloads, and ResNet's cut and handoff
+    out += _cli_payloads(torch)
+    out += _resnet_payloads(torch)
     out += [(None, "no path", (4, 1, 3072), torch.float32, 0),
             (None, "no path", (4, 128, 3072), torch.float32, 0)]
     return out
@@ -955,14 +987,21 @@ def time_events_ms(torch, fn, reps: int = 10) -> float:
 
 
 def check_grads(torch) -> dict:
-    """Rows 5-7's gradient on the card at the LM training shapes, fp32:
-    every input requires grad, so each wrapper goes through its autograd
-    Function; its forward must launch the kernel once (held to the plain
-    forward as above: rmsnorm at 1e-5, flash at 2e-5, the SSD within 1e-3
-    x rms + 1e-4 x |v|), its output carry a grad_fn, and its
-    backward (the plain version recomputed on the saved inputs) launch
-    nothing and give the plain version's autograd gradients within rtol
-    1e-5, atol 1e-6 x the largest (the same arithmetic; only a library's
+    """Rows 5-7's gradient on the card at the LM training shapes: fp32 at
+    phase 3j's shapes, and bf16 at phase 3k's (the CLI's batch 8 x seq 512:
+    rmsnorm (8,512,768) and (8,512,2560), RecurrentGemma's flash q
+    (8,512,10,256), k/v (8,512,1,256) with its 2048-row window, Mamba2's
+    SSD x (8,512,24,64) at chunk 256, and at the CLI's default seq 64,
+    chunk 64).  Every input requires grad, so each wrapper goes through
+    its autograd Function; its forward must launch the kernel once (held
+    to the plain forward as above in fp32: rmsnorm at 1e-5, flash at
+    2e-5, the SSD within 1e-3 x rms + 1e-4 x |v|; in bf16 within 2 bf16
+    ulps of the plain bf16 output, plus the SSD's fp32 term), its output
+    carry a grad_fn, and its backward (the plain version recomputed on
+    the saved inputs) launch nothing and give the plain version's
+    autograd gradients within rtol 1e-5, atol 1e-6 x the largest in fp32,
+    and within rtol = 2**-7, atol = 2**-7 x the largest (one bf16 ulp at
+    the top of a binade) in bf16 (the same arithmetic; only a library's
     choice of summation order could part them).  The SSD's x, B and C are
     views into one projection, as Mamba2 hands them over.  Timed: the
     kernel's forward at the shape (fp32: flash runs its `flash_fwd`
@@ -971,7 +1010,8 @@ def check_grads(torch) -> dict:
     version's backward alone, and where a PyTorch call computes the same
     function (`F.rms_norm`, `scaled_dot_product_attention`) that call's
     forward and backward.  Returns {kernel: (backward ms, plain backward
-    ms, library backward ms)} at each kernel's first shape."""
+    ms, library backward ms)} at each kernel's first fp32 shape, and the
+    same at its first bf16 shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -982,30 +1022,45 @@ def check_grads(torch) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    def close(tol):
+    bf = torch.bfloat16
+
+    def close(tol, dtype=torch.float32):
         def ok(a, b):
-            return torch.allclose(a, b, rtol=tol, atol=tol)
+            if dtype == torch.float32:
+                return torch.allclose(a, b, rtol=tol, atol=tol)
+            return bool(((a.float() - b.float()).abs()
+                         <= 2 * _bf16_ulp(torch, b.float())).all())
         return ok
 
-    def ssd_close(a, b):
-        """The kernel tiles 64 rows, the plain form the model's chunk of
-        256: their decays round differently (check_ssd's rule)."""
-        tol = 1e-3 * b.square().mean().sqrt() + 1e-4 * b.abs()
-        return bool(((a - b).abs() <= tol).all())
+    def ssd_close(dtype):
+        def ok(a, b):
+            """The kernel tiles 64 rows, the plain form the model's chunk
+            of 256: their decays round differently (check_ssd's rule)."""
+            a, b = a.float(), b.float()
+            tol = 1e-3 * b.square().mean().sqrt() + 1e-4 * b.abs()
+            if dtype != torch.float32:
+                tol = tol + 2 * _bf16_ulp(torch, b)
+            return bool(((a - b).abs() <= tol).all())
+        return ok
 
-    def rms(d):
+    def name(dtype):
+        return str(dtype).replace("torch.", "")
+
+    def rms(d, b=LB, s=LS, dtype=torch.float32):
         def make():
-            return [randn(LB, LS, d), 1 + 0.1 * randn(d)], {}
+            return [randn(b, s, d).to(dtype),
+                    (1 + 0.1 * randn(d)).to(dtype)], {}
 
-        def lib(x, s):
-            return F.rms_norm(x, (d,), s, 1e-6)
-        return (f"rmsnorm ({LB},{LS},{d})", "rmsnorm", make, ops.rmsnorm,
-                ref.rmsnorm_ref, lib, close(1e-5))
+        def lib(x, sc):
+            return F.rms_norm(x.float(), (d,), sc.float(), 1e-6).to(x.dtype)
+        return (f"rmsnorm ({b},{s},{d}) {name(dtype)}", "rmsnorm", make,
+                ops.rmsnorm, ref.rmsnorm_ref, lib, close(1e-5, dtype),
+                dtype)
 
-    def flash(window):
+    def flash(window, b=LB, s=LS, h=24, kv=8, d=128, dtype=torch.float32):
         def make():
-            return ([randn(LB, LS, 24, 128), randn(LB, LS, 8, 128),
-                     randn(LB, LS, 8, 128)], {"window": window})
+            return ([randn(b, s, h, d).to(dtype), randn(b, s, kv, d).to(dtype),
+                     randn(b, s, kv, d).to(dtype)], {"window": window})
 
         def lib(q, k, v, window):
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1013,29 +1068,32 @@ def check_grads(torch) -> dict:
                 o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                    enable_gqa=True)
             else:
-                mask = ref.causal_mask(LS, LS, window=window, device=q.device)
+                mask = ref.causal_mask(s, s, window=window, device=q.device)
                 o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                    enable_gqa=True)
             return o.transpose(1, 2)
-        return (f"flash_attention q ({LB},{LS},24,128) k/v ({LB},{LS},8,128) "
-                f"causal, window {window}", "flash_attention", make,
-                ops.flash_attention, ref.flash_attention_ref, lib,
-                close(2e-5))
+        return (f"flash_attention q ({b},{s},{h},{d}) k/v ({b},{s},{kv},{d}) "
+                f"{name(dtype)} causal, window {window}", "flash_attention",
+                make, ops.flash_attention, ref.flash_attention_ref, lib,
+                close(2e-5, dtype), dtype)
 
-    def ssd(carried):
+    def ssd(carried, b=LB, s=LS, chunk=256, dtype=torch.float32):
         def make():
             h, p, n = 24, 64, 128
-            # x at 0.5 and B/C at 0.3, as check_ssd draws them
-            proj = torch.cat([0.5 * randn(LB, LS, h * p),
-                              0.3 * randn(LB, LS, 2 * n)], dim=-1)
-            dt = F.softplus(randn(LB, LS, h))
+            # x at 0.5 and B/C at 0.3, as check_ssd draws them; dt, A and
+            # a carried state float32, as Mamba2 hands them over
+            proj = torch.cat([0.5 * randn(b, s, h * p),
+                              0.3 * randn(b, s, 2 * n)], dim=-1).to(dtype)
+            dt = F.softplus(randn(b, s, h))
             A = -torch.linspace(1.0, 16.0, h, device="cuda")
-            init = randn(LB, h, p, n) if carried else None
+            init = randn(b, h, p, n) if carried else None
             return ([proj, dt, A] + ([init] if carried else []),
-                    {"chunk": 256, "return_state": True})
-        return (f"ssd_scan x ({LB},{LS},24,64) B/C ({LB},{LS},1,128), "
+                    {"chunk": chunk, "return_state": True})
+        return (f"ssd_scan x ({b},{s},24,64) B/C ({b},{s},1,128) "
+                f"{name(dtype)} chunk {chunk}, "
                 f"{'carried' if carried else 'zero'} state", "ssd_scan",
-                make, ops.ssd_scan, ssd_chunked_plain, None, ssd_close)
+                make, ops.ssd_scan, ssd_chunked_plain, None,
+                ssd_close(dtype), dtype)
 
     def ssd_args(ins):
         """(proj, dt, A[, init]) -> the scan's arguments, x/B/C as views."""
@@ -1045,11 +1103,16 @@ def check_grads(torch) -> dict:
         Cm = proj[..., 24 * 64 + 128:].unflatten(-1, (1, 128))
         return (x, dt, A, Bm, Cm), (ins[3] if len(ins) > 3 else None)
 
-    out = {}
-    for tag, name, make, fn, plain, lib, fwd_close in (
+    out, out_bf16 = {}, {}
+    for tag, name, make, fn, plain, lib, fwd_close, dtype in (
             rms(768), rms(3072), flash(None), flash(128), ssd(False),
-            ssd(True)):
+            ssd(True),
+            rms(768, CLI_B, CLI_S, bf), rms(2560, CLI_B, CLI_S, bf),
+            flash(2048, CLI_B, CLI_S, 10, 1, 256, bf),
+            ssd(False, CLI_B, CLI_S, 256, bf), ssd(False, CLI_B, 64, 64, bf)):
         ins, kw = make()
+        g_tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+        a_tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
 
         def call(f, leaves):
             if name != "ssd_scan":
@@ -1076,21 +1139,22 @@ def check_grads(torch) -> dict:
                 fail(f"{tag}: forward max abs err "
                      f"{(a - b).abs().max().item():.3e} against the plain "
                      "version")
-        cts = [randn(*t.shape) for t in o]
+        cts = [randn(*t.shape).to(t.dtype) for t in o]
         g = torch.autograd.grad(o, leaves, cts, retain_graph=True)
         g_p = torch.autograd.grad(p_o, p_leaves, cts, retain_graph=True)
         if ops.launch_counts() != after:
             fail(f"{tag}: the backward launched a kernel")
         worst = 0.0
         for a, b in zip(g, g_p):
+            a, b = a.float(), b.float()
             scale = b.abs().max().item()
             worst = max(worst, (a - b).abs().max().item() / max(scale,
                                                                 1e-30))
-            if not torch.allclose(a, b, rtol=1e-5, atol=1e-6 * scale):
+            if not torch.allclose(a, b, rtol=g_tol, atol=a_tol * scale):
                 fail(f"{tag}: gradient max abs err "
                      f"{(a - b).abs().max().item():.3e} against the plain "
-                     f"version's autograd (rtol 1e-5, atol 1e-6 x "
-                     f"{scale:.3e})")
+                     f"version's autograd (rtol {g_tol:.3g}, atol "
+                     f"{a_tol:.3g} x {scale:.3e})")
         fixed = [t.detach() for t in ins]
         t_fwd = time_ms(torch, [lambda: call(fn, fixed)], calls=8, reps=9)
         t_fwd_plain = time_ms(torch, [lambda: call(plain, fixed)], calls=4,
@@ -1113,17 +1177,18 @@ def check_grads(torch) -> dict:
                 print(f"  library yardstick not timed: {e}")
         lib_s = (f"{t_lib_fwd:.4f} / {t_lib:.4f} ms" if t_lib is not None
                  else "none")
-        print(f"{tag} fp32, inputs requiring grad: kernel forward (1 "
-              f"launch, grad_fn), gradient within rtol 1e-5 of the plain "
-              f"autograd (largest {worst:.2e} of the leaf's scale); "
+        print(f"{tag}, inputs requiring grad: kernel forward (1 "
+              f"launch, grad_fn), gradient within rtol {g_tol:.3g} of the "
+              f"plain autograd (largest {worst:.2e} of the leaf's scale); "
               f"forward: kernel {t_fwd:.4f} ms, plain {t_fwd_plain:.4f} ms; "
               f"backward (plain recompute + autograd) {t_bwd:.4f} ms, "
               f"plain backward alone {t_plain:.4f} ms; library forward / "
               f"backward {lib_s}")
-        out.setdefault(name, (t_bwd, t_plain, t_lib))
+        (out if dtype == torch.float32 else out_bf16).setdefault(
+            name, (t_bwd, t_plain, t_lib))
         del runs, leaves, o, p_leaves, p_o, g, g_p, cts
         torch.cuda.empty_cache()
-    return out
+    return out, out_bf16
 
 
 # ---------------------------------------------------------------------------
@@ -2876,6 +2941,562 @@ def lm_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3k: the training CLI (`python -m repro_torch.launch.train`)
+# ---------------------------------------------------------------------------
+
+# batch x sequence a client, the steps of the round-robin runs and of the
+# others
+CLI_B, CLI_S, CLI_STEPS, CLI_SHORT = 8, 512, 30, 3
+CLI_WIRE = "quantize_int8:physical,dp_noise:0.05"
+# RecurrentGemma-2B keeps 11 of its 26 layers: (rglru, rglru, attn) x 3 +
+# (rglru, rglru), the full model's tail.  In bf16 with AdamW, whose
+# functional update holds the old and the new fp32 moments at once, a
+# stored parameter takes about 22 bytes (weight, gradient and new weight
+# in bf16, four fp32 moments), so the full model's 3.51B (the untied
+# 655M-row embedding and head) need about 77 GB before activations and
+# the (8, 512, 256000) logits; 11 layers peak near 67 GiB (PERF.md)
+CLI_RG_LAYERS = 11
+# the CLI's batches span the whole vocabulary, as the reference's do, and
+# 30 steps from a random init learn nothing there (chip_lm_vocab.py); the
+# runs here draw their ids below LM_DATA_VOCAB, as phase 3j's do
+CLI_DATA_VOCAB = LM_DATA_VOCAB
+
+
+def cli_config(torch, arch):
+    """The full-width config a CLI run of phase 3k trains, in its own
+    dtype (bf16): RecurrentGemma cut to `CLI_RG_LAYERS` layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == "recurrentgemma_2b":
+        cfg = dataclasses.replace(cfg, n_layers=CLI_RG_LAYERS)
+    return cfg
+
+
+# (path, arch, argv, steps): the Mamba2 runs, then RecurrentGemma.  The
+# first Mamba2 run writes its checkpoints; the seq-64 run keeps the CLI's
+# default --seq, whose 64 rows are one 64-row SSD chunk (chunk
+# min(256, 64))
+CLI_RUNS = [
+    ("mamba2_130m_cli_split", "mamba2_130m",
+     ["--mode", "split", "--n-clients", "2", "--wire", CLI_WIRE], CLI_STEPS),
+    ("mamba2_130m_cli_split_parallel", "mamba2_130m",
+     ["--mode", "split", "--n-clients", "2", "--wire", CLI_WIRE,
+      "--schedule", "parallel"], CLI_SHORT),
+    ("mamba2_130m_cli_split_pipelined", "mamba2_130m",
+     ["--mode", "split", "--n-clients", "2", "--wire", CLI_WIRE,
+      "--schedule", "pipelined", "--microbatches", "2"], CLI_SHORT),
+    ("mamba2_130m_cli_monolithic", "mamba2_130m", ["--mode", "monolithic"],
+     CLI_SHORT),
+    ("mamba2_130m_cli_fedavg", "mamba2_130m",
+     ["--mode", "fedavg", "--n-clients", "2", "--local-steps", "2"],
+     CLI_SHORT),
+    ("mamba2_130m_cli_large_batch", "mamba2_130m",
+     ["--mode", "large_batch", "--n-clients", "2"], CLI_SHORT),
+    ("mamba2_130m_cli_split_seq64", "mamba2_130m",
+     ["--mode", "split", "--n-clients", "2", "--wire", CLI_WIRE], CLI_SHORT),
+    ("recurrentgemma_2b_cli_split", "recurrentgemma_2b",
+     ["--mode", "split", "--n-clients", "1", "--wire",
+      "quantize_int8:physical"], CLI_STEPS),
+]
+CLI_CKPT_RUNS = ("mamba2_130m_cli_split", "mamba2_130m_cli_monolithic")
+
+
+def _cli_argv(path, arch, argv, steps) -> list:
+    seq = [] if path.endswith("seq64") else ["--seq", str(CLI_S)]
+    out = ["--arch", arch, "--batch", str(CLI_B), "--steps", str(steps),
+           "--log-every", "0"] + seq + argv
+    if path in CLI_CKPT_RUNS:
+        out += ["--ckpt", str(ROOT / "build" / "ckpt" / path)]
+    return out
+
+
+def _cli_args(torch, argv, cfg):
+    """The CLI's parsed flags, with the cut it defaults to."""
+    from repro_torch.launch import train
+
+    a = train.parser().parse_args(argv)
+    if a.cut < 0:
+        a.cut = min(cfg.default_cut, max(1, cfg.n_layers // 2))
+    return a
+
+
+def _cli_leaves(torch, cfg, cut=None) -> list:
+    """(shape, dtype) of each leaf of the model, or of its client side at
+    `cut`, from an init on meta tensors."""
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import tree_leaves
+
+    model = build_model(cfg)
+    params = model.init(torch.Generator(), "meta")
+    if cut is not None:
+        params = model.split_params(params, cut)[0]
+    return [(tuple(t.shape), t.dtype) for t in tree_leaves(params)]
+
+
+def _cli_plan(torch, path, arch, argv, steps) -> dict:
+    """What a CLI run must show, worked out from its flags and shapes: the
+    mode, clients, microbatches and turns; the wire's payloads with their
+    launches a run and its bytes; every kernel's launches."""
+    from collections import Counter
+
+    cfg = cli_config(torch, arch)
+    a = _cli_args(torch, _cli_argv(path, arch, argv, steps), cfg)
+    n, split = a.n_clients, a.mode == "split"
+    m = a.microbatches if a.schedule == "pipelined" else 1
+    noise = "dp_noise" in a.wire
+    kinds = ([cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+             if cfg.pattern else ["ssm" if cfg.family == "ssm" else "attn"]
+             * cfg.n_layers)
+
+    def fwd(lo, hi, final, k=1):
+        ks = kinds[lo:hi]
+        return Counter({"rmsnorm": k * (2 * len(ks) + final),
+                        "ssd_scan": k * ks.count("ssm"),
+                        "flash_attention": k * ks.count("attn")})
+    L = cfg.n_layers
+    if split:
+        client = 2 * m if a.schedule == "pipelined" else 1
+        per_round = Counter()
+        for _ in range(n):
+            per_round += fwd(0, a.cut, 0, client) + fwd(a.cut, L, 1, m)
+        evals = Counter()
+        for _ in range(n):
+            evals += fwd(0, L, 1)
+    else:
+        k = {"monolithic": 1, "large_batch": n,
+             "fedavg": n * a.local_steps}[a.mode]
+        per_round, evals = fwd(0, L, 1, k), fwd(0, L, 1)
+    launches = Counter()
+    for _ in range(steps):
+        launches += per_round
+    launches += evals
+    payloads, cut_bytes, handoff = [], 0, 0
+    turns = n * steps
+    wire_k = 0
+    if split and a.wire:
+        rows = (CLI_B // m, a.seq, cfg.d_model)
+        cut_bytes = CLI_B * a.seq * (cfg.d_model + 4)
+        k = 2 * m * turns * (2 if noise else 1)
+        payloads.append((path, "cut_act up / cut_grad down"
+                         + (" (and the noised re-pack)" if noise else ""),
+                         rows, cfg.dtype, k))
+        wire_k += k
+        leaves = _cli_leaves(torch, cfg, a.cut)
+        handoff = _int8_bytes([s for s, _ in leaves])
+        if n > 1 and a.schedule != "parallel":
+            for (shape, dt), c in Counter(leaves).items():
+                payloads.append((path, "handoff", shape, dt,
+                                 c * (turns - 1)))
+                wire_k += c * (turns - 1)
+    want = {"wire_quant": wire_k, "wire_dequant": wire_k,
+            "splitcat_linear_q8": 0, "splitcat_linear": 0,
+            **{k: launches[k] for k in ("rmsnorm", "ssd_scan",
+                                        "flash_attention")}}
+    h = ([0] * n if a.schedule == "parallel" or n == 1
+         else [steps - 1] + [steps] * (n - 1))
+    gb = [round((steps * 2 * cut_bytes + k * handoff) / 1e9, 6) for k in h]
+    return {"cfg": cfg, "args": a, "payloads": payloads, "launches": want,
+            "cut_bytes": cut_bytes, "handoff": handoff, "client_gb": gb}
+
+
+def _cli_payloads(torch) -> list:
+    return [p for run in CLI_RUNS for p in _cli_plan(torch, *run)["payloads"]]
+
+
+def _run_cli(torch, argv, cfg, data_vocab=CLI_DATA_VOCAB):
+    """`repro_torch.launch.train.main(argv)` with its stdout captured and
+    echoed: (the run, its JSON summary parsed from the last line)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = train.main(argv, cfg=cfg, data_vocab=data_vocab)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        print(f"  | {line}")
+    try:
+        summary = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"CLI {argv}: the last line is not a JSON object: {lines[-1:]}")
+    if len(lines) < 2 or not lines[-2].startswith("eval acc/client: ["):
+        fail(f"CLI {argv}: no `eval acc/client` line before the JSON line")
+    return run, summary
+
+
+def _cli_checkpoint(torch, run, path):
+    """The run's checkpoints restore bitwise into its own state on the
+    card: the stacked clients and the server, or the global model."""
+    from repro_torch import bridge
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.nn.module import tree_leaves
+
+    state, prefix = run.session.state, ROOT / "build" / "ckpt" / path
+    if run.session.is_split:
+        pairs = [(".clients", bridge.lm_tree_to_ref(state["clients"],
+                                                     axis=1)),
+                 (".server", bridge.lm_tree_to_ref(state["server"]))]
+    else:
+        pairs = [("", bridge.lm_tree_to_ref(state["global"]))]
+    n = 0
+    for suffix, tree in pairs:
+        got = ckpt.restore(str(prefix) + suffix, tree)
+        man = ckpt.load_manifest(str(prefix) + suffix)
+        for a, b in zip(tree_leaves(got), tree_leaves(tree), strict=True):
+            if a.device != b.device or a.dtype != b.dtype or not \
+                    torch.equal(a, b):
+                fail(f"{path}: checkpoint {suffix or 'global'} does not "
+                     f"restore bitwise ({a.dtype} {a.device} vs {b.dtype} "
+                     f"{b.device})")
+            n += 1
+        if man["step"] != run.summary["steps"]:
+            fail(f"{path}: manifest step {man['step']}")
+    bf16 = sum(1 for suffix, _ in pairs for v in ckpt.load_manifest(
+        str(prefix) + suffix)["leaves"].values() if v["dtype"] == "bfloat16")
+    print(f"  checkpoint{'s' if len(pairs) > 1 else ''} "
+          f"{', '.join(p or 'global' for p, _ in pairs)}: {n} leaves "
+          f"({bf16} bf16 as raw 16-bit patterns) restore bitwise on the card")
+
+
+def _cli_runs_equal(torch, arch, cfg, argv_of):
+    """3 steps of the CLI over the physical and the fake wire (no
+    dp_noise) under deterministic algorithms: losses, the final state and
+    the meter bitwise equal.  The first run's state waits on the host."""
+    from repro_torch.nn.module import tree_leaves
+
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for wire in ("quantize_int8:physical", "quantize_int8"):
+            run, _ = _run_cli(torch, argv_of(wire), cfg)
+            leaves = tree_leaves(run.session.state)
+            runs.append((run.losses, [t.cpu() for t in leaves] if not runs
+                         else leaves, run.session.meter()))
+            del run, leaves
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (la, sa, ma), (lb, sb, mb) = runs
+    same = len(sa) == len(sb) and all(torch.equal(a, b.cpu())
+                                      for a, b in zip(sa, sb))
+    if la != lb or not same or ma != mb:
+        fail(f"{arch} CLI: physical wire losses {la} != fake wire losses "
+             f"{lb} (states equal: {same}; meters {ma}, {mb})")
+    print(f"  {arch} CLI, physical wire == fake wire over 3 steps, "
+          f"deterministic algorithms: losses, final state ({len(sa)} leaves) "
+          f"and meter bitwise ({la})")
+    del runs, sa, sb
+    torch.cuda.empty_cache()
+
+
+def cli_path(torch, path, arch, argv, steps) -> dict:
+    """One run of the training CLI on the card, in-process through
+    `main(argv)`: the JSON line, launches, bytes, the falling loss, ms a
+    round, the busy share and the peak."""
+    from repro_torch.kernels import ops
+    from repro_torch.nn.module import param_count
+
+    spec = _cli_plan(torch, path, arch, argv, steps)
+    cfg, a = spec["cfg"], spec["args"]
+    full = _cli_argv(path, arch, argv, steps)
+    print(f"{path.replace('_', ' ')} path: python -m repro_torch.launch.train "
+          f"{' '.join(full)} ({cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, bf16; ids below "
+          f"{CLI_DATA_VOCAB})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    run, summary = _run_cli(torch, full, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    state = run.session.state
+    params = (param_count(state["clients"]) // a.n_clients
+              + param_count(state["server"]) if run.session.is_split
+              else param_count(state["global"]))
+    held = "client + server" if a.mode == "split" else "global"
+    print(f"  {params} stored parameters ({held}); the run {wall:.3f} s, "
+          f"peak {peak:.2f} GiB")
+    print(f"  launches: {launches}")
+    hold_launches(launches, spec["launches"])
+    ls = run.losses
+    if not all(map(math.isfinite, ls)) or (summary["first_loss"], summary[
+            "final_loss"]) != (ls[0], ls[-1]):
+        fail(f"{path}: losses {ls}, summary {summary}")
+    if steps == CLI_STEPS and not ls[-1] < ls[0]:
+        fail(f"{path}: final loss {ls[-1]} not below the first {ls[0]}")
+    if a.mode == "split":
+        if summary["client_gb"] != spec["client_gb"] or summary[
+                "client_gb"] != [round(g, 6) for g in
+                                 run.session.meter()["client_gb"]]:
+            fail(f"{path}: client_gb {summary['client_gb']}, expected "
+                 f"{spec['client_gb']} (cut {spec['cut_bytes']} B each way "
+                 f"a turn, handoff {spec['handoff']} B)")
+        want = [{"name": nm, "direction": d,
+                 "shape": [CLI_B, a.seq, cfg.d_model], "dtype": "bfloat16",
+                 "bytes": spec["cut_bytes"], "physical": True}
+                for nm, d in (("cut_act", "up"), ("cut_grad", "down"))]
+        cost = run.session.engine.turn_cost(
+            state, run.session._prep(run.round_batches(0)))
+        if summary["wire_report"] != want or [w.bytes for w in cost.wires] \
+                != [spec["cut_bytes"]] * 2:
+            fail(f"{path}: wire_report {summary['wire_report']}, expected "
+                 f"{want}")
+        print(f"  wire: {spec['cut_bytes']} B each way a turn"
+              + (f", handoff {spec['handoff']} B" if a.n_clients > 1
+                 and a.schedule != "parallel" else "")
+              + f"; client_gb {summary['client_gb']} exact")
+    if path in CLI_CKPT_RUNS:
+        _cli_checkpoint(torch, run, path)
+
+    # ms a round and the busy share, past the run: 2 rounds under CUDA
+    # events, then one profiled (each round replaces the session's state,
+    # so no reference to the old one may stay: RecurrentGemma's fills
+    # the card)
+    del state
+    bs = [run.session._prep(run.round_batches(steps + 2 + i))
+          for i in range(3)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b in bs[:2]:
+        run.session.run_round(b)
+    end.record()
+    end.synchronize()
+    round_ms = start.elapsed_time(end) / 2
+    busy_ms = profile_device(torch, f"{path} round",
+                             lambda: run.session.run_round(bs[2]),
+                             round_ms / 1e3, steps=1)
+    tokens = CLI_B * a.seq * (a.n_clients if a.mode != "monolithic" else 1)
+    print(f"  {round_ms:.3f} ms a round (CUDA events over 2 rounds), "
+          f"{tokens / round_ms * 1e3:.1f} tokens/s; first loss "
+          f"{ls[0]:.4f}, final {ls[-1]:.4f}")
+    del run, bs
+    torch.cuda.empty_cache()
+    return {"launches": launches, "round_ms": round_ms, "busy_ms": busy_ms,
+            "peak_gib": peak, "wall_s": wall, "params": params,
+            "first_loss": ls[0], "final_loss": ls[-1],
+            "eval_acc_per_client": summary["eval_acc_per_client"],
+            "client_gb": summary.get("client_gb")}
+
+
+def cli_module_run(torch):
+    """The CLI as its own process (`python -m repro_torch.launch.train`,
+    the GPU by default): 2 steps of Mamba2 split over the physical wire
+    at the default batch and sequence; its last line parses."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "mamba2_130m", "--mode", "split", "--n-clients", "2", "--steps",
+           "2", "--wire", "quantize_int8:physical", "--log-every", "1"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"python -m repro_torch.launch.train exited "
+             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    summary = json.loads(lines[-1])
+    print(f"python -m repro_torch.launch.train (its own process, "
+          f"{time.perf_counter() - t0:.1f} s): {lines[-2]}; {lines[-1]}")
+    if summary["arch"] != "mamba2-130m" or len(summary["client_gb"]) != 2:
+        fail(f"python -m repro_torch.launch.train: summary {summary}")
+
+
+def reduced_cli_against_cpu(torch):
+    """phi4-mini at 32 layers does not fit one card (4 layers do, phase
+    3j), so the CLI takes it `--reduced`: its JSON line on the card and on
+    the CPU (`wire_report`, `client_gb` and the keys exactly equal; each
+    side draws its own init), then the CLI's plan (`build_plan`) on the
+    card against the CPU from one state over 3 rounds, with SGD with
+    momentum and the dense wire in place of the CLI's AdamW and int8
+    wire, as phase 3j's card == CPU checks (AdamW and int8 levels part
+    runs by whole steps and levels)."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    argv = ["--arch", "phi4_mini_3_8b", "--reduced", "--mode", "split",
+            "--n-clients", "2", "--steps", "2", "--log-every", "0",
+            "--wire", "quantize_int8:physical"]
+    out = {dev: _run_cli(torch, argv + ["--device", dev], None, None)[1]
+           for dev in ("cuda", "cpu")}
+    same = ("wire_report", "client_gb")
+    if list(out["cuda"]) != list(out["cpu"]) or any(
+            out["cuda"][k] != out["cpu"][k] for k in same):
+        fail(f"reduced phi4-mini CLI: card summary {out['cuda']} != CPU "
+             f"summary {out['cpu']} in {same} or its keys")
+    print(f"reduced phi4-mini CLI, card == CPU: the JSON keys, wire_report "
+          f"and client_gb {out['cuda']['client_gb']}")
+    args = train.parser().parse_args(argv)
+    cfg = train.arch_config(args)
+    args.cut = min(cfg.default_cut, max(1, cfg.n_layers // 2))
+    args.wire = ""
+    batches = _lm_batches(torch.Generator().manual_seed(4), 3, 2, 2, 12,
+                          cfg.vocab)
+
+    def make_plan():
+        return dataclasses.replace(train.build_plan(build_model(cfg), args),
+                                   optimizer=optim.sgd(0.02, 0.9))
+    _reduced_against_cpu(torch, "phi4-mini CLI plan", make_plan, batches)
+
+
+def cli_phase(torch) -> dict:
+    """Phase 3k: every CLI run, the physical == fake checks of the stacks
+    without dp_noise, the CLI as its own process, and reduced phi4-mini
+    through the CLI on the card against the CPU."""
+    out = {}
+    for run in CLI_RUNS:
+        out[run[0]] = cli_path(torch, *run)
+    for arch in ("mamba2_130m", "recurrentgemma_2b"):
+        n = "2" if arch == "mamba2_130m" else "1"
+        _cli_runs_equal(
+            torch, arch, cli_config(torch, arch),
+            lambda wire, arch=arch, n=n: [
+                "--arch", arch, "--batch", str(CLI_B), "--seq", str(CLI_S),
+                "--steps", "3", "--log-every", "0", "--mode", "split",
+                "--n-clients", n, "--wire", wire])
+    cli_module_run(torch)
+    reduced_cli_against_cpu(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3k (d): ResNet-CIFAR100, vanilla over the physical wire
+# ---------------------------------------------------------------------------
+
+# the stem conv and the first block's two convs, each weight and bias
+R_LEAVES = [("stem w", (3, 3, 3, 64), 1), ("biases", (64,), 3),
+            ("block 1 c1/c2 w", (3, 3, 64, 64), 2)]
+R_HANDOFF_BYTES = _int8_bytes([s for _, s, k in R_LEAVES for _ in range(k)])
+R_CLASSES = 100
+
+
+def _resnet_plan(cfg, wire, n_clients):
+    from repro_torch import optim
+    from repro_torch.api import Plan
+    from repro_torch.core.split import list_segmodel
+    from repro_torch.nn import convnets as C
+
+    plan = C.resnet_plan(cfg)
+    seg = list_segmodel(len(plan), lambda g: C.resnet_init(g, cfg),
+                        lambda p, i, x: C.resnet_layer_apply(p, plan[i], x))
+    return Plan(mode="vanilla", model=seg, cut=V_CUT, n_clients=n_clients,
+                optimizer=optim.adamw(LR), wire=wire)
+
+
+def _resnet_payloads(torch) -> list:
+    turns, f32 = V_CLIENTS * V_ROUNDS, torch.float32
+    return ([("resnet_vanilla_training", "cut_act up / cut_grad down",
+              CUT_SHAPE, f32, 2 * turns)]
+            + [("resnet_vanilla_training", f"handoff {leaf}", shape, f32,
+                k * (turns - 1)) for leaf, shape, k in R_LEAVES])
+
+
+def resnet_path(torch) -> dict:
+    """ResNet-CIFAR100 at full width (stages (3,4,6,3), widths 64-512, 100
+    classes) cut 2 (the stem and the first block on the client), 4
+    clients round-robin with the p2p handoff over the physical wire."""
+    from repro_torch.api import leakage_probe, quantize_int8
+    from repro_torch.configs.resnet50_cifar100 import CONFIG
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.engine import tree_at
+    from repro_torch.nn.module import param_count
+
+    turns = V_CLIENTS * V_ROUNDS
+    print(f"resnet vanilla training path: {CONFIG.name} (stages "
+          f"{CONFIG.stages}, widths {CONFIG.widths}, {R_CLASSES} classes, "
+          f"fp32) cut at {V_CUT}, {V_CLIENTS} clients round-robin with the "
+          f"p2p handoff, batch {VB} per client per turn, {V_ROUNDS} rounds "
+          f"({turns} turns), AdamW({LR}), physical int8 wire")
+    phys = [quantize_int8(physical=True), leakage_probe()]
+    sess = _resnet_plan(CONFIG, phys, V_CLIENTS).compile()
+    sess.init(seed=SEED)
+    n_client = param_count(tree_at(sess.state["clients"], 0))
+    n_server = param_count(sess.state["server"])
+    print(f"  client params {n_client} per client; server {n_server}; "
+          f"model {n_client + n_server}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    batches = _client_batches(gen, V_ROUNDS + 1, V_CLIENTS, VB, R_CLASSES)
+    ev = image_batch(gen, EVAL_B, R_CLASSES)
+    ev = {"x": ev["images"], "labels": ev["labels"]}
+    report = sess.wire_report(batches[0])
+    want = [("cut_act", "up", CUT_SHAPE, V_CUT_BYTES),
+            ("cut_grad", "down", CUT_SHAPE, V_CUT_BYTES)]
+    got = [(r["name"], r["direction"], r["shape"], r["bytes"])
+           for r in report]
+    print(f"  wire report: {got}")
+    if got != want or not all(r["physical"] for r in report):
+        fail(f"resnet wire_report {report}: expected {want}, all physical")
+    losses, first_s, round_ms, host_ms, launches, peak_gib = _timed_fit(
+        torch, sess, batches, V_ROUNDS)
+    print(f"  first round {first_s:.3f} s; then {round_ms:.3f} ms per round "
+          f"(CUDA events over rounds 2-{V_ROUNDS}, host {host_ms:.3f} ms), "
+          f"{VB * V_CLIENTS / round_ms * 1e3:.1f} examples/s, peak "
+          f"{peak_gib:.2f} GiB")
+    print(f"  launches over the {V_ROUNDS} rounds: {launches}")
+    leaves = sum(k for _, _, k in R_LEAVES)
+    k = 2 * turns + leaves * (turns - 1)
+    hold_launches(launches, {"wire_quant": k, "wire_dequant": k,
+                             **NO_OTHER_KERNEL})
+    meter, totals = sess.engine.meter, sess.meter()
+    h = [V_ROUNDS - 1] + [V_ROUNDS] * (V_CLIENTS - 1)
+    want_gb = [(V_ROUNDS * 2 * V_CUT_BYTES + k * R_HANDOFF_BYTES) / 1e9
+               for k in h]
+    print(f"  meter: up {meter.bytes_up}, down {meter.bytes_down}, handoff "
+          f"{meter.sync_bytes} B ({R_HANDOFF_BYTES} B a handoff); {totals}")
+    if (meter.bytes_up != [V_ROUNDS * V_CUT_BYTES] * V_CLIENTS
+            or meter.bytes_down != [V_ROUNDS * V_CUT_BYTES] * V_CLIENTS
+            or meter.sync_bytes != [k * R_HANDOFF_BYTES for k in h]
+            or totals["client_gb"] != want_gb):
+        fail(f"resnet meter {totals['client_gb']} GB, expected {want_gb}")
+    accs = sess.evaluate_all(ev).tolist()
+    print(f"  evaluate_all ({EVAL_B} held-out rows, chance "
+          f"{1 / R_CLASSES}): {accs}")
+    if len(accs) != V_CLIENTS or min(accs) < 3 / R_CLASSES:
+        fail(f"resnet: evaluation accuracies {accs} after {V_ROUNDS} rounds, "
+             f"below three times chance ({1 / R_CLASSES})")
+    busy_ms = profile_device(torch, f"resnet round ({V_CLIENTS} turns)",
+                             lambda: sess.run_round(batches[V_ROUNDS]),
+                             round_ms / 1e3, steps=1)
+    _physical_equals_fake(torch, lambda w: _resnet_plan(CONFIG, w, V_CLIENTS),
+                          phys, sess.state, batches, 3, "resnet vanilla")
+    del sess
+    torch.cuda.empty_cache()
+    return {"launches": launches, "first_round_s": first_s,
+            "round_ms": round_ms, "turn_ms": round_ms / V_CLIENTS,
+            "busy_ms": busy_ms, "peak_gib": peak_gib,
+            "client_params": n_client, "model_params": n_client + n_server,
+            "handoff_bytes": R_HANDOFF_BYTES,
+            "client_gb": statistics.mean(totals["client_gb"]),
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "eval_accuracy": accs}
+
+
+def reduced_resnet_against_cpu(torch):
+    """SMOKE ResNet (its second stage opens with a stride-2 block and its
+    projection), 3 clients, batch 8, on the card and on the CPU."""
+    from repro_torch.api import quantize_int8
+    from repro_torch.configs.resnet50_cifar100 import SMOKE
+
+    batches = _client_batches(torch.Generator().manual_seed(4), 3, 3, 8,
+                              SMOKE.n_classes, hw=16)
+    _reduced_against_cpu(
+        torch, "resnet vanilla",
+        lambda: _resnet_plan(SMOKE, [quantize_int8(physical=True)], 3),
+        batches)
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -2916,7 +3537,7 @@ def main():
     rn_err, rn_t = check_rmsnorm(torch)
     ssd_err, ssd_t = check_ssd(torch)
     fa_err, fa_t = check_flash(torch)
-    bwd = check_grads(torch)
+    bwd, bwd_bf16 = check_grads(torch)
 
     # phase 3: each main path, then its small-input reference check
     run = main_path(torch)
@@ -2943,6 +3564,9 @@ def main():
     sched = schedules_phase(torch, {"vertical": train, **turn, **branch,
                                     **baseline})
     lm = lm_phase(torch)
+    cli = cli_phase(torch)
+    resnet = resnet_path(torch)
+    reduced_resnet_against_cpu(torch)
 
     # the wire launches per payload add up to what each path was held to
     paths = (("serving", run), ("training", train), ("ssm_serving", ssm),
@@ -2951,7 +3575,8 @@ def main():
              *((path_name(m), r) for m, r in branch.items()),
              *((path_name(m), r) for m, r in baseline.items()),
              *((path_name(m, sc), r) for (m, sc), r in sched.items()),
-             *((_lm_path_name(a, m, sc), r) for (a, m, sc), r in lm.items()))
+             *((_lm_path_name(a, m, sc), r) for (a, m, sc), r in lm.items()),
+             *cli.items(), ("resnet_vanilla_training", resnet))
     for path, res in paths:
         want = sum(p[-1] for p in payloads if p[0] == path)
         for name in ("wire_quant", "wire_dequant"):
@@ -3013,6 +3638,8 @@ def main():
         if k["name"] in bwd:     # the training gradient (phase 2)
             (k["backward_ms"], k["backward_plain_ms"],
              k["backward_library_ms"]) = bwd[k["name"]]
+            (k["backward_bf16_ms"], k["backward_bf16_plain_ms"],
+             k["backward_bf16_library_ms"]) = bwd_bf16[k["name"]]
     print("kernel times above are at the main paths' shapes: wire_quant "
           "and wire_dequant on the (4,1,200064) bf16 logits, "
           "splitcat_linear_q8 on the (4,1,3072) x (3072,5120) bf16 entry, "
@@ -3024,7 +3651,9 @@ def main():
           "(4,4096,1,256) bf16, window 2048; the backward times of "
           "rmsnorm, ssd_scan and flash_attention at the LM training "
           "shapes (4,512,768), x (4,512,24,64) from a zero state and q "
-          "(4,512,24,128) causal, fp32")
+          "(4,512,24,128) causal, fp32, and (backward_bf16_*) at the "
+          "CLI's (8,512,768), x (8,512,24,64) and q (8,512,10,256) "
+          "windowed, bf16")
     print("serving path: " + json.dumps(
         {k: v for k, v in run.items() if k != "launches"}))
     print("training path: " + json.dumps(

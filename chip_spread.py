@@ -4,9 +4,10 @@ GPU, against the number of training rounds: why `chip_smoke.py` trains
 multitask and extended_vanilla 30 rounds more before their accuracy
 check.
 
-Run from the root of a checkout, with no arguments:
+Run from the root of a checkout, with no arguments (both parts below) or
+with `resnet` (the second only):
 
-    python3 chip_spread.py
+    python3 chip_spread.py [resnet]
 
 `chip_smoke.py`'s branch-kind paths (two full-width VGG-16 branches into
 a 1024 -> 10 trunk, two 1024 -> 10 task heads, or a 1024 -> 512 ReLU mid
@@ -20,6 +21,13 @@ differ. Prints each run's accuracy on the 512
 held-out rows (multitask: the lower task's), then per setting the least,
 the largest, the mean and how many runs are at or below 3x chance
 (`chip_smoke.py`'s limit).
+
+Then ResNet-CIFAR100's held-out accuracy the same way over
+`RESNET_REPEATS` runs of `chip_smoke.py`'s phase 3k path (full width,
+cut 2, 4 clients round-robin with the p2p handoff, 128 rows a turn, 30
+rounds, AdamW(1e-4), the physical wire): each client's accuracy on the
+512 held-out rows of 100 classes, against the 3x chance limit that path
+holds.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 REPEATS = 6
+RESNET_REPEATS = 3
 ROUND_COUNTS = {"vertical": (30,), "multitask": (30, 60),
                 "extended_vanilla": (30, 45, 60)}
 
@@ -47,6 +56,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(cs.card_line())
+    if sys.argv[1:] != ["resnet"]:
+        branch_spread(torch, cs, CONFIG, leakage_probe, quantize_int8)
+    resnet_spread(torch, cs, leakage_probe, quantize_int8)
+
+
+def branch_spread(torch, cs, CONFIG, leakage_probe, quantize_int8):
     spread = {}
     for mode, counts in ROUND_COUNTS.items():
         for rounds in counts:
@@ -88,6 +103,35 @@ def _accuracy(torch, cs, cfg, mode, schedule, rounds, wire, name, rep):
           f"{statistics.mean(losses[-5:]):.4f}, accuracy {acc:.4f}",
           flush=True)
     return acc
+
+
+def resnet_spread(torch, cs, leakage_probe, quantize_int8):
+    from repro_torch.configs.resnet50_cifar100 import CONFIG
+    from repro_torch.data.synthetic import image_batch
+
+    accs = []
+    for rep in range(RESNET_REPEATS):
+        sess = cs._resnet_plan(CONFIG, [quantize_int8(physical=True),
+                                        leakage_probe()],
+                               cs.V_CLIENTS).compile()
+        sess.init(seed=cs.SEED)
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 50)
+        batches = cs._client_batches(gen, cs.V_ROUNDS + 1, cs.V_CLIENTS,
+                                     cs.VB, cs.R_CLASSES)
+        ev = image_batch(gen, cs.EVAL_B, cs.R_CLASSES)
+        ev = {"x": ev["images"], "labels": ev["labels"]}
+        losses = sess.fit(lambda r: batches[r], rounds=cs.V_ROUNDS)
+        run = sess.evaluate_all(ev).tolist()
+        print(f"resnet run {rep}: last 5 losses' mean "
+              f"{statistics.mean(losses[-5:]):.4f}, accuracy per client "
+              f"{run}", flush=True)
+        accs += run
+        del sess
+        torch.cuda.empty_cache()
+    low = sum(a <= 3 / cs.R_CLASSES for a in accs)
+    print(f"resnet {cs.V_ROUNDS} rounds: accuracy {min(accs):.4f} to "
+          f"{max(accs):.4f}, mean {statistics.mean(accs):.4f}; {low} of "
+          f"{len(accs)} at or below 3x chance ({3 / cs.R_CLASSES:.2f})")
 
 
 if __name__ == "__main__":

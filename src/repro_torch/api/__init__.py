@@ -5,5 +5,6 @@ from repro_torch.api.plan import (MODES, PORTED_MODES, FullFns,  # noqa: F401
                                   softmax_xent)
 from repro_torch.api.session import Session  # noqa: F401
 from repro_torch.api.wire import (WireAccountingError, WireStack,  # noqa: F401
-                                  WireTape, WireTransform, leakage_probe,
-                                  parse_wire, quantize_int8, with_wire)
+                                  WireTape, WireTransform, dp_noise,
+                                  leakage_probe, parse_wire, quantize_int8,
+                                  with_wire)

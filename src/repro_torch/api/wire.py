@@ -21,21 +21,25 @@ too (`tree_wire_bytes` prices them).
 
 `leakage_probe()` is the identity on the wire; it marks the stack so
 `Session.leakage_report` measures the distance correlation between raw
-client inputs and what crosses after the other transforms.  `with_wire`
-routes a topology's grad paths through a stack.  `dp_noise` comes with a
-later slice (ROADMAP).
+client inputs and what crosses after the other transforms.  `dp_noise`
+adds Gaussian noise to every crossing value, keyed by a seed, the wire's
+name and the payload's content.  `with_wire` routes a topology's grad
+paths through a stack.
 """
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Callable, Sequence
+
+import torch
 
 from repro_torch.core.privacy import distance_correlation
 from repro_torch.core.wire_compress import (_fake_quant_int8, as_dense,
-                                            pack_int8, payload_nbytes,
-                                            wire_bytes)
+                                            pack_int8, pack_like,
+                                            payload_nbytes, wire_bytes)
 from repro_torch.engine.topology import Topology
-from repro_torch.nn.module import tree_leaves, tree_map
+from repro_torch.nn.module import mix_seed, tree_leaves, tree_map
 
 
 class WireAccountingError(AssertionError):
@@ -74,6 +78,47 @@ def quantize_int8(*, physical: bool = False) -> WireTransform:
         physical=physical, handoff=True)
 
 
+def name_key(name: str) -> int:
+    """The wire name's share of a `dp_noise` key, as the reference folds
+    it in: crc32 of the name, cleared to 31 bits."""
+    return zlib.crc32(name.encode()) & 0x7FFFFFFF
+
+
+def content_hash(d: torch.Tensor) -> torch.Tensor:
+    """The payload's share of a `dp_noise` key: the wrapping uint32 sum of
+    its float32 bits (the reference's `bits.sum(dtype=uint32)`), as an
+    int64 0-d tensor on the payload's device.  A signed int32 view sums to
+    the same value mod 2**32."""
+    bits = d.float().contiguous().view(torch.int32).to(torch.int64)
+    return bits.sum() & 0xFFFFFFFF
+
+
+def dp_noise(sigma: float, seed: int = 0) -> WireTransform:
+    """Gaussian noise of standard deviation `sigma` on every crossing value
+    (DP-style masking of the wire).  Deterministic: the noise is drawn
+    from a generator on the payload's device seeded from `seed`, the
+    wire's name (`name_key`) and the payload's content (`content_hash`),
+    the three words the reference keys `jax.random` with, so each turn and
+    payload draws different noise without a key threaded through the
+    engine.  Torch cannot draw JAX's normals, so only the key's words
+    match the reference's.  Reading the content hash is one host sync a
+    crossing.  Downstream of a physical quantizer the noised value is
+    re-packed, so the wire stays int8 (one more quantize and dequantize a
+    crossing).  The bytes and the p2p handoff are unchanged."""
+    def apply(t, name, direction):
+        d = as_dense(t)
+        if d.device.type == "meta":          # a shape probe: nothing to key
+            return pack_like(t, d)
+        gen = torch.Generator(device=d.device).manual_seed(
+            mix_seed(seed, name_key(name), int(content_hash(d))))
+        noise = torch.randn(d.shape, generator=gen, dtype=d.dtype,
+                            device=d.device)
+        return pack_like(t, d + sigma * noise)
+
+    return WireTransform(name="dp_noise", apply=apply,
+                         bytes_fn=_identity_bytes)
+
+
 def leakage_probe() -> WireTransform:
     """Identity on the wire; marks the stack so `Session.leakage_report`
     computes the distance correlation between raw client inputs and
@@ -85,8 +130,9 @@ def leakage_probe() -> WireTransform:
 
 
 def parse_wire(spec) -> tuple:
-    """'quantize_int8' / 'quantize_int8:physical' / 'leakage_probe',
-    comma-separated -> transform tuple.
+    """'quantize_int8' / 'quantize_int8:physical' / 'dp_noise:SIGMA' /
+    'leakage_probe', comma-separated -> transform tuple (`dp_noise`
+    alone takes sigma 0.05).
     Also takes a built `WireStack`, a sequence of `WireTransform`s, or
     None / "" (the empty stack)."""
     if spec is None:
@@ -102,12 +148,10 @@ def parse_wire(spec) -> tuple:
             if arg not in ("", "physical", "fake"):
                 raise ValueError(f"quantize_int8:{arg}? (physical|fake)")
             out.append(quantize_int8(physical=arg == "physical"))
+        elif name == "dp_noise":
+            out.append(dp_noise(float(arg or 0.05)))
         elif name == "leakage_probe":
             out.append(leakage_probe())
-        elif name == "dp_noise":
-            raise NotImplementedError(
-                "wire transform 'dp_noise' is not ported yet: it comes "
-                "with a later training slice (see ROADMAP.md)")
         else:
             raise ValueError(f"unknown wire transform {name!r}")
     return tuple(out)

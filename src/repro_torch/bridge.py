@@ -24,6 +24,9 @@ and the port's.
   is (n_clients, n_repeat, ...) in the reference, so the repeats are its
   second axis; elsewhere its first.  Optimizer moments follow the params
   they track, and every leaf keeps its dtype.
+  Both go through `lm_tree_to_ref` / `lm_tree_from_ref`, which restack
+  any LM tree of tensors (params, one side of the split, a
+  client-stacked subtree); the checkpoints write LM trees through them.
 * Everything else has the same layout in both packages, leaf for leaf:
   the CNN list-of-dict trees (HWIO conv and `(in, out)` dense weights,
   `{}` for a pool) and a whole engine state of any `Plan` mode — a split
@@ -152,31 +155,40 @@ def _client_stacked(state: dict) -> set:
     return {"opt"} if step is not None and np.ndim(step) == 1 else set()
 
 
+def lm_tree_to_ref(tree, *, axis: int = 0):
+    """An LM tree of tensors with each "groups" list of repeats stacked
+    into the reference's layout along `axis` (1 under a client-stacked
+    subtree, whose leaves lead with the client axis; else 0)."""
+    def stack(groups):
+        return [_map(lambda *reps: torch.stack(reps, dim=axis), *g)
+                for g in groups]
+    return _in_groups(tree, stack)
+
+
+def lm_tree_from_ref(tree, *, axis: int = 0):
+    """Inverse of `lm_tree_to_ref`: each stacked group unbound along
+    `axis` into the port's list of repeats (copies, not views)."""
+    def unstack(groups):
+        return [[_map(lambda a, r=r: a.select(axis, r).clone(), g)
+                 for r in range(tree_leaves(g)[0].shape[axis])]
+                for g in groups]
+    return _in_groups(tree, unstack)
+
+
 def lm_state_from_jax(np_state: dict, device="cpu") -> dict:
     """A reference LM engine state (as numpy arrays) -> the port's, each
     group's repeat axis unstacked into the port's list of repeats."""
     stacked = _client_stacked(np_state)
-
-    def unstack(groups, axis):
-        return [[_map(lambda a, r=r: np.take(a, r, axis=axis), g)
-                 for r in range(tree_leaves(g)[0].shape[axis])]
-                for g in groups]
-    out = {k: _in_groups(v, lambda gs, k=k: unstack(gs, int(k in stacked)))
-           for k, v in np_state.items()}
-    return tree_from_jax(out, device)
+    return {k: lm_tree_from_ref(v, axis=int(k in stacked))
+            for k, v in tree_from_jax(np_state, device).items()}
 
 
 def lm_state_to_numpy(state: dict) -> dict:
     """Inverse of `lm_state_from_jax`: the reference's layout as numpy
     arrays."""
     stacked = _client_stacked(state)
-
-    def stack(groups, axis):
-        return [_map(lambda *reps: np.stack(reps, axis=axis), *g)
-                for g in groups]
-    out = tree_to_numpy(state)
-    return {k: _in_groups(v, lambda gs, k=k: stack(gs, int(k in stacked)))
-            for k, v in out.items()}
+    return tree_to_numpy({k: lm_tree_to_ref(v, axis=int(k in stacked))
+                          for k, v in state.items()})
 
 
 def tree_from_jax(np_tree, device="cpu", dtype=None):

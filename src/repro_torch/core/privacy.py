@@ -1,9 +1,12 @@
-"""Statistical leakage of the cut (port of `repro/core/privacy.py:19-66`,
-the distance-correlation half).
+"""Privacy instrumentation of the cut (port of `repro/core/privacy.py`).
 
-Distance correlation (Székely et al.) between raw inputs and what
-crosses the wire: 0 means independent.  SplitNN does not guarantee low
-leakage; this metric quantifies it.
+Two kinds of evidence that raw data never crosses the boundary:
+
+1. Structural: `assert_no_raw_payload` flags every wire record with the
+   shape and dtype of a raw input or label tensor.
+2. Statistical: the distance correlation (Székely et al.) between raw
+   inputs and what crosses the wire, 0 meaning independent.  SplitNN does
+   not guarantee low leakage; this metric quantifies it.
 """
 from __future__ import annotations
 
@@ -35,6 +38,18 @@ def distance_correlation(x, y) -> torch.Tensor:
     dvar_y = (b * b).mean()
     return torch.sqrt(torch.clamp_min(dcov2, 0.0)
                       / torch.clamp_min(torch.sqrt(dvar_x * dvar_y), 1e-12))
+
+
+def assert_no_raw_payload(wires, raw_tensors: dict) -> list:
+    """No wire payload may have the shape and dtype of a raw tensor AND be
+    that tensor: every (record name, raw name) pair whose shape and dtype
+    collide is returned (a collision alone is allowed, but flagged)."""
+    problems = []
+    for w in wires:
+        for name, t in raw_tensors.items():
+            if tuple(w.shape) == tuple(t.shape) and w.dtype == t.dtype:
+                problems.append((w.name, name))
+    return problems
 
 
 def leakage_report(x_raw, cut_act, labels=None) -> dict:

@@ -40,6 +40,19 @@ def key_iter(gen: torch.Generator) -> Iterator[torch.Generator]:
         yield _child(gen)
 
 
+def mix_seed(*words: int) -> int:
+    """One 64-bit generator seed from a sequence of integers (splitmix64
+    over each in turn): the counterpart of folding them into a key."""
+    m = (1 << 64) - 1
+    x = 0
+    for w in words:
+        x = ((x ^ w) + 0x9E3779B97F4A7C15) & m
+        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & m
+        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & m
+        x ^= x >> 31
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------

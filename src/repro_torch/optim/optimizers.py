@@ -95,3 +95,5 @@ def adamw(lr: float | Callable, b1: float = 0.9, b2: float = 0.95,
 
     return Optimizer(init, update)
 
+
+adam = adamw  # alias (weight_decay defaults to 0)

@@ -213,8 +213,8 @@ def test_wire_grammar_and_accounting():
     assert parse_wire("") == () and parse_wire(None) == ()
     (t,) = parse_wire("quantize_int8:physical")
     assert t.physical and not parse_wire("quantize_int8")[0].physical
-    with pytest.raises(NotImplementedError, match="training slice"):
-        parse_wire("dp_noise:0.1")
+    (noise,) = parse_wire("dp_noise:0.1")
+    assert noise.name == "dp_noise" and not (noise.physical or noise.handoff)
     (probe,) = parse_wire("leakage_probe")
     assert probe.probe and not probe.physical
     with pytest.raises(ValueError, match="unknown"):

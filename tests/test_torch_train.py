@@ -501,11 +501,9 @@ def test_unported_modes_and_devices_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Plan(mode="vertical", branch=tb, trunk=tt,
              fleet=object()).compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_wire("dp_noise:0.1")
     assert [t.name for t in parse_wire("quantize_int8:physical,"
-                                       "leakage_probe")] == [
-        "quantize_int8", "leakage_probe"]
+                                       "dp_noise:0.1,leakage_probe")] == [
+        "quantize_int8", "dp_noise", "leakage_probe"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Plan(mode="vertical", branch=tb, trunk=tt, n_clients=2).compile()
