@@ -12,13 +12,17 @@ Phases, each of which ends the run with a nonzero exit on any error:
    all at once), with the build seconds and ptxas's register report.
 2. Each kernel against its plain torch version on the card, at the main
    paths' shapes: the wire quantize and dequantize bitwise at every
-   payload the eleven paths send, each once (printed with its launches a
+   payload the paths send, each once (printed with its launches a
    run and launches x (time - bound), beside the launch floor of a
    one-element op), `wire_roundtrip`'s value and gradient bitwise, the
-   fused q8 entry matmul (and the card tests' other shapes of it), the
-   dense splitcat entry, rmsnorm, the SSD scan and flash attention (phi4-mini's
-   causal GQA prefill and RecurrentGemma's 2048-row window over a
-   4096-row prompt) within the stated tolerances; each kernel's median
+   fused q8 entry matmul (the card tests' other shapes of it, and
+   Qwen3-30B-A3B's entry), the dense splitcat entry, rmsnorm at every
+   served width (512 to 5120, prefill and decode rows), the SSD scan and
+   flash attention (phi4-mini's causal GQA prefill, RecurrentGemma's
+   2048-row window over a 4096-row prompt, DeepSeek-V2's MLA prefill
+   with q/k 192 wide and v 128, beside its bound with one and with two
+   p v products, and Qwen3-30B-A3B's GQA prefill, a group of 8) within
+   the stated tolerances; each kernel's median
    time beside the plain version's, its bound and, where one PyTorch call
    computes the same function, that call's time.  Then the training
    gradient of rmsnorm, flash attention and the SSD at the LM training
@@ -177,6 +181,25 @@ Phases, each of which ends the run with a nonzero exit on any error:
    every client's accuracy above 3x chance, 8,912,896 B each way a turn
    and 80,376 B a handoff with `client_gb` exact, 954 launches of each
    wire kernel, physical == fake bitwise, SMOKE card == CPU.
+3l. MoE serving: Qwen3-30B-A3B at full width and depth (48 GQA + MoE
+   layers, 32/4 heads of 128, 128 experts of 768 top-8, vocab 151,936,
+   30.5B parameters, bf16, random weights from a seeded generator), cut
+   4 over the physical wire with the fused q8 entry, batch 4, prompt
+   128, 32 tokens: launches exact (flash 48, rmsnorm 3,073, the q8 entry
+   31, the wire kernels 64), 2,052 + 151,940 B per token per row,
+   physical == fake tokens bitwise, a profiled decode step and prefill
+   with the device time inside the MoE layers and inside attention (each
+   above 0), the serving peak (init's apart), and a reduced model on the
+   card == the CPU at a prompt where experts overflow their capacity
+   (`moe_apply(..., return_aux=True)`'s drop fractions on each prefill
+   MoE layer's input, card and CPU, printed and above 0).
+3m. The same for DeepSeek-V2 at full width cut to 8 of its 60 layers
+   (MLA with 128 heads of 128 + 64 / v 128, a dense first layer, then
+   MoE with 2 shared and 160 routed experts top-6), cut 4, no fused
+   entry (an MLA entry refuses it): flash 8 at (192, 128), rmsnorm
+   1,056, 5,124 + 102,404 B per token per row; the reduced model's MLA
+   at the kernel's (64, 32) pair.
+   Each phase's wall seconds are printed on a line of its own.
 4. A `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
@@ -184,6 +207,9 @@ Exits nonzero, printing no result, without a GPU or outside a checkout.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -197,6 +223,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): the bounds below are against these
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+L2_BYTES = 50 * 2 ** 20             # the H100 SXM's L2
 L2_COPIES = 4                       # 4 x 31.5 MB of W > the 50 MB L2
 
 
@@ -303,7 +330,9 @@ def wire_payloads(torch) -> list:
             ("serving", "phi4_mini_3_8b", B, PROMPT, GEN),
             ("training", None, 0, 0, 0),
             ("ssm_serving", "mamba2_130m", SB, SPROMPT, SGEN),
-            ("hybrid_serving", "recurrentgemma_2b", HB, HPROMPT, HGEN)):
+            ("hybrid_serving", "recurrentgemma_2b", HB, HPROMPT, HGEN),
+            *((run.path, arch, B, PROMPT, GEN)
+              for arch, run in MOE_RUNS.items())):
         if arch is None:
             out.append((path, "up (features) / down (gradients)", (TB, 512),
                         torch.float32, 4 * ROUNDS))
@@ -593,9 +622,10 @@ def check_splitcat(torch, gen) -> tuple:
           f"{t_plain:.4f} ms, library {t_lib:.4f} ms, bound {b[0]:.4f} ms "
           f"({b[1]}); {versus(t, t_lib, b)}; W cold in L2")
 
-    # the card tests' other shapes (tests/test_torch_kernels.py, Q8_CARD),
-    # from a generator of their own so the checks after this one see the
-    # inputs they always have; W cold where it is as large as the entry's
+    # the card tests' other shapes (tests/test_torch_kernels.py, Q8_CARD)
+    # and Qwen3-30B-A3B's fused entry (q, k and v: 4096 + 512 + 512), from
+    # a generator of their own so the checks after this one see the inputs
+    # they always have; W cold where its copies exceed the L2
     own = torch.Generator(device="cuda").manual_seed(16)
     for tag, widths, lead, cols, bias, wd, od in (
             ("2 parts (4,1,1000|2072)x(3072,5120)+b, bf16 W, fp32 out",
@@ -605,7 +635,9 @@ def check_splitcat(torch, gen) -> tuple:
             ("fp32 W that TMA cannot address (4,3,96|33)x(129,5121)+b",
              (96, 33), (4, 3), 5121, True, torch.float32, torch.float32),
             ("35 rows (5,7,64|31)x(95,200)+b, fp32 W, bf16 out", (64, 31),
-             (5, 7), 200, True, torch.float32, torch.bfloat16)):
+             (5, 7), 200, True, torch.float32, torch.bfloat16),
+            ("Qwen3-MoE decode entry (4,1,2048)x(2048,5120) bf16", (2048,),
+             (4, 1), 5120, False, torch.bfloat16, torch.bfloat16)):
         packs = [wire_quant(_payload(torch, lead + (k,), torch.float32, own))
                  for k in widths]
         qs_, ss_ = [p[0] for p in packs], [p[1] for p in packs]
@@ -623,7 +655,7 @@ def check_splitcat(torch, gen) -> tuple:
         elif bool(((y_.float() - y32_).abs() > _bf16_ulp(torch, y32_)).any()):
             fail(f"splitcat_linear_q8 {tag}: beyond 1 bf16 ulp")
         copies = [w_] + [w_.clone() for _ in range(
-            L2_COPIES - 1 if nbytes(w_) >= nbytes(w) else 0)]
+            L2_COPIES - 1 if L2_COPIES * nbytes(w_) > L2_BYTES else 0)]
         t_ = time_ms(torch, [lambda wi=wi: splitcat_linear_q8(
             qs_, ss_, wi, b_, od) for wi in copies])
         t_plain_ = time_ms(torch, [lambda wi=wi: splitcat_linear_q8_plain(
@@ -721,7 +753,12 @@ def check_rmsnorm(torch) -> tuple:
     from repro_torch.kernels.rmsnorm import rmsnorm
 
     gen = torch.Generator(device="cuda").manual_seed(768)
-    shapes = [(4, 512, 768), (4, 1, 768), (4, 512, 1536), (4, 1, 3072)]
+    # Mamba2, phi4-mini and RecurrentGemma's widths, then the MoE family's:
+    # Qwen3-30B-A3B's 2048, DeepSeek-V2's 5120, MLA's q_norm (1536) and
+    # kv_norm (512), at prefill and at decode
+    shapes = [(4, 512, 768), (4, 1, 768), (4, 512, 1536), (4, 1, 3072),
+              (4, 128, 2048), (4, 1, 2048), (4, 128, 5120), (4, 1, 5120),
+              (4, 128, 512), (4, 1, 512), (4, 1, 1536)]
     max_err, timings = 0.0, {}
     for shape in shapes:
         for dtype in (torch.bfloat16, torch.float32):
@@ -860,23 +897,25 @@ def check_ssd(torch) -> tuple:
     return max_err, timed
 
 
-def flash_bound(b, s, h, d, causal, window, in_bytes, out_bytes) -> tuple:
+def flash_bound(b, s, h, d, causal, window, in_bytes, out_bytes, dv=None,
+                pv_products: int = 2) -> tuple:
     """Flash attention's least time: only the (query, key) pairs the mask
-    leaves, 2 d operations each for q . k and 2 d each for each of two
-    p v products, all at the bf16 tensor-core rate; against each input
-    read and the output written once.  q . k on bf16 inputs accumulated
-    in float32 loses nothing.  P is float32 in the reference, and one
-    bf16 product would round it to 8 bits; P_hi + P_lo (two bf16 products
-    into one float32 accumulator) carries it to about 2^-17, below a bf16
-    ulp of an output of typical size.  The kernel runs a third piece of P
-    to hold the 1-ulp check on outputs near zero too, so it does 4/3 of
-    the work this bound prices."""
+    leaves, 2 d operations each for q . k and 2 dv (d unless given) each
+    for each of `pv_products` p v products, all at the bf16 tensor-core
+    rate; against each input read and the output written once.  q . k on
+    bf16 inputs accumulated in float32 loses nothing.  P is float32 in
+    the reference, and one bf16 product would round it to 8 bits; P_hi +
+    P_lo (two bf16 products into one float32 accumulator) carries it to
+    about 2^-17, below a bf16 ulp of an output of typical size.  The
+    kernel runs a third piece of P to hold the 1-ulp check on outputs
+    near zero too, so it does more work than this bound prices."""
+    dv = d if dv is None else dv
     pairs = 0
     for i in range(s):
         hi = i + 1 if causal else s
         lo = max(0, i - window + 1) if window else 0
         pairs += hi - lo
-    ops = 3 * 2.0 * d * pairs * b * h
+    ops = 2.0 * (d + pv_products * dv) * pairs * b * h
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S["bf16"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -884,10 +923,12 @@ def flash_bound(b, s, h, d, causal, window, in_bytes, out_bytes) -> tuple:
 
 def check_flash(torch) -> tuple:
     """Flash attention against its plain version (the grouped einsum with
-    the causal / window mask, softmax in float32) at the two prefill
-    shapes of the served models, phi4-mini's causal GQA and
-    RecurrentGemma-2B's 2048-row local attention over a 4096-row prompt,
-    plus a ragged fp32 case at head_dim 32 with a window.  Tolerance: bf16
+    the causal / window mask, softmax in float32) at the prefill shapes
+    of the served models, phi4-mini's causal GQA, RecurrentGemma-2B's
+    2048-row local attention over a 4096-row prompt, DeepSeek-V2's MLA
+    (128 heads, q/k 192 wide, v 128, scale 1/sqrt(192)) and Qwen3-30B-A3B's
+    GQA (32 heads over 4, a group of 8), plus a
+    ragged fp32 case at head_dim 32 with a window.  Tolerance: bf16
     within 1 bf16 ulp (floored at 1/256 of the rms) of the float32 plain
     result on the same inputs; fp32 within rtol = atol = 2e-5 (the sums
     run in another order).  Returns (max abs err against the plain
@@ -898,13 +939,17 @@ def check_flash(torch) -> tuple:
     from repro_torch.kernels.flash_attention import flash_attention
 
     gen = torch.Generator(device="cuda").manual_seed(4096)
-    cases = [("phi4-mini prefill", (4, 128, 24, 8, 128), None, True),
-             ("RecurrentGemma-2B prefill", (4, 4096, 10, 1, 256), 2048, True),
-             ("ragged", (2, 300, 4, 2, 32), 100, False)]
+    cases = [("phi4-mini prefill", (4, 128, 24, 8, 128, 128), None, True),
+             ("RecurrentGemma-2B prefill", (4, 4096, 10, 1, 256, 256), 2048,
+              True),
+             ("ragged", (2, 300, 4, 2, 32, 32), 100, False),
+             ("DeepSeek-V2 MLA prefill", (4, 128, 128, 128, 192, 128), None,
+              True),
+             ("Qwen3-MoE prefill", (4, 128, 32, 4, 128, 128), None, True)]
     max_err, timings = 0.0, {}
-    for tag, (b, s, h, kh, d), window, timed in cases:
+    for tag, (b, s, h, kh, d, dv), window, timed in cases:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
-                   for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+                   for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, dv)))
         kw = dict(causal=True, window=window)
         want32 = ref.flash_attention_ref(q, k, v, **kw)
         y32 = flash_attention(q, k, v, **kw)
@@ -929,7 +974,8 @@ def check_flash(torch) -> tuple:
         err = (y.float() - y_plain.float()).abs().max().item()
         max_err = max(max_err, err)
         del y_plain, y_ref32
-        shape = f"q {(b, s, h, d)} k/v {(b, s, kh, d)} window {window}"
+        shape = (f"q {(b, s, h, d)} k {(b, s, kh, d)} v {(b, s, kh, dv)} "
+                 f"window {window}")
         print(f"flash_attention {tag} {shape}: fp32 max abs err {err32:.3e} "
               f"(2e-5), bf16 within 1 ulp, max abs err {err:.3e} against the "
               "bf16 plain output")
@@ -957,12 +1003,15 @@ def check_flash(torch) -> tuple:
             print(f"  library yardstick not timed: {e}")
             t_lib = None
         bd = flash_bound(b, s, h, d, True, window, nbytes(qb, kb, vb),
-                         nbytes(y))
+                         nbytes(y), dv)
+        one = flash_bound(b, s, h, d, True, window, nbytes(qb, kb, vb),
+                          nbytes(y), dv, pv_products=1)
         lib = f"{t_lib:.4f} ms" if t_lib is not None else "none"
         print(f"  kernel {t:.4f} ms, plain {t_plain:.4f} ms, library "
               f"(scaled_dot_product_attention) {lib}, bound {bd[0]:.4f} ms "
-              f"({bd[1]}); {versus(t, t_lib, bd)}")
-        timings[tag] = (t, t_plain, t_lib, bd)
+              f"({bd[1]}; with one p v product {one[0]:.4f} ms, {one[1]}); "
+              f"{versus(t, t_lib, bd)}")
+        timings[tag] = (t, t_plain, t_lib, bd, err)
         del qb, kb, vb, y, qt, kt, vt, mask
         torch.cuda.empty_cache()
     return max_err, timings
@@ -1305,10 +1354,17 @@ def hold_launches(launches: dict, want: dict):
         fail(f"launch counters {sorted(launches)} != {sorted(want)}")
 
 
-def profile_device(torch, label: str, fn, step_s: float, steps: int = 4):
+def profile_device(torch, label: str, fn, step_s: float, steps: int = 4,
+                   span_ms: dict | None = None):
     """Where one step's time goes: device kernel time by kernel from
     torch.profiler over `steps` more calls of `fn`, against the
-    unprofiled wall time per step `step_s`."""
+    unprofiled wall time per step `step_s`.  `span_ms`, when given, maps
+    profiler range labels (`torch.profiler.record_function`) to the
+    device ms per step of the kernels launched inside each range, which
+    this fills in.  It reads the profiler's raw events: building its
+    event tree (`prof.events()`) takes seconds a profiled round."""
+    import bisect
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1317,13 +1373,37 @@ def profile_device(torch, label: str, fn, step_s: float, steps: int = 4):
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
+    spans = {} if span_ms is None else span_ms
     by_name: dict = {}
     n_kernels = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.end - e.time_range.start
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    ranges: dict = {}              # thread -> sorted (start, end, label)
+    ops, kernels = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if e.is_user_annotation() or e.name() in spans:
+                continue           # a range on the device's timeline
+            us = e.duration_ns() / 1e3
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + us
             n_kernels += 1
+            kernels.append((e.linked_correlation_id(), us))
+        elif spans and e.device_type() == DeviceType.CPU:
+            if e.name() in spans and e.is_user_annotation():
+                ranges.setdefault(e.start_thread_id(), []).append(
+                    (e.start_ns(), e.end_ns(), e.name()))
+            ops.append((e.start_thread_id(), e.start_ns(), e.correlation_id()))
+    # a kernel belongs to the range that holds the op which launched it:
+    # the op's correlation id is the kernel's linked one
+    owner = {}
+    for r in ranges.values():
+        r.sort()
+    starts = {t: [a for a, _, _ in r] for t, r in ranges.items()}
+    for thread, t0, corr in ops:
+        i = bisect.bisect_right(starts.get(thread, []), t0) - 1
+        if i >= 0 and t0 <= ranges[thread][i][1]:
+            owner[corr] = ranges[thread][i][2]
+    for corr, us in kernels:
+        if corr in owner:
+            spans[owner[corr]] += us / 1e3 / steps
     busy_ms = sum(by_name.values()) / 1e3 / steps
     if busy_ms == 0.0:
         print(f"{label} device time: not measured (the profiler recorded "
@@ -1335,6 +1415,9 @@ def profile_device(torch, label: str, fn, step_s: float, steps: int = 4):
           f"{len(by_name)} names; top by device time per step:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / steps / 1e3:8.4f} ms  {name[:100]}")
+    for name, ms in spans.items():
+        print(f"  {ms:8.4f} ms ({100 * ms / busy_ms:.1f}% of the busy "
+              f"time) in the kernels launched inside `{name}`")
     return busy_ms
 
 
@@ -3497,6 +3580,288 @@ def reduced_resnet_against_cpu(torch):
 
 
 # ---------------------------------------------------------------------------
+# phases 3l and 3m: MoE serving (Qwen3-30B-A3B whole, DeepSeek-V2 cut in
+# depth)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoERun:
+    """One MoE serving path: its name in the records, the layers kept at
+    full width (None: all), whether the server takes the fused q8 entry,
+    and the reduced model held to the CPU: the prompt at which some
+    expert overflows its capacity at prefill (so slots drop) and the
+    `reduced()` overrides."""
+    path: str
+    layers: int | None
+    fused: bool
+    reduced_prompt: int
+    reduced: dict
+
+
+# DeepSeek-V2's reduced MLA at q/k 32 + 32, v 32: the kernel's (64, 32) pair
+MOE_RUNS = {
+    "qwen3_moe_30b_a3b": MoERun("qwen3_moe_serving", None, True, 24,
+                                dict(vocab=97)),
+    "deepseek_v2_236b": MoERun("deepseek_v2_serving", 8, False, 24,
+                               dict(vocab=97, qk_rope_head_dim=32))}
+# the functions whose device time a profiled step attributes to each span
+MOE_SPANS = {"moe": [("repro_torch.nn.moe", "moe_apply")],
+             "attention": [("repro_torch.nn.attention", f)
+                           for f in ("gqa_decode", "gqa_prefill",
+                                     "mla_decode", "mla_prefill")]}
+
+
+@contextlib.contextmanager
+def patched(targets: dict):
+    """While open, each (module, function) of `targets` is replaced by
+    `targets[...]`'s wrapper of it; the callers look the function up on
+    its module, so they reach the wrapper."""
+    import importlib
+
+    saved = []
+    for (mod_name, fn_name), wrap in targets.items():
+        mod = importlib.import_module(mod_name)
+        saved.append((mod, fn_name, getattr(mod, fn_name)))
+        setattr(mod, fn_name, wrap(getattr(mod, fn_name)))
+    try:
+        yield
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+
+def _in_span(torch, label: str):
+    def wrap(fn):
+        def spanned(*args, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kw)
+        return spanned
+    return wrap
+
+
+def moe_path(torch, arch: str) -> dict:
+    """A MoE model served split at full width over the physical int8 wire,
+    batch 4, prompt 128, 32 generated tokens, bf16 random weights from a
+    seeded generator: launches exact, the analytic wire bytes, physical
+    == fake tokens bitwise, one profiled decode step and the prefill with
+    the device time of the MoE layers and of attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import param_bytes, param_count
+    from repro_torch.serve import ServePlan, ServeSession
+
+    run = MOE_RUNS[arch]
+    fused = run.fused
+    cfg = get_config(arch)
+    if run.layers:
+        cfg = dataclasses.replace(cfg, n_layers=run.layers)
+    model = build_model(cfg)
+    mixer = model.groups[-1].specs[0].mixer
+    attn = (f"MLA (q LoRA {cfg.q_lora_rank}, kv LoRA {cfg.kv_lora_rank}, "
+            f"{cfg.n_heads} heads of {cfg.qk_nope_head_dim} + "
+            f"{cfg.qk_rope_head_dim} / v {cfg.v_head_dim})"
+            if mixer == "mla" else
+            f"GQA {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}")
+    groups = [(g.n_repeat, g.specs[0].mixer, g.specs[0].mlp)
+              for g in model.groups]
+    print(f"MoE serving path: {cfg.name} {cfg.n_layers} layers {groups}, "
+          f"d_model {cfg.d_model}, {attn}, {cfg.n_experts} experts of "
+          f"{cfg.d_ff} top-{cfg.top_k}"
+          + (f" + {cfg.n_shared} shared" if cfg.n_shared else "")
+          + (f", first {cfg.first_dense} dense (SwiGLU {cfg.dense_d_ff})"
+             if cfg.first_dense else "")
+          + f", vocab {cfg.vocab}, {cfg.dtype}, cut {cfg.default_cut}, "
+          f"batch {B}, prompt {PROMPT}, generate {GEN}, fused entry {fused}")
+    gc.collect()                 # the earlier phases' models are gone
+    torch.cuda.empty_cache()
+    print(f"  before init: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          "allocated")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(gen, "cuda")
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    init_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  init on the card: {time.perf_counter() - t0:.2f} s, "
+          f"{n_params} parameters, {param_bytes(params) / 1e9:.3f} GB, "
+          f"init's peak {init_peak_gib:.2f} GiB")
+    gen.manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen,
+                            device="cuda")
+
+    def session(wire, fused_entry=False):
+        return ServeSession(ServePlan(arch=cfg, wire=wire, max_batch=B,
+                                      max_len=PROMPT + GEN + 1,
+                                      fused_entry=fused_entry), params,
+                            device="cuda")
+
+    serve = session("quantize_int8:physical", fused)
+    serve.generate(prompts, 2)                   # warmup
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()         # the serving peak from here
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tok0 = serve.prefill(prompts)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rest = serve.decode(tok0, GEN - 1)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    toks = torch.cat([tok0, rest], dim=1)
+    print(f"  prefill {t_prefill:.4f} s; decode {GEN - 1} steps "
+          f"{t_decode:.4f} s = {B * (GEN - 1) / t_decode:.1f} tok/s; "
+          f"serving peak {peak_gib:.2f} GiB")
+    print(f"  launches on the path: {launches}")
+    # rmsnorm: every block's two norms (MLA adds q_norm and kv_norm) and
+    # the final norm, at prefill and at every decode step, less the
+    # server's first norm at decode when the fused entry folds it into
+    # the payload's scales; flash_attention: one per layer at prefill,
+    # none at decode; the wire kernels once per hop each way; the q8
+    # entry once per decode step when fused
+    per_forward = (4 if mixer == "mla" else 2) * cfg.n_layers + 1
+    want = {"rmsnorm": per_forward * GEN - (GEN - 1) * int(fused),
+            "flash_attention": cfg.n_layers,
+            "wire_quant": 2 * GEN, "wire_dequant": 2 * GEN,
+            "splitcat_linear_q8": (GEN - 1) * int(fused),
+            "splitcat_linear": 0, "ssd_scan": 0}
+    hold_launches(launches, want)
+
+    tok = rest[:, -1:]
+
+    def step():
+        nonlocal tok
+        tok = serve.decode_step(tok)
+    spans = {(m, f): _in_span(torch, label)
+             for label, fns in MOE_SPANS.items() for m, f in fns}
+    step_spans = dict.fromkeys(MOE_SPANS, 0.0)
+    prefill_spans = dict.fromkeys(MOE_SPANS, 0.0)
+    with patched(spans):
+        busy_ms = profile_device(torch, f"{cfg.name} decode step", step,
+                                 t_decode / (GEN - 1), steps=2,
+                                 span_ms=step_spans)
+        prefill_busy_ms = profile_device(
+            torch, f"{cfg.name} prefill", lambda: serve.prefill(prompts),
+            t_prefill, steps=1, span_ms=prefill_spans)
+    # a caller that goes around the wrapped names leaves its span at 0
+    for when, got in (("decode step", step_spans),
+                      ("prefill", prefill_spans)):
+        for label, ms in got.items():
+            if not ms > 0:
+                fail(f"{cfg.name} {when}: no device time inside `{label}` "
+                     f"({MOE_SPANS[label]})")
+    if tuple(toks.shape) != (B, GEN):
+        fail(f"generated shape {tuple(toks.shape)} != {(B, GEN)}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        fail("generated tokens outside the vocabulary")
+
+    per_tok = serve.bytes_per_token()
+    cost = serve.decode_cost(batch=B)
+    dense = session("").bytes_per_token()
+    print(f"  wire bytes per generated token per row: {per_tok} (up "
+          f"{cost.bytes_up // B}, down {cost.bytes_down // B}); bf16 wire "
+          f"{dense}")
+    # d_model + 4 up, vocab + 4 down (int8 rows and their fp32 scales)
+    wire_bytes = (cfg.d_model + 4) + (cfg.vocab + 4)
+    if per_tok != wire_bytes or cost.bytes_up + cost.bytes_down != (
+            B * per_tok):
+        fail(f"{cfg.name}: wire bytes per token {per_tok} != {wire_bytes}")
+    if dense != cfg.dtype.itemsize * (cfg.d_model + cfg.vocab):
+        fail(f"{cfg.name}: bf16 wire bytes per token {dense}")
+    if not fused:
+        try:
+            session("quantize_int8:physical", True)
+        except ValueError as e:
+            print(f"  fused_entry=True refused, as in the reference: {e}")
+        else:
+            fail(f"{cfg.name}: fused_entry=True accepted at an {mixer} "
+                 "server entry")
+
+    phys = session("quantize_int8:physical").generate(prompts, GEN)
+    fake = session("quantize_int8").generate(prompts, GEN)
+    if not torch.equal(phys, fake):
+        fail(f"{cfg.name}: physical-wire tokens differ from fake-wire "
+             f"tokens:\n{phys.tolist()}\n{fake.tolist()}")
+    print(f"  physical wire == fake wire tokens: bitwise ({B}x{GEN}); "
+          f"{int((phys == toks).sum())}/{B * GEN} shared with the timed run")
+    del serve, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "params": n_params,
+            "prefill_s": t_prefill, "prefill_busy_ms": prefill_busy_ms,
+            "prefill_span_ms": prefill_spans,
+            "decode_tok_per_s": B * (GEN - 1) / t_decode,
+            "decode_step_ms": t_decode / (GEN - 1) * 1e3,
+            "busy_ms": busy_ms, "decode_span_ms": step_spans,
+            "peak_gib": peak_gib, "init_peak_gib": init_peak_gib,
+            "wire_bytes_per_token": per_tok}
+
+
+def reduced_moe_against_cpu(torch, arch: str, device: str = "cuda"):
+    """A reduced fp32 model served on the card (kernels) and on the CPU
+    (plain versions) from the same weights over the physical wire (Qwen3
+    through the fused entry) must generate the same tokens, at a prompt
+    where some expert overflows its capacity at prefill.  The served runs
+    are the plain `generate`; the CPU run also keeps each prefill MoE
+    layer's input, and a probe calls `moe_apply(..., return_aux=True)` on
+    it on the CPU and on the card: the drop fractions are printed, and
+    one on each must be above 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import tree_map
+    from repro_torch.nn.moe import moe_apply
+    from repro_torch.serve import ServePlan, ServeSession
+
+    run = MOE_RUNS[arch]
+    s = run.reduced_prompt
+    cfg = get_config(arch).reduced(**run.reduced)
+    gen = torch.Generator().manual_seed(0)
+    params = build_model(cfg).init(gen, "cpu")
+    prompts = torch.randint(0, cfg.vocab, (2, s), generator=gen)
+    plan = ServePlan(arch=cfg, wire="quantize_int8:physical", max_batch=2,
+                     max_len=s + 8, fused_entry=run.fused)
+    inputs = []
+
+    def keep(fn):
+        def kept(p, mcfg, x, **kw):
+            if x.shape[1] > 1:                  # a prefill
+                inputs.append((p, mcfg, x))
+            return fn(p, mcfg, x, **kw)
+        return kept
+    with patched({("repro_torch.nn.moe", "moe_apply"): keep}):
+        on_cpu = ServeSession(plan, params, device="cpu").generate(prompts, 6)
+    ops.reset_launches()
+    on_card = ServeSession(plan, params, device=device).generate(prompts, 6)
+    n_flash = ops.launch_counts()["flash_attention"]
+    if device == "cuda" and n_flash != cfg.n_layers:
+        fail(f"reduced {cfg.name}: {n_flash} flash_attention launches, "
+             f"expected {cfg.n_layers} (one per layer at prefill)")
+    if not torch.equal(on_cpu, on_card.cpu()):
+        fail(f"reduced {cfg.name}: card tokens {on_card.tolist()} != CPU "
+             f"tokens {on_cpu.tolist()}")
+    drops = {}
+    for where in ("cpu", device):
+        drops[where] = [float(moe_apply(
+            tree_map(lambda t: t.to(where), p), mcfg, x.to(where),
+            return_aux=True)[1]["drop_fraction"]) for p, mcfg, x in inputs]
+        if not drops[where] or max(drops[where]) <= 0:
+            fail(f"reduced {cfg.name}: no expert overflowed at prompt {s} "
+                 f"on {where} ({drops[where]})")
+    dqk = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+           if cfg.attn_kind == "mla" else cfg.resolved_head_dim)
+    print(f"reduced {cfg.name} (flash at q/k {dqk}), prompt {s}, prefill "
+          f"drop_fraction by MoE layer (moe_apply on its served input): "
+          f"CPU {drops['cpu']}, card {drops[device]}; card == CPU plain "
+          f"path: {on_cpu.tolist()}")
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3511,6 +3876,17 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    t_start = time.perf_counter()
+    phase_s: dict = {}
+
+    def phase(name: str, fn, *args):
+        """`fn(*args)`, its wall seconds printed on a line of its own."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_s[name]:.1f} s wall")
+        return out
 
     # phase 1: the card and the build
     card = card_line()
@@ -3527,46 +3903,53 @@ def main():
                 fn = line.split("for", 1)[1].strip()
             elif "registers" in line or "spill" in line:
                 print(f"  {name} {fn}: {line.strip()}")
+    phase_s["1"] = time.perf_counter() - t_start
+    print(f"phase 1: {phase_s['1']:.1f} s wall")
 
     # phase 2: kernels against their plain versions
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1234)
-    wire, payloads = check_wire(torch, gen)
-    sc_err, (t, t_plain, t_lib, b) = check_splitcat(torch, gen)
-    dn_err, (td, td_plain, td_lib, bd) = check_splitcat_dense(torch, gen)
-    rn_err, rn_t = check_rmsnorm(torch)
-    ssd_err, ssd_t = check_ssd(torch)
-    fa_err, fa_t = check_flash(torch)
-    bwd, bwd_bf16 = check_grads(torch)
+    def check_kernels():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1234)
+        return (check_wire(torch, gen), check_splitcat(torch, gen),
+                check_splitcat_dense(torch, gen), check_rmsnorm(torch),
+                check_ssd(torch), check_flash(torch), check_grads(torch))
+    ((wire, payloads), (sc_err, (t, t_plain, t_lib, b)),
+     (dn_err, (td, td_plain, td_lib, bd)), (rn_err, rn_t), (ssd_err, ssd_t),
+     (fa_err, fa_t), (bwd, bwd_bf16)) = phase("2", check_kernels)
 
     # phase 3: each main path, then its small-input reference check
-    run = main_path(torch)
-    reduced_against_cpu(torch)
-    train = train_path(torch)
-    reduced_branch_against_cpu(torch, "vertical")
-    ssm = ssm_path(torch)
-    reduced_ssm_against_cpu(torch)
-    hybrid = hybrid_path(torch)
-    reduced_hybrid_against_cpu(torch)
+    run = phase("3", main_path, torch)
+    phase("3 reduced", reduced_against_cpu, torch)
+    train = phase("3b", train_path, torch)
+    phase("3b reduced", reduced_branch_against_cpu, torch, "vertical")
+    ssm = phase("3c", ssm_path, torch)
+    phase("3c reduced", reduced_ssm_against_cpu, torch)
+    hybrid = phase("3d", hybrid_path, torch)
+    phase("3d reduced", reduced_hybrid_against_cpu, torch)
     turn = {}
     for mode in TURN_KINDS:
-        turn[mode] = turn_path(torch, mode)
-        reduced_turn_against_cpu(torch, mode)
+        turn[mode] = phase(f"3e/3f {mode}", turn_path, torch, mode)
+        phase(f"3e/3f {mode} reduced", reduced_turn_against_cpu, torch, mode)
     branch = {}
     for mode in ("multitask", "extended_vanilla"):
-        branch[mode] = branch_path(torch, mode)
-        reduced_branch_against_cpu(torch, mode)
+        branch[mode] = phase(f"3g {mode}", branch_path, torch, mode)
+        phase(f"3g {mode} reduced", reduced_branch_against_cpu, torch, mode)
     baseline = {}
     for mode in BASELINES:
-        baseline[mode] = baseline_path(torch, mode)
-        reduced_baseline_against_cpu(torch, mode)
+        baseline[mode] = phase(f"3h {mode}", baseline_path, torch, mode)
+        phase(f"3h {mode} reduced", reduced_baseline_against_cpu, torch,
+              mode)
     table1(turn["vanilla"], baseline["fedavg"], baseline["large_batch"])
-    sched = schedules_phase(torch, {"vertical": train, **turn, **branch,
-                                    **baseline})
-    lm = lm_phase(torch)
-    cli = cli_phase(torch)
-    resnet = resnet_path(torch)
-    reduced_resnet_against_cpu(torch)
+    sched = phase("3i", schedules_phase, torch,
+                  {"vertical": train, **turn, **branch, **baseline})
+    lm = phase("3j", lm_phase, torch)
+    cli = phase("3k", cli_phase, torch)
+    resnet = phase("3k resnet", resnet_path, torch)
+    phase("3k resnet reduced", reduced_resnet_against_cpu, torch)
+    moe = {}
+    for letter, arch in zip("lm", MOE_RUNS):
+        moe[arch] = phase(f"3{letter}", moe_path, torch, arch)
+        phase(f"3{letter} reduced", reduced_moe_against_cpu, torch, arch)
 
     # the wire launches per payload add up to what each path was held to
     paths = (("serving", run), ("training", train), ("ssm_serving", ssm),
@@ -3576,7 +3959,8 @@ def main():
              *((path_name(m), r) for m, r in baseline.items()),
              *((path_name(m, sc), r) for (m, sc), r in sched.items()),
              *((_lm_path_name(a, m, sc), r) for (a, m, sc), r in lm.items()),
-             *cli.items(), ("resnet_vanilla_training", resnet))
+             *cli.items(), ("resnet_vanilla_training", resnet),
+             *((MOE_RUNS[arch].path, r) for arch, r in moe.items()))
     for path, res in paths:
         want = sum(p[-1] for p in payloads if p[0] == path)
         for name in ("wire_quant", "wire_dequant"):
@@ -3588,6 +3972,7 @@ def main():
     # phase 4: the record; launches are the main paths' together
     kq = wire[((4, 1, 200064), torch.bfloat16)]
     fa = fa_t["RecurrentGemma-2B prefill"]
+    fa_mla = fa_t["DeepSeek-V2 MLA prefill"]
     src = "src/repro_torch/kernels/csrc/"
     by_path = {name: {path: res["launches"][name] for path, res in paths}
                for name in run["launches"]}
@@ -3631,7 +4016,11 @@ def main():
          "replaces": "src/repro/kernels/flash_attention.py:81",
          "launches": n["flash_attention"], "max_abs_err": fa_err,
          "ms": fa[0], "plain_ms": fa[1], "bound_ms": fa[3][0],
-         "bound_by": fa[3][1], "library_ms": fa[2]},
+         "bound_by": fa[3][1], "library_ms": fa[2],
+         "mla_prefill": dict(zip(
+             ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "max_abs_err"),
+             (*fa_mla[:3], *fa_mla[3], fa_mla[4])))},
     ]
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
@@ -3648,7 +4037,9 @@ def main():
           "bf16 block norm, ssd_scan on the Mamba2 prefill's "
           "(4,512,24,64) bf16 scan from a zero state, flash_attention on "
           "the RecurrentGemma-2B prefill's q (4,4096,10,256), k/v "
-          "(4,4096,1,256) bf16, window 2048; the backward times of "
+          "(4,4096,1,256) bf16, window 2048 (mla_prefill: DeepSeek-V2's q/k "
+          "(4,128,128,192), v (4,128,128,128) bf16, causal); the backward "
+          "times of "
           "rmsnorm, ssd_scan and flash_attention at the LM training "
           "shapes (4,512,768), x (4,512,24,64) from a zero state and q "
           "(4,512,24,128) causal, fp32, and (backward_bf16_*) at the "
@@ -3666,6 +4057,8 @@ def main():
         print(f"{path.replace('_', ' ')} path: " + json.dumps(
             {k: v for k, v in res.items() if k != "launches"}))
     print(json.dumps({"kernels": kernels}))
+    print(f"wall seconds by phase: {json.dumps(phase_s)}; total "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

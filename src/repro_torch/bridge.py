@@ -10,12 +10,16 @@ and the port's.
   RG-LRU's `lam` (`nn/rglru.py:rglru_init`).
   A composite group (the hybrid pattern) stacks each of its specs
   `{"0", "1", "2"}` in the reference and is one such dict per repeat in
-  the port.
+  the port.  A MoE layer's leaves are the reference's: the float32
+  router `(D, E)`, the stacked experts `gate`/`up` `(E, D, F)` and `down`
+  `(E, F, D)`, and `shared`'s SwiGLU; an MLA layer's `wq_a`, `q_norm`,
+  `wq_b` (or `wq`), `wkv_a`, `kv_norm`, `wk_b`, `wv_b` and `wo`.
 * Split-serving caches, stacked the same way (`caches_from_jax` /
   `caches_to_numpy`): Mamba2's `{"conv", "ssm"}`, RG-LRU's `{"conv",
-  "h"}` and the attention ring's `{"k", "v", "pos"}`; each leaf keeps its
-  dtype (a conv window and the ring the model's, a state float32), and
-  the ring's `pos` is a host int in the port, an int32 in the reference.
+  "h"}`, the attention ring's `{"k", "v", "pos"}` and MLA's compressed
+  ring `{"c_kv", "k_pe", "pos"}`; each leaf keeps its dtype (a conv
+  window and the rings the model's, a state float32), and a ring's `pos`
+  is a host int in the port, an int32 in the reference.
 * A whole LM training state (`lm_state_from_jax` / `lm_state_to_numpy`):
   a `Plan` over `lm_split_fns` or over the LM's `FullFns` keeps each
   "groups" list in the LM layout above, inside trees that are otherwise

@@ -1,8 +1,9 @@
 """ArchConfig — the port's copy of `repro.configs.base.ArchConfig`, with
 torch dtypes, plus the config registry.
 
-The dense, SSM and hybrid families build (`models.lm.make_groups`); the
-other fields are kept so a config reads the same in both packages.
+The dense, MoE (with MLA), SSM and hybrid families build
+(`models.lm.make_groups`); the other fields are kept so a config reads
+the same in both packages.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ from typing import Any
 import torch
 
 # arch ids whose config module the port carries so far
-PORTED_ARCH_IDS = ["phi4_mini_3_8b", "mamba2_130m", "recurrentgemma_2b"]
+PORTED_ARCH_IDS = ["phi4_mini_3_8b", "mamba2_130m", "recurrentgemma_2b",
+                   "qwen3_moe_30b_a3b", "deepseek_v2_236b"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +122,6 @@ def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in PORTED_ARCH_IDS:
         raise NotImplementedError(
             f"{arch_id}: not ported yet; the port serves {PORTED_ARCH_IDS} "
-            "and the other architectures come with the MoE/VLM/audio "
-            "serving slices")
+            "and the other architectures come with later slices")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.CONFIG

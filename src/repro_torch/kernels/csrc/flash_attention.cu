@@ -6,9 +6,14 @@
 //                                             flash_fwd (float32)
 //
 // Contract (the plain torch version, kernels.ref.flash_attention_ref):
-// q (B, S, H, D), k and v (B, S, K, D) with H % K == 0; query head h
-// reads KV head h / (H / K) in place (the reference's jnp.repeat of the
-// KV heads is a wrapper convenience).  Key j is visible to query i when
+// q (B, S, H, DQK), k (B, S, K, DQK) and v (B, S, K, DV) with H % K == 0,
+// o (B, S, H, DV); query head h reads KV head h / (H / K) in place (the
+// reference's jnp.repeat of the KV heads is a wrapper convenience).  q . k
+// runs over DQK and p v over DV: DQK = DV for GQA, and DeepSeek-V2's MLA
+// prefill attends with q/k of 128 + 64 (rope) = 192 and v of 128.  The
+// kernels are templates over the pair; flash_attention_launch dispatches
+// to the instantiated pairs (32, 32), (64, 64), (128, 128), (256, 256),
+// (192, 128) and (64, 32).  Key j is visible to query i when
 // j < S, j <= i (causal) and j > i - window (window > 0).  Scores are
 // (q . k) * scale in float32, masked to NEG_INF = -1e30 BEFORE the
 // exponential; the softmax runs online over KV tiles in float32 (running
@@ -17,7 +22,7 @@
 // to q's type.
 //
 // What bounds it on an H100 SXM: operations.  Per (query, key) pair that
-// the mask leaves, 2 D for q . k and 2 D for each p v product; at the
+// the mask leaves, 2 DQK for q . k and 2 DV for each p v product; at the
 // RecurrentGemma-2B prefill (B 4, S 4096, H 10, D 256, window 2048) one
 // product is 128.9 GFLOP: q . k and two bf16 products for p v (P_hi +
 // P_lo, the bound chip_smoke.py:flash_bound prices) take 0.391 ms at 989
@@ -49,21 +54,23 @@
 //   zeros (TMA's out-of-bounds fill) and are masked; head_dim 32 is read
 //   as 64 columns whose upper half is that fill, and not stored.
 // * S = Q K^T: wgmma m64n64k16, A = the Q tile and B = the K tile in
-//   shared memory, both K-major (d contiguous), D / 16 steps.
-// * O += P V: wgmma m64n64k16 per 64-column chunk of D, A = each piece of
+//   shared memory, both K-major (d contiguous), DQK / 16 steps; at DQK 192
+//   a row is 384 bytes, read as three 64-column boxes.
+// * O += P V: wgmma m64n64k16 per 64-column chunk of DV, A = each piece of
 //   P from registers (the S accumulator's layout is the A fragment's, so
 //   P never goes through shared memory), B = the V tile, MN-major, with
 //   the transpose bit that 16-bit types allow.  A piece is cut while the
 //   products of the one before run (two fragment buffers).
-// * Registers: O is 64 x D float32 (D / 2 a thread, 128 at D 256), S 32,
-//   two pieces of P 16 each.
+// * Registers: O is 64 x DV float32 (DV / 2 a thread, 128 at DV 256), S
+//   32, two pieces of P 16 each; DQK costs no registers.
 // * The KV loop runs only from the first 64-row tile the window reaches
 //   to the tile that holds the query tile's last row; only tiles that
 //   straddle the diagonal, the window's edge or S run the per-element
 //   mask.
-// * Shared memory: Q 128 D bytes plus 2 x kStages x 128 D for the rings:
-//   160 KB at D 256 (one block per SM), 80 KB at D 128, 40 KB at D 64
-//   and 32 (two blocks per SM).
+// * Shared memory: Q 128 DQK bytes, the K ring kStages x 128 DQK and the V
+//   ring kStages x 128 DV: 160 KB at (256, 256) (one block per SM), 80 KB
+//   at (128, 128), 104 KB at (192, 128), 40 KB at (64, 64), (64, 32) and
+//   (32, 32) (two blocks per SM; 32 columns are read as 64).
 //
 // float32: flash_fwd, on the FFMA units: no served model runs float32
 // attention on the card, and the tensor cores would round float32
@@ -71,10 +78,11 @@
 // loops over the KV tiles itself, holding m, l and acc in registers; both
 // products are FFMA on float32 copies of the tiles, staged through
 // registers into shared memory (rows padded by 4, K then V in one
-// buffer).  128 threads: thread t owns query rows 4 (t / 16) .. +3; for
-// q . k it owns key columns t % 16 + 16 c of the tile (4 x 4 scores), for
-// p v the output chunks of 4 columns t % 16 + 16 n.  The 16 threads of a
-// row group reduce the row max and sum with shuffles.
+// buffer sized for the wider of DQK and DV).  128 threads: thread t owns
+// query rows 4 (t / 16) .. +3; for q . k it owns key columns t % 16 + 16 c
+// of the tile (4 x 4 scores), for p v the output chunks of 4 columns
+// t % 16 + 16 n.  The 16 threads of a row group reduce the row max and
+// sum with shuffles.
 //
 // The sums run in another order than the plain version's, so float32
 // outputs agree to a few ulp of the output's scale and bf16 outputs to
@@ -107,10 +115,11 @@ struct Args {
   float scale;
 };
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(kBQ) * (D + 4) + size_t(kBKV) * (D + 4) +
-                          size_t(kBQ) * kPLd);
+  constexpr int kWide = DQK > DV ? DQK : DV;
+  return sizeof(float) * (size_t(kBQ) * (DQK + 4) +
+                          size_t(kBKV) * (kWide + 4) + size_t(kBQ) * kPLd);
 }
 
 // rows [row0, row0 + rows) of one head (row stride `stride` floats) into
@@ -147,16 +156,17 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// grid (ceil(S / 32), H, B), 128 threads, smem_bytes<D>() dynamic
-template <int D>
+// grid (ceil(S / 32), H, B), 128 threads, smem_bytes<DQK, DV>() dynamic
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
-  constexpr int kLd = D + 4;
-  constexpr int kChunks = D / 4;                    // output float4 chunks
+  constexpr int kLd = DQK + 4;                      // Q and K rows
+  constexpr int kLdV = DV + 4;                      // V rows
+  constexpr int kChunks = DV / 4;                   // output float4 chunks
   constexpr int kNC = (kChunks + 15) / 16;          // chunks per thread
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sKV = sQ + kBQ * kLd;
-  float* sP = sKV + kBKV * kLd;
+  float* sP = sKV + kBKV * (DQK > DV ? kLd : kLdV);
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / a.group;
@@ -170,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
   const int rg = threadIdx.x >> 4;      // rows 4 rg .. 4 rg + 3
   const int cl = threadIdx.x & 15;      // key cols / output chunks cl + 16 i
 
-  load_tile<D>(sQ, qb, a.q_s, q0, kBQ, a.S);
+  load_tile<DQK>(sQ, qb, a.q_s, q0, kBQ, a.S);
 
   // the KV tiles any row of this query tile can see
   const int k_last = a.causal ? q_last : a.S - 1;
@@ -193,10 +203,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
   for (int t = t_first; t <= t_last; ++t) {
     const int k0 = t * kBKV;
     __syncthreads();                    // the last tile's V is consumed
-    load_tile<D>(sKV, kb, a.k_s, k0, kBKV, a.S);
+    load_tile<DQK>(sKV, kb, a.k_s, k0, kBKV, a.S);
     __syncthreads();
 
-    // s = q . k over D, 4 rows x 4 key columns per thread
+    // s = q . k over DQK, 4 rows x 4 key columns per thread
     float s[4][4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -204,7 +214,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
       for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
     }
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DQK; d += 4) {
       float4 qv[4], kv[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -261,7 +271,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
           s[r][c];
     }
     __syncthreads();                    // K consumed, P complete
-    load_tile<D>(sKV, vb, a.v_s, k0, kBKV, a.S);
+    load_tile<DV>(sKV, vb, a.v_s, k0, kBKV, a.S);
     __syncthreads();
 
     // acc += p v
@@ -275,7 +285,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
         const int ch = cl + 16 * n;
         if (kChunks % 16 == 0 || ch < kChunks) {
           const float4 vv =
-              *reinterpret_cast<const float4*>(sKV + j * kLd + 4 * ch);
+              *reinterpret_cast<const float4*>(sKV + j * kLdV + 4 * ch);
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             acc[r][n][0] = fmaf(p[r], vv.x, acc[r][n][0]);
@@ -316,19 +326,25 @@ constexpr int kChunk = 64;            // bf16 columns per 128-byte swizzled row
 constexpr int kChunkBytes = kWgRows * kChunk * 2;    // one 64 x 64 box, 8 KB
 constexpr int kWgThreads = 256;       // consumer warpgroup + producer warpgroup
 
-// per head_dim: ring depth, blocks per SM, consumer / producer registers
-template <int D>
+// per (DQK, DV): ring depth, blocks per SM, consumer / producer registers
+template <int DQK, int DV>
 struct WgTraits {
-  static constexpr int kPad = D < kChunk ? kChunk : D;    // columns read
-  static constexpr int kChunks = kPad / kChunk;
+  static constexpr int kPadQK = DQK < kChunk ? kChunk : DQK;  // columns read
+  static constexpr int kPadV = DV < kChunk ? kChunk : DV;
+  static constexpr int kChunksQK = kPadQK / kChunk;
+  static constexpr int kChunksV = kPadV / kChunk;
   static constexpr int kStages = 2;
-  static constexpr int kMinBlocks = D == 256 ? 1 : 2;
-  static constexpr int kConsumerRegs = D == 256 ? 240 : 216;
-  static constexpr int kProducerRegs = 40;
-  static constexpr int kTileBytes = kChunks * kChunkBytes;
+  static constexpr int kQKTileBytes = kChunksQK * kChunkBytes;  // Q, K
+  static constexpr int kVTileBytes = kChunksV * kChunkBytes;
   // Q, the K ring, the V ring, then the barriers; 1 KB to align the base
-  static constexpr int kBarOffset = (1 + 2 * kStages) * kTileBytes;
+  static constexpr int kBarOffset =
+      (1 + kStages) * kQKTileBytes + kStages * kVTileBytes;
   static constexpr size_t kSmem = kBarOffset + 64 * 8 + 1024;
+  // O takes DV / 2 registers a consumer thread: at DV 256 one block per
+  // SM, as also where two blocks' shared memory would not fit
+  static constexpr int kMinBlocks = DV == 256 || 2 * kSmem > 232448 ? 1 : 2;
+  static constexpr int kConsumerRegs = kMinBlocks == 1 ? 240 : 216;
+  static constexpr int kProducerRegs = 40;
 };
 
 struct WgArgs {
@@ -488,23 +504,24 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// grid (ceil(S / 64), H, B), 256 threads, WgTraits<D>::kSmem dynamic.
+// grid (ceil(S / 64), H, B), 256 threads, WgTraits<DQK, DV>::kSmem dynamic.
 // Accumulator layout (wgmma m64nN, float32): warp w of the consumer owns
 // rows 16 w + lane / 4 and + 8; register 4 j + e holds column
 // 8 j + 2 (lane % 4) + (e & 1) of row + 8 (e >> 1).
-template <int D>
-__global__ void __launch_bounds__(kWgThreads, WgTraits<D>::kMinBlocks)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kWgThreads, WgTraits<DQK, DV>::kMinBlocks)
     flash_wgmma(const __grid_constant__ CUtensorMap mq,
                 const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, const WgArgs a) {
-  using Tr = WgTraits<D>;
+  using Tr = WgTraits<DQK, DV>;
   constexpr int kStages = Tr::kStages;
-  constexpr int kChunks = Tr::kChunks;
+  constexpr int kChunksQK = Tr::kChunksQK;
+  constexpr int kChunks = Tr::kChunksV;             // of O and V
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sQ = base;
-  uint8_t* sK = base + Tr::kTileBytes;                     // kStages tiles
-  uint8_t* sV = sK + kStages * Tr::kTileBytes;             // kStages tiles
+  uint8_t* sK = base + Tr::kQKTileBytes;                   // kStages tiles
+  uint8_t* sV = sK + kStages * Tr::kQKTileBytes;           // kStages tiles
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + Tr::kBarOffset);
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;
@@ -537,23 +554,23 @@ __global__ void __launch_bounds__(kWgThreads, WgTraits<D>::kMinBlocks)
         Tr::kProducerRegs));
     if (threadIdx.x == 128) {
       const int kh = h / a.group;
-      mbar_expect_tx(q_full, Tr::kTileBytes);
-      for (int c = 0; c < kChunks; ++c) {
+      mbar_expect_tx(q_full, Tr::kQKTileBytes);
+      for (int c = 0; c < kChunksQK; ++c) {
         tma_load(sQ + c * kChunkBytes, &mq, q_full, c * kChunk, h, q0, b);
       }
       for (int t = t_first, i = 0; t <= t_last; ++t, ++i) {
         const int st = i % kStages;
         const uint32_t par = ((i / kStages) & 1) ^ 1;
-        uint8_t* kd = sK + st * Tr::kTileBytes;
-        uint8_t* vd = sV + st * Tr::kTileBytes;
+        uint8_t* kd = sK + st * Tr::kQKTileBytes;
+        uint8_t* vd = sV + st * Tr::kVTileBytes;
         mbar_wait(k_empty + st, par);
-        mbar_expect_tx(k_full + st, Tr::kTileBytes);
-        for (int c = 0; c < kChunks; ++c) {
+        mbar_expect_tx(k_full + st, Tr::kQKTileBytes);
+        for (int c = 0; c < kChunksQK; ++c) {
           tma_load(kd + c * kChunkBytes, &mk, k_full + st, c * kChunk, kh,
                    t * kWgRows, b);
         }
         mbar_wait(v_empty + st, par);
-        mbar_expect_tx(v_full + st, Tr::kTileBytes);
+        mbar_expect_tx(v_full + st, Tr::kVTileBytes);
         for (int c = 0; c < kChunks; ++c) {
           tma_load(vd + c * kChunkBytes, &mv, v_full + st, c * kChunk, kh,
                    t * kWgRows, b);
@@ -581,11 +598,11 @@ __global__ void __launch_bounds__(kWgThreads, WgTraits<D>::kMinBlocks)
     for (int t = t_first, i = 0; t <= t_last; ++t, ++i) {
       const int st = i % kStages;
       const uint32_t par = (i / kStages) & 1;
-      const uint8_t* kd = sK + st * Tr::kTileBytes;
-      const uint8_t* vd = sV + st * Tr::kTileBytes;
+      const uint8_t* kd = sK + st * Tr::kQKTileBytes;
+      const uint8_t* vd = sV + st * Tr::kVTileBytes;
       const int k0 = t * kWgRows;
 
-      // S = Q K^T over D in k16 steps (32 bytes within a 128-byte row)
+      // S = Q K^T over DQK in k16 steps (32 bytes within a 128-byte row)
       float s[32];
 #pragma unroll
       for (int r = 0; r < 32; ++r) s[r] = 0.f;
@@ -593,7 +610,7 @@ __global__ void __launch_bounds__(kWgThreads, WgTraits<D>::kMinBlocks)
       fence_regs(s);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < Tr::kPad / 16; ++kk) {
+      for (int kk = 0; kk < Tr::kPadQK / 16; ++kk) {
         const int off = (kk / 4) * kChunkBytes + (kk % 4) * 32;
         wgmma_ss(s, make_desc(sQ + off, 16, 1024),
                  make_desc(kd + off, 16, 1024), kk > 0);
@@ -701,7 +718,7 @@ __global__ void __launch_bounds__(kWgThreads, WgTraits<D>::kMinBlocks)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int d = c * kChunk + 8 * j + col;
-          if (D >= kChunk || d < D) {
+          if (DV >= kChunk || d < DV) {
             const int r = 4 * j + 2 * hr;
             *reinterpret_cast<__nv_bfloat162*>(orow + d) =
                 __halves2bfloat162(__float2bfloat16_rn(o[c][r] / den),
@@ -764,42 +781,52 @@ struct Maps {
   CUtensorMap q, k, v;
 };
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_wgmma(const Maps& maps, const WgArgs& a, int batch,
                          int heads, cudaStream_t stream) {
-  constexpr size_t smem = WgTraits<D>::kSmem;
+  constexpr size_t smem = WgTraits<DQK, DV>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wgmma<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + kWgRows - 1) / kWgRows, heads, batch);
-  flash_wgmma<D><<<grid, kWgThreads, smem, stream>>>(maps.q, maps.k, maps.v,
-                                                     a);
+  flash_wgmma<DQK, DV><<<grid, kWgThreads, smem, stream>>>(maps.q, maps.k,
+                                                           maps.v, a);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const Args& a, int batch, int heads, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<DQK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + kBQ - 1) / kBQ, heads, batch);
-  flash_fwd<D><<<grid, kThreads, smem, stream>>>(a);
+  flash_fwd<DQK, DV><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// one (DQK, DV) pair's kernel for the type: the bf16 wgmma kernel when
+// `maps` is given, else the float32 one
+template <int DQK, int DV>
+cudaError_t launch_pair(const Maps* maps, const WgArgs& wa, const Args& a,
+                        int batch, int heads, cudaStream_t stream) {
+  return maps ? launch_wgmma<DQK, DV>(*maps, wa, batch, heads, stream)
+              : launch<DQK, DV>(a, batch, heads, stream);
 }
 
 }  // namespace
 
-// q, k, v, o: (B, S, heads, d) / (B, S, kv_heads, d) with unit stride
-// over d, 16-byte aligned rows and strides; strides in elements (batch,
-// seq, head).  d is 32, 64, 128 or 256; bf16 selects bf16 (the wgmma
-// kernel) else float32 for all four.  Returns the launch's cudaError_t,
-// or cudaErrorInvalidValue for a shape or a tensor map it cannot take.
+// q (B, S, heads, d), k (B, S, kv_heads, d), v (B, S, kv_heads, dv) and
+// o (B, S, heads, dv) with unit stride over the last axis, 16-byte aligned
+// rows and strides; strides in elements (batch, seq, head).  (d, dv) is
+// one of the instantiated pairs; bf16 selects bf16 (the wgmma kernel)
+// else float32 for all four.  Returns the launch's cudaError_t, or
+// cudaErrorInvalidValue for a shape or a tensor map it cannot take.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int batch, int S,
-    int heads, int kv_heads, int d, long long q_b, long long q_s,
+    int heads, int kv_heads, int d, int dv, long long q_b, long long q_s,
     long long q_h, long long k_b, long long k_s, long long k_h,
     long long v_b, long long v_s, long long v_h, long long o_b,
     long long o_s, long long o_h, int causal, int window, float scale,
@@ -807,30 +834,32 @@ extern "C" int flash_attention_launch(
   if (batch <= 0 || S <= 0 || heads <= 0) return 0;
   if (kv_heads <= 0 || heads % kv_heads) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    Maps maps;
-    if (!make_map(&maps.q, q, batch, S, heads, d, q_b, q_s, q_h) ||
-        !make_map(&maps.k, k, batch, S, kv_heads, d, k_b, k_s, k_h) ||
-        !make_map(&maps.v, v, batch, S, kv_heads, d, v_b, v_s, v_h)) {
-      return cudaErrorInvalidValue;
-    }
-    const WgArgs a{o, S, heads / kv_heads, o_b, o_s, o_h, causal, window,
-                   scale * 1.4426950408889634f};
+  Maps maps;
+  if (bf16 &&
+      (!make_map(&maps.q, q, batch, S, heads, d, q_b, q_s, q_h) ||
+       !make_map(&maps.k, k, batch, S, kv_heads, d, k_b, k_s, k_h) ||
+       !make_map(&maps.v, v, batch, S, kv_heads, dv, v_b, v_s, v_h))) {
+    return cudaErrorInvalidValue;
+  }
+  const Maps* m = bf16 ? &maps : nullptr;
+  const WgArgs wa{o, S, heads / kv_heads, o_b, o_s, o_h, causal, window,
+                  scale * 1.4426950408889634f};
+  const Args a{q, k, v, o, S, heads / kv_heads, q_b, q_s, q_h, k_b, k_s,
+               k_h, v_b, v_s, v_h, o_b, o_s, o_h, causal, window, scale};
+  if (d == dv) {
     switch (d) {
-      case 32: return launch_wgmma<32>(maps, a, batch, heads, s);
-      case 64: return launch_wgmma<64>(maps, a, batch, heads, s);
-      case 128: return launch_wgmma<128>(maps, a, batch, heads, s);
-      case 256: return launch_wgmma<256>(maps, a, batch, heads, s);
+      case 32: return launch_pair<32, 32>(m, wa, a, batch, heads, s);
+      case 64: return launch_pair<64, 64>(m, wa, a, batch, heads, s);
+      case 128: return launch_pair<128, 128>(m, wa, a, batch, heads, s);
+      case 256: return launch_pair<256, 256>(m, wa, a, batch, heads, s);
       default: return cudaErrorInvalidValue;
     }
   }
-  const Args a{q, k, v, o, S, heads / kv_heads, q_b, q_s, q_h, k_b, k_s,
-               k_h, v_b, v_s, v_h, o_b, o_s, o_h, causal, window, scale};
-  switch (d) {
-    case 32: return launch<32>(a, batch, heads, s);
-    case 64: return launch<64>(a, batch, heads, s);
-    case 128: return launch<128>(a, batch, heads, s);
-    case 256: return launch<256>(a, batch, heads, s);
-    default: return cudaErrorInvalidValue;
+  if (d == 192 && dv == 128) {
+    return launch_pair<192, 128>(m, wa, a, batch, heads, s);
   }
+  if (d == 64 && dv == 32) {
+    return launch_pair<64, 32>(m, wa, a, batch, heads, s);
+  }
+  return cudaErrorInvalidValue;
 }

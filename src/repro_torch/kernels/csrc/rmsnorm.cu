@@ -17,8 +17,12 @@
 // 6.3 MB, about 1.9 us at the memory rate; at decode (4 rows) the launch
 // latency bounds it instead.
 //
-// Design.  One warp per row (D is 768, 1536 or 3072 on the served
-// models: 3 to 12 16-byte vectors per lane), eight rows per block, no
+// Design.  One warp per row (D is 512 to 5120 on the served models: 768,
+// 1536 and 3072 on the dense ones, 2048 on Qwen3-30B-A3B, 5120 on
+// DeepSeek-V2 with MLA's q_norm at 1536 and kv_norm at 512; in bf16 that
+// is 2 to 20 16-byte vectors per lane, in float32 twice as many; every
+// one of these widths is held against the plain version on the card by
+// chip_smoke.py), eight rows per block, no
 // shared memory and no barrier: each lane sums the squares of its
 // vectors, the warp reduces with shuffles, and every lane then re-reads
 // its vectors (from L1) to scale and store them.  Rows whose start is

@@ -1,14 +1,17 @@
 """Causal / sliding-window attention: the CUDA kernel and its plain version.
 
 `flash_attention(q, k, v, causal=True, window=None, scale=None)` attends
-q (B,S,H,D) over k/v (B,S,K,D), H % K == 0, query head h reading KV head
-h // (H/K): key j is visible to query i when j <= i (causal) and
-j > i - window; softmax in float32, the result in q's type.  It replaces
-`repro/kernels/flash_attention.py`'s `flash_attention_pallas` (source in
-`csrc/flash_attention.cu`) and runs every attention prefill of the served
-models (`nn/attention.py:gqa_prefill`): phi4-mini's causal GQA and
-RecurrentGemma's local attention.  Decode attends over its KV ring with
-the plain `grouped_attention`, as the reference does.
+q (B,S,H,DQK) over k (B,S,K,DQK) and v (B,S,K,DV), H % K == 0, query head
+h reading KV head h // (H/K): key j is visible to query i when j <= i
+(causal) and j > i - window; softmax in float32, the result (B,S,H,DV) in
+q's type.  It replaces `repro/kernels/flash_attention.py`'s
+`flash_attention_pallas` (source in `csrc/flash_attention.cu`) and runs
+every attention prefill of the served models (`nn/attention.py:
+gqa_prefill`, `mla_prefill`): phi4-mini's and Qwen3-MoE's causal GQA,
+RecurrentGemma's local attention and DeepSeek-V2's MLA, whose q and k
+are 192 wide (128 + 64 rope) and v 128.  The kernel is instantiated for
+the (DQK, DV) pairs in `HEAD_DIMS`.  Decode attends plainly, as the
+reference does.
 
 A CUDA tensor launches the kernel (or raises); a CPU or meta tensor takes
 the plain version, `kernels.ref.flash_attention_ref`.  `launches` counts
@@ -33,9 +36,12 @@ from repro_torch.kernels import build, ref
 
 launches = {"flash_attention": 0}
 
-HEAD_DIMS = (32, 64, 128, 256)          # the kernel's instantiations
+# the kernel's (DQK, DV) instantiations: equal pairs, DeepSeek-V2's MLA
+# and the reduced MLA that the card check serves
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128),
+             (64, 32))
 _SIGNATURES = {
-    "flash_attention_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    "flash_attention_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
     + [ctypes.c_longlong] * 12
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
        ctypes.c_void_p],
@@ -57,7 +63,8 @@ def _strides(t: torch.Tensor, what: str) -> tuple:
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, scale: float | None = None):
-    """q (B,S,H,D), k/v (B,S,K,D) -> (B,S,H,D) in q's type."""
+    """q (B,S,H,DQK), k (B,S,K,DQK), v (B,S,K,DV) -> (B,S,H,DV) in q's
+    type; `scale` defaults to 1/sqrt(DQK)."""
     if q.device.type in ("cpu", "meta"):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
@@ -88,22 +95,23 @@ def _launch(q, k, v, causal, window, scale):
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for device {q.device}")
     Bsz, S, H, D = q.shape
-    K = k.shape[2]
+    K, DV = k.shape[2], v.shape[-1]
     if q.dtype not in _TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k and v must share one type, "
                         f"float32 or bfloat16; got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if (tuple(k.shape) != (Bsz, S, K, D) or tuple(v.shape) != tuple(k.shape)
+    if (tuple(k.shape) != (Bsz, S, K, D) or tuple(v.shape) != (Bsz, S, K, DV)
             or K == 0 or H % K):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
+    if (D, DV) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims (q/k, v) {(D, DV)} "
+                         f"not in {HEAD_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: inputs on different devices")
-    o = torch.empty((Bsz, S, H, D), dtype=q.dtype, device=q.device)
+    o = torch.empty((Bsz, S, H, DV), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
     strides = [s for t, what in ((q, "q"), (k, "k"), (v, "v"), (o, "o"))
@@ -113,7 +121,7 @@ def _launch(q, k, v, causal, window, scale):
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            Bsz, S, H, K, D, *strides, int(causal),
+            Bsz, S, H, K, D, DV, *strides, int(causal),
             0 if window is None else int(window), float(scale),
             int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)

@@ -60,8 +60,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, scale: float | None = None):
-    """Attention of q (B,S,H,D) over k/v (B,S,K,D), causal and/or within a
-    sliding window, softmax in float32 -> (B,S,H,D) in q's type."""
+    """Attention of q (B,S,H,DQK) over k (B,S,K,DQK) and v (B,S,K,DV),
+    causal and/or within a sliding window, softmax in float32 ->
+    (B,S,H,DV) in q's type."""
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                scale=scale)
 

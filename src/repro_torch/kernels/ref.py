@@ -116,7 +116,8 @@ def causal_mask(q_len: int, kv_len: int, *, window: int | None = None,
 
 
 def grouped_attention(q, k, v, mask, *, scale: float) -> torch.Tensor:
-    """q: (B,S,H,hd), k/v: (B,T,K,hd), mask: (S,T) or (B,S,T).  Scores
+    """q: (B,S,H,hd), k: (B,T,K,hd), v: (B,T,K,hd_v), mask: (S,T) or
+    (B,S,T).  Scores
     and softmax in float32 (float64 for float64 inputs); query head h
     reads KV head h // (H/K), which is never repeated in memory.
     Returns (B,S,H,hd_v) in q's dtype."""
@@ -137,10 +138,11 @@ def grouped_attention(q, k, v, mask, *, scale: float) -> torch.Tensor:
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: int | None = None, scale: float | None = None):
-    """Attention over a whole sequence, q (B,S,H,D), k/v (B,S,K,D) with
-    H % K == 0: key j is visible to query i when j <= i (causal) and
-    j > i - window (a window); softmax in float32 (float64 for float64
-    inputs), the result in q's dtype.  `scale` defaults to 1/sqrt(D)."""
+    """Attention over a whole sequence, q (B,S,H,DQK), k (B,S,K,DQK) and
+    v (B,S,K,DV) with H % K == 0 -> (B,S,H,DV): key j is visible to query
+    i when j <= i (causal) and j > i - window (a window); softmax in
+    float32 (float64 for float64 inputs), the result in q's dtype.
+    `scale` defaults to 1/sqrt(DQK)."""
     S = q.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])

@@ -19,6 +19,12 @@ Example:
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma_2b --split --wire quantize_int8:physical \\
         --prompt-len 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3_moe_30b_a3b --split --wire quantize_int8:physical \\
+        --fused-entry --prompt-len 128
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek_v2_236b --reduced --split \\
+        --wire quantize_int8:physical --device cpu
 """
 from __future__ import annotations
 

@@ -16,12 +16,13 @@ and layers [0, cut) and the server the rest plus the final norm and the
 head.  Training runs the no-cache forward (`forward`, `loss`, and the
 halves `apply_client` / `apply_server`); serving prefills and decodes
 each half against its own caches.  Either way only the cut activation
-crosses.  The port builds the dense family, the SSM
-family (Mamba2) and the hybrid family (RecurrentGemma's composite
-super-blocks).  Each block's returned cache is written back into its
-slot of the group's cache list: the attention ring is updated in place
-anyway, but the Mamba2 and RG-LRU conv windows and states are new
-tensors.
+crosses.  The port builds the dense family, the MoE family (Qwen3-MoE's
+GQA + MoE blocks; DeepSeek-V2's MLA blocks, a dense first group, then
+MoE with shared experts), the SSM family (Mamba2) and the hybrid family
+(RecurrentGemma's composite super-blocks).  Each block's returned cache
+is written back into its slot of the group's cache list: the attention
+rings are updated in place anyway, but the Mamba2 and RG-LRU conv
+windows and states are new tensors.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
+from repro_torch.nn import moe as M
 from repro_torch.nn import rglru as R
 from repro_torch.nn import ssm as S
 from repro_torch.nn import transformer as T
@@ -52,6 +54,16 @@ class GroupSpec:
 
 
 def _attn_cfg(cfg: ArchConfig, *, window=None) -> A.AttnConfig:
+    if cfg.attn_kind == "mla":
+        return A.AttnConfig(
+            d_model=cfg.d_model, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+            kind="mla", q_lora_rank=cfg.q_lora_rank,
+            kv_lora_rank=cfg.kv_lora_rank,
+            qk_nope_head_dim=cfg.qk_nope_head_dim,
+            qk_rope_head_dim=cfg.qk_rope_head_dim,
+            v_head_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta,
+            window=window, dtype=cfg.dtype)
     return A.AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
@@ -59,12 +71,20 @@ def _attn_cfg(cfg: ArchConfig, *, window=None) -> A.AttnConfig:
         window=window, dtype=cfg.dtype)
 
 
-def _block_spec(cfg: ArchConfig, kind: str, *, window=None) -> T.BlockSpec:
+def _block_spec(cfg: ArchConfig, kind: str, *, window=None,
+                moe_layer=False) -> T.BlockSpec:
     common = dict(d_model=cfg.d_model, norm=cfg.norm, dtype=cfg.dtype)
-    if kind == "attn":
-        return T.BlockSpec(mixer="attn", mlp=cfg.mlp if cfg.mlp != "none"
+    if kind in ("attn", "mla"):
+        attn = _attn_cfg(cfg, window=window)
+        if moe_layer:
+            moe = M.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                              n_experts=cfg.n_experts, top_k=cfg.top_k,
+                              n_shared=cfg.n_shared, dtype=cfg.dtype)
+            return T.BlockSpec(mixer=kind, mlp="moe", attn=attn, moe=moe,
+                               **common)
+        return T.BlockSpec(mixer=kind, mlp=cfg.mlp if cfg.mlp != "none"
                            else "swiglu", d_ff=cfg.dense_d_ff or cfg.d_ff,
-                           attn=_attn_cfg(cfg, window=window), **common)
+                           attn=attn, **common)
     if kind == "mamba2":
         ssm = S.SSMConfig(d_model=cfg.d_model,
                           d_inner=cfg.ssm_expand * cfg.d_model,
@@ -83,20 +103,21 @@ def _block_spec(cfg: ArchConfig, kind: str, *, window=None) -> T.BlockSpec:
 
 def make_groups(cfg: ArchConfig) -> list[GroupSpec]:
     """The SSM family: one group of Mamba2 blocks (no channel mixer).  The
-    dense family: one group of identical attn + MLP blocks.  The hybrid
-    family: one composite group of the layer pattern (RecurrentGemma's
-    rglru, rglru, attn, the attention local within the window) repeated
-    n_layers // len(pattern) times, plus a remainder group of the
-    pattern's first n_layers % len(pattern) blocks; a cut falls on a
-    super-block boundary (`split_params`)."""
+    dense family: one group of identical attn + MLP blocks.  The MoE
+    family: a group of `first_dense` attention (or MLA) blocks with a
+    dense SwiGLU of `dense_d_ff`, if any, then a group of attention (or
+    MLA) + MoE blocks.  The hybrid family: one composite group of the
+    layer pattern (RecurrentGemma's rglru, rglru, attn, the attention
+    local within the window) repeated n_layers // len(pattern) times,
+    plus a remainder group of the pattern's first n_layers % len(pattern)
+    blocks; a cut falls on a super-block boundary (`split_params`)."""
     if cfg.family == "ssm":
         return [GroupSpec((_block_spec(cfg, "mamba2"),), cfg.n_layers)]
-    if (cfg.family not in ("dense", "hybrid") or cfg.n_experts
-            or cfg.attn_kind != "gqa" or cfg.encdec):
+    if cfg.family not in ("dense", "moe", "hybrid") or cfg.encdec:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port builds the dense GQA, the "
-            "SSM and the hybrid RG-LRU families so far; MoE, MLA, VLM and "
-            "audio models come with later slices")
+            f"{cfg.name} ({cfg.family}): the port builds the dense, MoE, "
+            "SSM and hybrid families so far; VLM and audio models come "
+            "with later slices")
     if cfg.pattern:
         n_full, rem = divmod(cfg.n_layers, len(cfg.pattern))
         specs = tuple(_block_spec(cfg, k, window=cfg.window
@@ -106,7 +127,18 @@ def make_groups(cfg: ArchConfig) -> list[GroupSpec]:
         if rem:
             groups.append(GroupSpec(specs[:rem], 1))
         return groups
-    return [GroupSpec((_block_spec(cfg, "attn", window=cfg.window),),
+    kind = "mla" if cfg.attn_kind == "mla" else "attn"
+    if cfg.n_experts:
+        groups = []
+        if cfg.first_dense:
+            groups.append(GroupSpec(
+                (_block_spec(cfg, kind, window=cfg.window),),
+                cfg.first_dense))
+        groups.append(GroupSpec(
+            (_block_spec(cfg, kind, window=cfg.window, moe_layer=True),),
+            cfg.n_layers - cfg.first_dense))
+        return groups
+    return [GroupSpec((_block_spec(cfg, kind, window=cfg.window),),
                       cfg.n_layers)]
 
 

@@ -1,19 +1,24 @@
-"""Grouped-query attention with RoPE and a decode KV cache (port of
-`repro/nn/attention.py`, the GQA part).
+"""Attention: grouped-query attention and DeepSeek-V2's multi-head latent
+attention (MLA), with RoPE and decode caches (port of
+`repro/nn/attention.py`, the GQA and MLA parts).
 
-Shapes: x is (B, S, D); heads are (B, S, H, head_dim); a KV cache is
-{"k", "v": (B, cache_len, K, head_dim), "pos": int}.
+Shapes: x is (B, S, D); heads are (B, S, H, head_dim).  A GQA cache is
+{"k", "v": (B, cache_len, K, head_dim), "pos": int}; an MLA cache keeps
+the compressed rows, {"c_kv": (B, cache_len, kv_lora_rank), "k_pe":
+(B, cache_len, qk_rope_head_dim), "pos": int}.
 
-Training (`gqa_apply`) and prefill attend through `ops.flash_attention`
-(the flash kernel on a CUDA tensor, the plain grouped einsum on a CPU or
-meta one); decode
-attends over the ring with the plain `grouped_attention`, as the
-reference does.  Unlike the reference, which returns new caches, the
-port writes the new K/V rows into the cache tensors in place and
-advances `pos`, a host integer (one cursor for the whole batch), so
+Training (`gqa_apply`, `mla_apply`) and prefill attend through
+`ops.flash_attention` (the flash kernel on a CUDA tensor, the plain
+grouped einsum on a CPU or meta one); MLA's prefill attends with q/k of
+qk_nope + qk_rope and v of v_head_dim (192 and 128 in DeepSeek-V2).
+Decode attends plainly, as the reference does: GQA with
+`grouped_attention` over the ring, MLA with the absorbed weights against
+the compressed cache in float32.  Unlike the reference, which returns
+new caches, the port writes the new rows into the cache tensors in place
+and advances `pos`, a host integer (one cursor for the whole batch), so
 decode never reads a device value back.  A sliding-window ring holds
 `min(max_len, window)` rows, indexed `pos % cache_len`.  Native-dtype
-caches only: the int8 KV cache, MLA, cross-attention and the
+caches only: the int8 KV cache, cross-attention and the
 sequence-sharded decode wait for later slices.
 """
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 from repro_torch.kernels import ops
 # the plain attention, which decode runs over the KV ring on every device
 from repro_torch.kernels.ref import causal_mask  # noqa: F401
-from repro_torch.kernels.ref import grouped_attention
+from repro_torch.kernels.ref import NEG_INF, grouped_attention
 from repro_torch.nn import layers as L
 
 
@@ -41,6 +46,13 @@ class AttnConfig:
     rope_fraction: float = 1.0
     rope_theta: float = 10000.0
     window: int | None = None
+    kind: str = "gqa"                 # "gqa" | "mla"
+    # --- MLA (deepseek-v2) ---
+    q_lora_rank: int = 0              # 0 = full-rank q projection
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
     dtype: Any = torch.float32
 
 
@@ -194,5 +206,148 @@ def gqa_prefill(params, cfg: AttnConfig, x, cache):
     slots = torch.arange(S - keep, S, device=x.device) % cache_len
     cache["k"][:, slots] = k[:, S - keep:]
     cache["v"][:, slots] = v[:, S - keep:]
+    cache["pos"] = S
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2): compressed KV cache
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, cfg: AttnConfig, device=None):
+    D, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    kw = dict(dtype=cfg.dtype, device=device)
+    p = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = L.dense_init(gen, D, cfg.q_lora_rank, **kw)
+        p["q_norm"] = L.rmsnorm_init(cfg.q_lora_rank, **kw)
+        p["wq_b"] = L.dense_init(gen, cfg.q_lora_rank, H * (dn + dr), **kw)
+    else:
+        p["wq"] = L.dense_init(gen, D, H * (dn + dr), **kw)
+    p["wkv_a"] = L.dense_init(gen, D, r + dr, **kw)
+    p["kv_norm"] = L.rmsnorm_init(r, **kw)
+    p["wk_b"] = L.dense_init(gen, r, H * dn, **kw)
+    p["wv_b"] = L.dense_init(gen, r, H * dv, **kw)
+    p["wo"] = L.dense_init(gen, H * dv, D, **kw)
+    return p
+
+
+def _mla_q(params, cfg: AttnConfig, x):
+    B, S, _ = x.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if cfg.q_lora_rank:
+        q = L.dense_apply(params["wq_a"], x)
+        q = L.rmsnorm_apply(params["q_norm"], q)
+        q = L.dense_apply(params["wq_b"], q)
+    else:
+        q = L.dense_apply(params["wq"], x)
+    q = q.reshape(B, S, cfg.n_heads, dn + dr)
+    return q[..., :dn], q[..., dn:]                      # nope, rope parts
+
+
+def _mla_kv(params, cfg: AttnConfig, x, positions):
+    """The compressed rows a cache keeps: post-norm c_kv (B, S, r) and the
+    rope'd k_pe (B, S, dr)."""
+    r = cfg.kv_lora_rank
+    kv = L.dense_apply(params["wkv_a"], x)               # (B, S, r + dr)
+    # the rmsnorm kernel reads dense rows: c_kv's slice is copied out
+    c_kv = L.rmsnorm_apply(params["kv_norm"], kv[..., :r].contiguous())
+    k_pe = apply_rope(kv[..., r:][:, :, None, :], positions,
+                      theta=cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_pe
+
+
+def _mla_attend(params, cfg: AttnConfig, x, positions, mask):
+    """The full-sequence MLA: k and v decompressed from c_kv, standard
+    multi-head attention at scale 1/sqrt(dn + dr).  Returns (y, c_kv,
+    k_pe)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_pe = _mla_q(params, cfg, x)
+    q_pe = apply_rope(q_pe, positions, theta=cfg.rope_theta)
+    c_kv, k_pe = _mla_kv(params, cfg, x, positions)
+    k_nope = L.dense_apply(params["wk_b"], c_kv).reshape(B, S, H, dn)
+    v = L.dense_apply(params["wv_b"], c_kv).reshape(B, S, H, dv)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, dr)], dim=-1)
+    scale = 1.0 / math.sqrt(dn + dr)
+    if mask is None:
+        out = ops.flash_attention(q, k, v, causal=True, window=cfg.window,
+                                  scale=scale)
+    else:
+        out = grouped_attention(q, k, v, mask, scale=scale)
+    return L.dense_apply(params["wo"], out.reshape(B, S, H * dv)), c_kv, k_pe
+
+
+def mla_apply(params, cfg: AttnConfig, x, *, positions=None, mask=None):
+    """Full-sequence forward (train).  With `mask=None` it is causal,
+    within `cfg.window` when set, through `ops.flash_attention`; an
+    explicit mask takes the plain `grouped_attention`."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    return _mla_attend(params, cfg, x, positions, mask)[0]
+
+
+def mla_init_cache(cfg: AttnConfig, batch: int, max_len: int, device=None):
+    cache_len = min(max_len, cfg.window) if cfg.window else max_len
+    kw = dict(dtype=cfg.dtype, device=device)
+    return {"c_kv": torch.zeros((batch, cache_len, cfg.kv_lora_rank), **kw),
+            "k_pe": torch.zeros((batch, cache_len, cfg.qk_rope_head_dim),
+                                **kw),
+            "pos": 0}
+
+
+def mla_decode(params, cfg: AttnConfig, x, cache):
+    """Absorbed-weight decode: the scores are taken against the
+    compressed cache c_kv in float32 (wk_b folded into q, wv_b applied
+    after the weighted sum), never a per-token K or V.  Updates `cache`
+    in place and returns (y, cache)."""
+    B = x.shape[0]
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    pos = cache["pos"]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_pe = _mla_q(params, cfg, x)                # (B,1,H,dn|dr)
+    q_pe = apply_rope(q_pe, positions, theta=cfg.rope_theta)
+    c_new, kpe_new = _mla_kv(params, cfg, x, positions)
+    cache_len = cache["c_kv"].shape[1]
+    slot = pos % cache_len
+    _ring_put(cache["c_kv"], c_new, slot)
+    _ring_put(cache["k_pe"], kpe_new, slot)
+    c_kv, k_pe = cache["c_kv"].float(), cache["k_pe"].float()
+
+    # absorb wk_b into q: q_eff[b,h,r'] = sum_dn q_nope * wk_b[r', h, dn]
+    wk_b = params["wk_b"]["w"].reshape(r, H, dn).float()
+    q_eff = torch.einsum("bshd,rhd->bshr", q_nope.float(), wk_b)
+    scores = torch.einsum("bshr,btr->bhst", q_eff, c_kv)
+    scores = scores + torch.einsum("bshd,btd->bhst", q_pe.float(), k_pe)
+    scores = scores / math.sqrt(dn + dr)
+    valid = _valid_mask(pos, cache_len, B, x.device)    # (B, 1, T)
+    scores = torch.where(valid[:, None], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)                   # (B, H, 1, T)
+    ctx = torch.einsum("bhst,btr->bshr", w, c_kv)       # (B, 1, H, r)
+    wv_b = params["wv_b"]["w"].reshape(r, H, dv).float()
+    out = torch.einsum("bshr,rhd->bshd", ctx, wv_b)
+    y = L.dense_apply(params["wo"], out.reshape(B, 1, H * dv).to(x.dtype))
+    cache["pos"] = pos + 1
+    return y, cache
+
+
+def mla_prefill(params, cfg: AttnConfig, x, cache):
+    """Full-sequence MLA forward (the math of `mla_apply`) that also
+    writes the compressed rows (post-norm c_kv and rope'd k_pe, what
+    `mla_decode` stores) into a fresh cache and leaves pos = S."""
+    S = x.shape[1]
+    y, c_kv, k_pe = _mla_attend(params, cfg, x,
+                                torch.arange(S, device=x.device), None)
+    cache_len = cache["c_kv"].shape[1]
+    keep = min(S, cache_len)
+    slots = torch.arange(S - keep, S, device=x.device) % cache_len
+    cache["c_kv"][:, slots] = c_kv[:, S - keep:]
+    cache["k_pe"][:, slots] = k_pe[:, S - keep:]
     cache["pos"] = S
     return y, cache

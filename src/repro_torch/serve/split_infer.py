@@ -17,17 +17,20 @@ Runs on the GPU unless the caller passes `device="cpu"`; without a
 visible GPU and without that, the session raises.  Prefill is one
 teacher-forced forward per half; decode is a Python loop of steps (the
 reference scans).  The port serves the dense family (phi4-mini), the
-SSM family (Mamba2) and the hybrid family (RecurrentGemma: RG-LRU blocks
-and local attention in composite super-blocks; the cut falls on a
-super-block boundary).  Caches are updated in place: the attention KV
-ring row by row (a sliding window's ring holds the last `window` rows
-and wraps), the Mamba2 and RG-LRU caches (conv window and recurrent
-state, which `max_len` does not bound) by writing each block's new
-cache back into its slot.  The fused entry needs an attention block at
-the server's entry, so an SSM or hybrid model raises with
-`fused_entry=True`, as in the reference.  `decode_cost` runs one step
-on meta tensors, which launches no kernel, spends no FLOP and leaves
-the session's caches alone, and prices every `WireRecord`.
+MoE family (Qwen3-MoE: GQA + MoE blocks; DeepSeek-V2: MLA blocks with a
+compressed cache, a dense first layer, then MoE with shared experts),
+the SSM family (Mamba2) and the hybrid family (RecurrentGemma: RG-LRU
+blocks and local attention in composite super-blocks; the cut falls on
+a super-block boundary).  Caches are updated in place: the attention KV
+ring and MLA's compressed ring row by row (a sliding window's ring
+holds the last `window` rows and wraps), the Mamba2 and RG-LRU caches
+(conv window and recurrent state, which `max_len` does not bound) by
+writing each block's new cache back into its slot.  The fused entry
+needs a GQA block at the server's entry (its MLP may be MoE), so an
+MLA, SSM or hybrid model raises with `fused_entry=True`, as in the
+reference.  `decode_cost` runs one step on meta tensors, which launches
+no kernel, spends no FLOP and leaves the session's caches alone, and
+prices every `WireRecord`.
 """
 from __future__ import annotations
 
@@ -133,7 +136,8 @@ class ServeSession:
 
     def _fused_entry_weights(self):
         """The folded entry weights, or None if the server's first block
-        is not a plain rmsnorm+GQA layer or the wire is not packed.
+        is not a plain rmsnorm+GQA layer (an MLA entry, say) or the wire
+        is not packed.
 
         The payload encodes x = q * s (per-row scale), and with rmsnorm
         gain g and eps = 1e-6:
@@ -163,8 +167,9 @@ class ServeSession:
 
     def _fused_server_decode(self, sp, fe, payload: PackedInt8, caches):
         """Server decode step reading the PACKED payload: entry QKV
-        through the fused dequant+matmul kernel, then the regular path
-        for the rest of the trunk."""
+        through the fused dequant+matmul kernel, then the entry block's
+        MLP (dense or MoE) and the regular path for the rest of the
+        trunk."""
         spec, g0 = fe["spec"], fe["group"]
         qf = payload.q.float()
         ms = (qf * qf).mean(dim=-1, keepdim=True)

@@ -1138,6 +1138,38 @@ def test_flash_kernel_on_card(cuda, b, s, h, k, d, window, dtype):
     assert bool((err64 <= bound).all())
 
 
+# MLA's prefill attends with q/k wider than v: DeepSeek-V2's (192, 128)
+# and the reduced model's (64, 32) on the card, causal and windowed
+FLASH_DV_CARD = [(1, 200, 8, 8, 192, 128, None), (2, 65, 4, 4, 64, 32, 40)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,k,dqk,dv,window", FLASH_DV_CARD,
+                         ids=[f"dqk{c[4]}dv{c[5]}" for c in FLASH_DV_CARD])
+def test_flash_kernel_on_card_with_a_narrower_value_head(cuda, b, s, h, k,
+                                                         dqk, dv, window,
+                                                         dtype):
+    """q/k of DQK and v of DV: the output (B, S, H, DV) held as
+    `test_flash_kernel_on_card` holds it, at the default scale
+    1/sqrt(DQK)."""
+    rng = np.random.default_rng(25)
+    targs = [_pair(rng.standard_normal((b, s, n, d)).astype(np.float32),
+                   dtype)[0].to(cuda)
+             for n, d in ((h, dqk), (k, dqk), (k, dv))]
+    n = ops.launch_counts()["flash_attention"]
+    y = ops.flash_attention(*targs, window=window)
+    assert ops.launch_counts()["flash_attention"] == n + 1
+    assert tuple(y.shape) == (b, s, h, dv) and y.dtype == targs[0].dtype
+    if dtype == "float32":
+        torch.testing.assert_close(
+            y, ref.flash_attention_ref(*targs, window=window), rtol=2e-5,
+            atol=2e-5)
+        return
+    want64, _, bound = _flash_f64_bound(targs, window)
+    assert bool(((y.double() - want64).abs() <= bound).all())
+
+
 # the training path's gradient through rows 5-7: a grad-requiring input
 # on the card, at shapes that keep the training layout (x, B and C as
 # views into one projection, as Mamba2 hands them over)

@@ -58,7 +58,8 @@ def _close(t, j, tol=TOL):
 
 
 @pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "mamba2_130m",
-                                  "recurrentgemma_2b"])
+                                  "recurrentgemma_2b", "qwen3_moe_30b_a3b",
+                                  "deepseek_v2_236b"])
 def test_config_fields_match_reference(arch):
     for t, j in ((get_config(arch), jget_config(arch)),
                  (get_config(arch).reduced(vocab=97),
@@ -70,12 +71,17 @@ def test_config_fields_match_reference(arch):
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("qwen3_moe_30b_a3b")
-    moe = dataclasses.replace(get_config("phi4_mini_3_8b").reduced(),
-                              family="moe", n_experts=4)
-    with pytest.raises(NotImplementedError, match="dense"):
-        build_model(moe)
+    """Whisper (encoder-decoder) and InternVL2 (VLM) are not ported: their
+    configs are refused, and so is a model of either family."""
+    for arch in ("whisper_base", "internvl2_2b"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            get_config(arch)
+    base = get_config("phi4_mini_3_8b").reduced()
+    with pytest.raises(NotImplementedError, match="VLM and audio"):
+        build_model(dataclasses.replace(base, family="vlm", n_patches=8,
+                                        vision_dim=64))
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        build_model(dataclasses.replace(base, family="audio", encdec=True))
 
 
 def test_layers_match_reference(ref):
