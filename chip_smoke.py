@@ -17,12 +17,14 @@ Phases, each of which ends the run with a nonzero exit on any error:
    one-element op), `wire_roundtrip`'s value and gradient bitwise, the
    fused q8 entry matmul (the card tests' other shapes of it, and
    Qwen3-30B-A3B's entry), the dense splitcat entry, rmsnorm at every
-   served width (512 to 5120, prefill and decode rows), the SSD scan and
-   flash attention (phi4-mini's causal GQA prefill, RecurrentGemma's
+   served width (512 to 12,288, prefill and decode rows), the SSD scan
+   and flash attention (phi4-mini's causal GQA prefill, RecurrentGemma's
    2048-row window over a 4096-row prompt, DeepSeek-V2's MLA prefill
    with q/k 192 wide and v 128, beside its bound with one and with two
-   p v products, and Qwen3-30B-A3B's GQA prefill, a group of 8) within
-   the stated tolerances; each kernel's median
+   p v products, Qwen3-30B-A3B's GQA prefill, a group of 8, ChatGLM3's
+   group of 16, the reference's qwen1_5_32b MHA 40/40 and
+   Mistral-Large's group of 12)
+   within the stated tolerances; each kernel's median
    time beside the plain version's, its bound and, where one PyTorch call
    computes the same function, that call's time.  Then the training
    gradient of rmsnorm, flash attention and the SSD at the LM training
@@ -199,6 +201,35 @@ Phases, each of which ends the run with a nonzero exit on any error:
    entry (an MLA entry refuses it): flash 8 at (192, 128), rmsnorm
    1,056, 5,124 + 102,404 B per token per row; the reduced model's MLA
    at the kernel's (64, 32) pair.
+3n. Monolithic serving, the serve CLI's default mode, in-process
+   (`repro_torch.launch.serve.main(argv)`, its JSON line parsed, launch
+   counters zeroed just before and read just after; bf16 weights from
+   the CLI's seed; batch 4, prompt 128, 32 tokens): phi4-mini whole, its
+   tokens bitwise those of a split `ServeSession` over the dense wire at
+   cut 4; rmsnorm 2·32·(2L+1) and flash 2L launches a run (warmup and
+   timed run), no wire kernel.  Then ChatGLM3-6B and the reference's
+   scaled qwen1_5_32b (MHA 40/40, not the published GQA 40/8) whole and
+   Mistral-Large-123B cut to the
+   deepest depth that leaves 8 GiB of the card free: prefill s, decode ms
+   a step and tok/s, a profiled step's busy share and kernels, the peak.
+3o. Continuous batching: phi4-mini whole split at 4 over the physical
+   wire with the fused entry, a `Batcher` of 8 slots serving a queue of
+   12 tenants (seeded prompts of 16-256 tokens, 8-48 new tokens each),
+   seated while a slot is free after every step: the bytes exactly
+   sum_t [S_t (3072+4) + (200064+4) + (n_t-1) 203,144], the launches
+   exactly as the code implies per join and per step (one quantize a
+   live tenant, the q8 entry and the stacked payload's dequantize, the
+   logits both ways, the pad row's quantize once a run), row
+   independence bitwise (random packed pad rows leave every live token
+   and live cache row unchanged), each tenant against its solo B=1
+   `ServeSession` (the first token exactly; then, with the solo tokens
+   forced as every tenant's inputs, every step's logits within 5% of the
+   solo top logit, and the token the solo one wherever the measured
+   difference and an int8 level cannot move the argmax; the counted run
+   equal to the forced run while its tokens are the solo ones),
+   tok/s and a full step's busy share; reduced fp32 phi4-mini (fused),
+   Mamba2, RecurrentGemma (its window wrapping per row) and DeepSeek-V2
+   (MLA per row) under one join schedule, card == CPU token for token.
    Each phase's wall seconds are printed on a line of its own.
 4. A `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
@@ -308,8 +339,8 @@ def _payload(torch, shape, dtype, gen):
 
 def wire_payloads(torch) -> list:
     """Every payload the main paths hand the wire kernels, with the
-    launches of each kernel per run that the code implies: (path,
-    crossing, shape, dtype, launches).  A prefill sends the prompt's
+    launches per run that the code implies: (path, crossing, shape,
+    dtype, (quantize launches, dequantize launches)).  A prefill sends the prompt's
     activations up and the last position's logits down
     (`serve/split_infer.py`), a decode step one row each way, a vertical
     or multitask training round two feature payloads up and two gradients
@@ -335,12 +366,15 @@ def wire_payloads(torch) -> list:
               for arch, run in MOE_RUNS.items())):
         if arch is None:
             out.append((path, "up (features) / down (gradients)", (TB, 512),
-                        torch.float32, 4 * ROUNDS))
+                        torch.float32, (4 * ROUNDS,) * 2))
             continue
         cfg = get_config(arch)
-        out += [(path, "prefill up", (b, prompt, cfg.d_model), cfg.dtype, 1),
-                (path, "decode up", (b, 1, cfg.d_model), cfg.dtype, gen - 1),
-                (path, "down (logits)", (b, 1, cfg.vocab), cfg.dtype, gen)]
+        out += [(path, "prefill up", (b, prompt, cfg.d_model), cfg.dtype,
+                 (1, 1)),
+                (path, "decode up", (b, 1, cfg.d_model), cfg.dtype,
+                 (gen - 1,) * 2),
+                (path, "down (logits)", (b, 1, cfg.vocab), cfg.dtype,
+                 (gen, gen))]
     out += [p for mode in TURN_KINDS for p in _turn_payloads(torch, mode)]
     out += [p for mode in ("multitask", "extended_vanilla")
             for p in _branch_payloads(torch, mode)]
@@ -359,8 +393,10 @@ def wire_payloads(torch) -> list:
     # payloads, and ResNet's cut and handoff
     out += _cli_payloads(torch)
     out += _resnet_payloads(torch)
-    out += [(None, "no path", (4, 1, 3072), torch.float32, 0),
-            (None, "no path", (4, 128, 3072), torch.float32, 0)]
+    # phase 3o: the Batcher's joins, client rows, stacked payloads
+    out += bat_payloads(torch)
+    out += [(None, "no path", (4, 1, 3072), torch.float32, (0, 0)),
+            (None, "no path", (4, 128, 3072), torch.float32, (0, 0))]
     return out
 
 
@@ -382,10 +418,11 @@ def _turn_payloads(torch, mode: str, schedule: str | None = None) -> list:
         by_shape.setdefault((shape[0] // m,) + shape[1:], []).append(
             f"{name} {direction}")
     out = [(path_name(mode, schedule), " / ".join(names), shape, f32,
-            len(names) * m * turns) for shape, names in by_shape.items()]
+            (len(names) * m * turns,) * 2)
+           for shape, names in by_shape.items()]
     if schedule != "parallel":
         out += [(path_name(mode, schedule), f"handoff {leaf}", shape, f32,
-                 k * (turns - 1))
+                 (k * (turns - 1),) * 2)
                 for leaf, shape, k in spec["handoff_leaves"]]
     return out
 
@@ -397,7 +434,7 @@ def _branch_payloads(torch, mode: str,
     m = MICROBATCHES.get(schedule, 1)
     return [(path_name(mode, schedule), "branches (and mid client) up / "
              "down", (TB // m, 512), torch.float32,
-             len(BRANCH_RECORDS[mode]) * m * ROUNDS)]
+             (len(BRANCH_RECORDS[mode]) * m * ROUNDS,) * 2)]
 
 
 def _baseline_payloads(torch, mode: str,
@@ -407,9 +444,9 @@ def _baseline_payloads(torch, mode: str,
     f32, out = torch.float32, []
     for shape, k in _vgg16_leaf_shapes().items():
         out += [(path_name(mode, schedule), "model pull", shape, f32,
-                 k * V_ROUNDS),
+                 (k * V_ROUNDS,) * 2),
                 (path_name(mode, schedule), "model push",
-                 (V_CLIENTS,) + shape, f32, k * V_ROUNDS)]
+                 (V_CLIENTS,) + shape, f32, (k * V_ROUNDS,) * 2)]
     return out
 
 
@@ -467,7 +504,8 @@ def check_wire(torch, gen) -> tuple:
         uses.setdefault((tuple(shape), dtype), []).append((path, crossing, n))
     timings, gaps = {}, {"wire_quant": 0.0, "wire_dequant": 0.0}
     for (shape, dtype), sent in uses.items():
-        n = sum(k for _, _, k in sent)
+        nq = sum(k[0] for _, _, k in sent)
+        nd = sum(k[1] for _, _, k in sent)
         g = gen if (shape, dtype) in first else own.get(shape, rest)
         x = _payload(torch, shape, dtype, g)
         q, s = wire_quant(x)
@@ -487,7 +525,7 @@ def check_wire(torch, gen) -> tuple:
         # written, so the inputs are timed warm in L2 (the 126 MB prefill
         # payload of RecurrentGemma is cold by its size)
         tag = (f"{tuple(shape)} {str(dtype).replace('torch.', '')} ("
-               + "; ".join(f"{path or '-'} {crossing} x{k}"
+               + "; ".join(f"{path or '-'} {crossing} x{k[0]}/{k[1]}"
                            for path, crossing, k in sent) + ")")
         tq = time_ms(torch, [lambda: wire_quant(x)])
         tq_plain = time_ms(torch, [lambda: ref.wire_quant_ref(x)])
@@ -502,24 +540,26 @@ def check_wire(torch, gen) -> tuple:
         bq = bound_ms(nbytes(x, q, s), 3.0 * x.numel(), "fp32")
         bd = bound_ms(nbytes(q, s) + x.numel() * x.element_size(),
                       1.0 * x.numel(), "fp32")
-        gaps["wire_quant"] += n * (tq - bq[0])
-        gaps["wire_dequant"] += n * (td - bd[0])
+        gaps["wire_quant"] += nq * (tq - bq[0])
+        gaps["wire_dequant"] += nd * (td - bd[0])
         print(f"wire_quant   {tag}: bitwise; kernel {tq:.4f} ms "
               f"({tq / floor:.2f}x the floor), plain {tq_plain:.4f} ms, "
-              f"bound {bq[0]:.5f} ms ({bq[1]}); {n} launches a run, "
-              f"launches x (kernel - bound) {n * (tq - bq[0]):.4f} ms")
+              f"bound {bq[0]:.5f} ms ({bq[1]}); {nq} launches a run, "
+              f"launches x (kernel - bound) {nq * (tq - bq[0]):.4f} ms")
         lib = (f"{td_lib:.4f} ms (torch.mul(q, s, out=y), bitwise equal)"
                if td_lib is not None else "none (torch.mul(q, s, out=y) is "
                "not bitwise the kernel's)")
         print(f"wire_dequant {tag}: bitwise; kernel {td:.4f} ms "
               f"({td / floor:.2f}x the floor), plain {td_plain:.4f} ms, "
-              f"library {lib}, bound {bd[0]:.5f} ms ({bd[1]}); {n} launches "
-              f"a run, launches x (kernel - bound) {n * (td - bd[0]):.4f} ms")
+              f"library {lib}, bound {bd[0]:.5f} ms ({bd[1]}); {nd} launches "
+              f"a run, launches x (kernel - bound) {nd * (td - bd[0]):.4f} ms")
         timings[(tuple(shape), dtype)] = (tq, tq_plain, bq, td, td_plain, bd,
                                           td_lib)
         del x, q, s, y_lib
-    print(f"wire launches a run {sum(p[-1] for p in payloads)} of each "
-          f"kernel; launches x (kernel - bound) summed: wire_quant "
+    print(f"wire launches a run: wire_quant "
+          f"{sum(p[-1][0] for p in payloads)}, wire_dequant "
+          f"{sum(p[-1][1] for p in payloads)}; "
+          f"launches x (kernel - bound) summed: wire_quant "
           f"{gaps['wire_quant']:.4f} ms, wire_dequant "
           f"{gaps['wire_dequant']:.4f} ms")
 
@@ -754,11 +794,13 @@ def check_rmsnorm(torch) -> tuple:
 
     gen = torch.Generator(device="cuda").manual_seed(768)
     # Mamba2, phi4-mini and RecurrentGemma's widths, then the MoE family's:
-    # Qwen3-30B-A3B's 2048, DeepSeek-V2's 5120, MLA's q_norm (1536) and
-    # kv_norm (512), at prefill and at decode
+    # Qwen3-30B-A3B's 2048, DeepSeek-V2's 5120 (Qwen1.5-32B's too), MLA's
+    # q_norm (1536) and kv_norm (512), then ChatGLM3-6B's 4096 and
+    # Mistral-Large's 12,288, at prefill and at decode
     shapes = [(4, 512, 768), (4, 1, 768), (4, 512, 1536), (4, 1, 3072),
               (4, 128, 2048), (4, 1, 2048), (4, 128, 5120), (4, 1, 5120),
-              (4, 128, 512), (4, 1, 512), (4, 1, 1536)]
+              (4, 128, 512), (4, 1, 512), (4, 1, 1536), (4, 128, 4096),
+              (4, 1, 4096), (4, 128, 12288), (4, 1, 12288)]
     max_err, timings = 0.0, {}
     for shape in shapes:
         for dtype in (torch.bfloat16, torch.float32):
@@ -926,8 +968,11 @@ def check_flash(torch) -> tuple:
     the causal / window mask, softmax in float32) at the prefill shapes
     of the served models, phi4-mini's causal GQA, RecurrentGemma-2B's
     2048-row local attention over a 4096-row prompt, DeepSeek-V2's MLA
-    (128 heads, q/k 192 wide, v 128, scale 1/sqrt(192)) and Qwen3-30B-A3B's
-    GQA (32 heads over 4, a group of 8), plus a
+    (128 heads, q/k 192 wide, v 128, scale 1/sqrt(192)), Qwen3-30B-A3B's
+    GQA (32 heads over 4, a group of 8), ChatGLM3-6B's (32 over 2, a group
+    of 16), the reference's qwen1_5_32b plain MHA (40 over 40; the
+    published Qwen1.5-32B is 40 over 8) and Mistral-Large's (96
+    over 8, a group of 12), plus a
     ragged fp32 case at head_dim 32 with a window.  Tolerance: bf16
     within 1 bf16 ulp (floored at 1/256 of the rms) of the float32 plain
     result on the same inputs; fp32 within rtol = atol = 2e-5 (the sums
@@ -945,7 +990,12 @@ def check_flash(torch) -> tuple:
              ("ragged", (2, 300, 4, 2, 32, 32), 100, False),
              ("DeepSeek-V2 MLA prefill", (4, 128, 128, 128, 192, 128), None,
               True),
-             ("Qwen3-MoE prefill", (4, 128, 32, 4, 128, 128), None, True)]
+             ("Qwen3-MoE prefill", (4, 128, 32, 4, 128, 128), None, True),
+             ("ChatGLM3-6B prefill", (4, 128, 32, 2, 128, 128), None, True),
+             ("qwen1_5_32b MHA 40/40 prefill", (4, 128, 40, 40, 128, 128),
+              None, True),
+             ("Mistral-Large prefill", (4, 128, 96, 8, 128, 128), None,
+              True)]
     max_err, timings = 0.0, {}
     for tag, (b, s, h, kh, d, dv), window, timed in cases:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
@@ -2706,14 +2756,15 @@ def _lm_payloads(torch) -> list:
         if mode == "large_batch":
             for shape, k in Counter(_lm_leaves(torch, arch,
                                                "model")).items():
-                out += [(name, "model pull", shape, f32, k * rounds),
-                        (name, "model push", (n,) + shape, f32, k * rounds)]
+                out += [(name, "model pull", shape, f32, (k * rounds,) * 2),
+                        (name, "model push", (n,) + shape, f32,
+                         (k * rounds,) * 2)]
             continue
         turns = n * rounds
         out.append((name, "cut_act up / cut_grad down", (LB // m, LS, d),
-                    f32, 2 * m * turns))
+                    f32, (2 * m * turns,) * 2))
         if n > 1 and schedule != "parallel":
-            out += [(name, "handoff", shape, f32, k * (turns - 1))
+            out += [(name, "handoff", shape, f32, (k * (turns - 1),) * 2)
                     for shape, k in Counter(_lm_leaves(
                         torch, arch, "client")).items()]
     return out
@@ -3165,14 +3216,14 @@ def _cli_plan(torch, path, arch, argv, steps) -> dict:
         k = 2 * m * turns * (2 if noise else 1)
         payloads.append((path, "cut_act up / cut_grad down"
                          + (" (and the noised re-pack)" if noise else ""),
-                         rows, cfg.dtype, k))
+                         rows, cfg.dtype, (k, k)))
         wire_k += k
         leaves = _cli_leaves(torch, cfg, a.cut)
         handoff = _int8_bytes([s for s, _ in leaves])
         if n > 1 and a.schedule != "parallel":
             for (shape, dt), c in Counter(leaves).items():
                 payloads.append((path, "handoff", shape, dt,
-                                 c * (turns - 1)))
+                                 (c * (turns - 1),) * 2))
                 wire_k += c * (turns - 1)
     want = {"wire_quant": wire_k, "wire_dequant": wire_k,
             "splitcat_linear_q8": 0, "splitcat_linear": 0,
@@ -3480,9 +3531,9 @@ def _resnet_plan(cfg, wire, n_clients):
 def _resnet_payloads(torch) -> list:
     turns, f32 = V_CLIENTS * V_ROUNDS, torch.float32
     return ([("resnet_vanilla_training", "cut_act up / cut_grad down",
-              CUT_SHAPE, f32, 2 * turns)]
+              CUT_SHAPE, f32, (2 * turns,) * 2)]
             + [("resnet_vanilla_training", f"handoff {leaf}", shape, f32,
-                k * (turns - 1)) for leaf, shape, k in R_LEAVES])
+                (k * (turns - 1),) * 2) for leaf, shape, k in R_LEAVES])
 
 
 def resnet_path(torch) -> dict:
@@ -3862,6 +3913,570 @@ def reduced_moe_against_cpu(torch, arch: str, device: str = "cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 3n: monolithic serving (the serve CLI's default mode)
+# ---------------------------------------------------------------------------
+
+MONO_PATH = "{}_monolithic_serving"
+# the dense configs served whole, each cut in depth only where its bf16
+# weights would not leave MONO_FREE_GIB of the card free
+MONO_ARCHS = ("chatglm3_6b", "qwen1_5_32b", "mistral_large_123b")
+MONO_FREE_GIB = 8
+MONO_RESERVE_GIB = 2        # caches, activations, logits, init's fp32 leaf
+
+
+def _serve_cli(torch, argv, cfg=None):
+    """`repro_torch.launch.serve.main(argv)` with its stdout captured and
+    echoed: (the run, its JSON summary parsed from the last line)."""
+    import io
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = serve.main(argv, cfg=cfg)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        print(f"  | {line}")
+    try:
+        summary = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"serve CLI {argv}: the last line is not a JSON object: "
+             f"{lines[-1:]}")
+    return run, summary
+
+
+def _mono_launches(cfg, runs: int = 2) -> dict:
+    """A monolithic CLI run's launches: its warmup and its timed run, each
+    one prefill and GEN - 1 decode steps, every forward 2 norms a layer
+    and the final norm; flash once a layer at prefill; no wire kernel."""
+    return {"rmsnorm": runs * GEN * (2 * cfg.n_layers + 1),
+            "flash_attention": runs * cfg.n_layers,
+            "wire_quant": 0, "wire_dequant": 0, "splitcat_linear_q8": 0,
+            "splitcat_linear": 0, "ssd_scan": 0}
+
+
+def _mono_depth(torch, cfg):
+    """The deepest N of `cfg`'s layers whose bf16 weights, with
+    MONO_RESERVE_GIB for the rest of serving, leave MONO_FREE_GIB of the
+    card free; from the bytes of the model on meta tensors."""
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import param_bytes
+
+    def size(n):
+        m = build_model(dataclasses.replace(cfg, n_layers=n))
+        return param_bytes(m.init(torch.Generator(), "meta"))
+    layer = size(2) - size(1)
+    base = size(1) - layer
+    total = torch.cuda.get_device_properties(0).total_memory
+    room = total - (MONO_FREE_GIB + MONO_RESERVE_GIB) * 2 ** 30 - base
+    return min(cfg.n_layers, int(room // layer)), layer, base
+
+
+def mono_run(torch, arch: str, cfg=None) -> dict:
+    """One monolithic CLI run at batch B, prompt PROMPT, GEN tokens, bf16
+    random weights from the CLI's seed: launches exact, the timings, the
+    peak, a profiled decode step.  Returns the result with the run."""
+    from repro_torch.kernels import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(PROMPT),
+            "--gen", str(GEN)]
+    ops.reset_launches()
+    run, summary = _serve_cli(torch, argv, cfg)
+    launches = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved_gib = torch.cuda.max_memory_reserved() / 2 ** 30
+    cfg = cfg or _config(arch)
+    hold_launches(launches, _mono_launches(cfg))
+    toks = run.tokens
+    if tuple(toks.shape) != (B, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        fail(f"{cfg.name} monolithic: tokens {tuple(toks.shape)} outside "
+             f"({B}, {GEN}) x [0, {cfg.vocab})")
+    want = {"arch", "batch", "prompt_len", "generated", "device", "mode",
+            "prefill_s", "decode_s", "decode_tok_per_s", "sample_tokens"}
+    if set(summary) != want or summary["device"] != \
+            torch.cuda.get_device_name(0):
+        fail(f"{cfg.name} monolithic: summary keys {sorted(summary)}")
+    step_ms = summary["decode_s"] / (GEN - 1) * 1e3
+    tok = toks[:, -1:]
+
+    def step():
+        nonlocal tok
+        tok = run.step(tok)
+    busy_ms = profile_device(torch, f"{cfg.name} monolithic decode step",
+                             step, step_ms / 1e3, steps=4)
+    print(f"  {cfg.name} monolithic ({summary['mode']}): prefill "
+          f"{summary['prefill_s']:.4f} s, decode {step_ms:.3f} ms a step = "
+          f"{summary['decode_tok_per_s']:.1f} tok/s, peak {peak_gib:.2f} GiB "
+          f"allocated ({reserved_gib:.2f} GiB reserved); launches "
+          f"{launches}")
+    return {"launches": launches, "layers": cfg.n_layers,
+            "prefill_s": summary["prefill_s"], "decode_step_ms": step_ms,
+            "decode_tok_per_s": summary["decode_tok_per_s"],
+            "busy_ms": busy_ms, "peak_gib": peak_gib,
+            "reserved_gib": reserved_gib, "run": run}
+
+
+def _config(arch):
+    from repro_torch.configs import get_config
+    return get_config(arch)
+
+
+def mono_path(torch) -> dict:
+    """phi4-mini whole through the serve CLI's default (monolithic) mode:
+    launches exact, its tokens bitwise those of a `ServeSession` over the
+    dense wire at cut 4 (nothing quantizes, so the cut is invisible).
+    Then ChatGLM3-6B and the reference's scaled qwen1_5_32b whole and
+    Mistral-Large-123B cut in depth the same way."""
+    from repro_torch.serve import ServePlan, ServeSession
+
+    out = {}
+    phi = mono_run(torch, "phi4_mini_3_8b")
+    scan = phi.pop("run").tokens
+    out[MONO_PATH.format("phi4_mini")] = phi
+    cfg = _config("phi4_mini_3_8b")
+    gen = torch.Generator(device="cuda").manual_seed(1)   # the CLI's prompt
+    prompts = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen,
+                            device="cuda")
+    sess = ServeSession(ServePlan(arch=cfg, cut=CUT, wire="", max_batch=B,
+                                  max_len=PROMPT + GEN + 1), 0,
+                        device="cuda")
+    split = sess.generate(prompts, GEN)
+    del sess
+    if not torch.equal(split, scan):
+        fail(f"monolithic tokens {scan.tolist()} != split dense-wire tokens "
+             f"{split.tolist()} at cut {CUT}")
+    print(f"  phi4-mini monolithic tokens == split (cut {CUT}, dense wire) "
+          f"tokens, bitwise ({B}x{GEN})")
+    for arch in MONO_ARCHS:
+        cfg = _config(arch)
+        n, layer, base = _mono_depth(torch, cfg)
+        print(f"  {cfg.name}: {layer / 1e9:.3f} GB a layer, {base / 1e9:.3f} "
+              f"GB outside the layers; the deepest depth that leaves "
+              f"{MONO_FREE_GIB} GiB free is {n} of its {cfg.n_layers} layers")
+        if n < cfg.n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n)
+        print(f"monolithic serving: {cfg.name} {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+              f"{cfg.resolved_head_dim}, SwiGLU {cfg.d_ff}, vocab "
+              f"{cfg.vocab}, qkv_bias {cfg.qkv_bias}, rope_fraction "
+              f"{cfg.rope_fraction}, "
+              f"rope_theta {cfg.rope_theta:g}, {cfg.dtype}")
+        res = mono_run(torch, arch, cfg=cfg)
+        del res["run"]
+        total_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+        if total_gib - res["peak_gib"] < MONO_FREE_GIB:
+            fail(f"{cfg.name} at {cfg.n_layers} layers: peak "
+                 f"{res['peak_gib']:.2f} GiB leaves less than "
+                 f"{MONO_FREE_GIB} GiB of {total_gib:.2f} free")
+        out[MONO_PATH.format(arch)] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3o: continuous batching (the Batcher, per-row cache cursors)
+# ---------------------------------------------------------------------------
+
+BAT_PATH = "batcher_serving"
+BAT_SLOTS, BAT_TENANTS = 8, 12
+BAT_PROMPTS, BAT_NEW = (16, 256), (8, 48)
+BAT_MAX_LEN = BAT_PROMPTS[1] + BAT_NEW[1] + 1
+# a batched row's largest logit difference from its solo B=1 row, as a
+# share of the solo top logit: 3x the 0.0168 read on the H100 80GB HBM3
+# (700 W) while the streams agreed; a wrong server step differs by O(1)
+BAT_SOLO_REL = 0.05
+# the reduced card == CPU runs: (arch, reduced() overrides, fused entry)
+BAT_REDUCED = [("phi4_mini_3_8b", dict(vocab=97), True),
+               ("mamba2_130m", dict(vocab=97), False),
+               ("recurrentgemma_2b", dict(vocab=97, n_layers=6, window=8),
+                False),
+               ("deepseek_v2_236b", dict(vocab=97, qk_rope_head_dim=32),
+                False)]
+
+
+def bat_tenants(n=BAT_TENANTS, prompts=BAT_PROMPTS, new=BAT_NEW,
+                seed=SEED) -> list:
+    """The queue: (prompt length, max_new) per tenant, seeded."""
+    import random
+
+    rng = random.Random(seed)
+    return [(rng.randint(*prompts), rng.randint(*new)) for _ in range(n)]
+
+
+def bat_schedule(tenants: list, slots: int) -> list:
+    """The live tenants at each step of `run_queue` (no EOS): seat while a
+    slot is free, step, free the slots whose budget is spent."""
+    left = [n for _, n in tenants]          # tokens still to make
+    queue, live, steps = list(range(len(tenants))), [], []
+    while queue or live:
+        while queue and len(live) < slots:
+            t = queue.pop(0)
+            left[t] -= 1                      # the prefill's token
+            if left[t]:
+                live.append(t)
+        if not live:
+            continue
+        steps.append(len(live))
+        for t in live:
+            left[t] -= 1
+        live = [t for t in live if left[t]]
+    return steps
+
+
+def bat_payloads(torch) -> list:
+    """The Batcher's wire payloads a counted run, (quantize, dequantize)
+    launches each: every join's prefill activation and last logits; a
+    step's B=1 client rows up (one quantize each, plus the pad row's once
+    a run), the stacked (slots, 1, d) payload dequantized once for the
+    residual (the q8 entry reads its int8 rows), and the stacked logits
+    both ways."""
+    cfg = _config("phi4_mini_3_8b")
+    tenants = bat_tenants()
+    steps = bat_schedule(tenants, BAT_SLOTS)
+    d, v, bf16 = cfg.d_model, cfg.vocab, cfg.dtype
+    out = [(BAT_PATH, f"join up (prompt {s})", (1, s, d), bf16, (1, 1))
+           for s, _ in tenants]
+    return out + [
+        (BAT_PATH, "join down (logits)", (1, 1, v), bf16,
+         (len(tenants), len(tenants))),
+        (BAT_PATH, "step up (a tenant's row, the pad row once)", (1, 1, d),
+         bf16, (sum(steps) + 1, 0)),
+        (BAT_PATH, "step stacked up (residual)", (BAT_SLOTS, 1, d), bf16,
+         (0, len(steps))),
+        (BAT_PATH, "step down (stacked logits)", (BAT_SLOTS, 1, v), bf16,
+         (len(steps), len(steps)))]
+
+
+def run_queue(torch, batcher, prompts: list, budgets: list, after=None):
+    """Seat the queue's tenants in order while a slot is free, step, and
+    repeat until all have finished; `after(live)` runs after each step
+    with the slots that were live in it.  Returns (the Tenant objects in
+    queue order, the live count of each step)."""
+    tenants, steps, queue = [], [], list(zip(prompts, budgets))
+    while queue or batcher.tenants:
+        while queue and batcher.free_slots():
+            prompt, budget = queue.pop(0)
+            slot = batcher.join(prompt, budget)
+            tenants.append(batcher.tenants.get(slot) or batcher.finished[-1])
+        live = sorted(batcher.tenants)
+        if not live:
+            continue
+        batcher.step()
+        steps.append(len(live))
+        if after is not None:
+            after(live)
+    return tenants, steps
+
+
+def _bat_prompts(torch, tenants, vocab, device="cuda", seed=SEED + 2):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randint(0, vocab, (s,), generator=gen, device=device)
+            for s, _ in tenants]
+
+
+def _bat_want_launches(tenants, steps, cfg, cut) -> dict:
+    """Per join: the B=1 prefill (2 norms a layer and the final norm,
+    flash once a layer), its activation and last logits once each way.
+    Per step: each live tenant's client rows (2 norms a client layer, one
+    quantize), then the server at the fused entry (its first norm folded
+    into the scales, the final norm), the q8 entry once, the stacked
+    payload's dequantize for the residual, the logits both ways; the pad
+    row's quantize once a run."""
+    n, live = len(tenants), sum(steps)
+    server = cfg.n_layers - cut
+    return {"rmsnorm": n * (2 * cfg.n_layers + 1) + live * 2 * cut
+            + len(steps) * (2 * server - 1 + 1),
+            "flash_attention": n * cfg.n_layers,
+            "wire_quant": 2 * n + live + len(steps) + 1,
+            "wire_dequant": 2 * n + 2 * len(steps),
+            "splitcat_linear_q8": len(steps), "splitcat_linear": 0,
+            "ssd_scan": 0}
+
+
+def batcher_path(torch) -> dict:
+    """phi4-mini whole split at 4 over the physical int8 wire through the
+    fused entry, a `Batcher` of 8 slots serving a queue of 12 tenants
+    (prompts 16-256, 8-48 tokens, seeded): bytes and launches exact, row
+    independence bitwise, each tenant's logits at every step (its solo
+    tokens forced as inputs) within BAT_SOLO_REL of its solo B=1
+    stream's."""
+    from repro_torch.core.wire_compress import PackedInt8
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import Batcher, ServePlan, ServeSession
+
+    cfg = _config("phi4_mini_3_8b")
+    tenants = bat_tenants()
+    budgets = [n for _, n in tenants]
+    print(f"continuous batching: {cfg.name} {cfg.n_layers} layers, cut {CUT}, "
+          f"physical int8 wire, fused entry, {BAT_SLOTS} slots, "
+          f"{BAT_TENANTS} tenants (prompt, max_new) {tenants}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = build_model(cfg).init(gen, "cuda")
+    prompts = _bat_prompts(torch, tenants, cfg.vocab)
+
+    def session(slots=BAT_SLOTS):
+        return ServeSession(ServePlan(arch=cfg, cut=CUT,
+                                      wire="quantize_int8:physical",
+                                      max_batch=slots, max_len=BAT_MAX_LEN,
+                                      fused_entry=True), params,
+                            device="cuda")
+    sess = session()
+    warm = Batcher(sess)                          # warmup (kernel build)
+    run_queue(torch, warm, prompts[:2], [2, 2])
+    torch.cuda.synchronize()
+    del warm
+
+    # the counted, timed run
+    bat = Batcher(sess)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, steps = run_queue(torch, bat, prompts, budgets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    print(f"  {len(steps)} steps, live tenants a step {steps}")
+    if steps != bat_schedule(tenants, BAT_SLOTS):
+        fail(f"batcher steps {steps} != the schedule "
+             f"{bat_schedule(tenants, BAT_SLOTS)}")
+    hold_launches(launches, _bat_want_launches(tenants, steps, cfg, CUT))
+    print(f"  launches exact: {launches}")
+    lens = [len(t.tokens) for t in done]
+    if lens != budgets:
+        fail(f"batcher token counts {lens} != max_new {budgets}")
+    up_row, down_row = cfg.d_model + 4, cfg.vocab + 4
+    want_bytes = sum(s * up_row + down_row + (n - 1) * (up_row + down_row)
+                     for s, n in tenants)
+    if bat.bytes_up + bat.bytes_down != want_bytes or \
+            bat.tokens_generated != sum(budgets):
+        fail(f"batcher bytes {bat.bytes_up} + {bat.bytes_down} != "
+             f"{want_bytes} or tokens {bat.tokens_generated} != "
+             f"{sum(budgets)}")
+    tok_s = bat.tokens_generated / wall
+    print(f"  bytes exact: up {bat.bytes_up} + down {bat.bytes_down} = "
+          f"{want_bytes}, {bat.tokens_generated} tokens, "
+          f"{bat.bytes_per_token:.1f} B a token; {wall:.3f} s wall = "
+          f"{tok_s:.1f} tok/s (joins included)")
+
+    # each tenant's solo B=1 stream, and the fp32 logits behind each of
+    # its tokens (before the down wire)
+    solo_sess = session(1)
+    solo, solo_logits, kept = [], [], []
+
+    def keep(fn):
+        def kept_record(wires, name, t, direction):
+            if name in ("prefill_logits", "logits"):
+                kept.append(t[0, -1].float())
+            return fn(wires, name, t, direction)
+        return kept_record
+    with patched({("repro_torch.serve.split_infer", "record"): keep}):
+        for prompt, n in zip(prompts, budgets):
+            kept.clear()
+            solo.append(solo_sess.generate(prompt[None], n)[0].tolist())
+            solo_logits.append(kept[:n])
+    del solo_sess
+    for s, t in zip(solo, done):
+        if s[0] != t.tokens[0]:
+            fail(f"tenant in slot {t.slot}: first token {t.tokens[0]} != "
+                 f"solo {s[0]} (both prefills run at B=1)")
+
+    # row independence and the solo check, on one pair of runs: the queue
+    # twice in lockstep, run b with random packed pad rows, each live
+    # tenant's next input forced to its solo token in both, so every step
+    # of every tenant reads its solo stream's inputs.  After every step
+    # every token and every live cache row is bitwise the same in a and b
+    a, b = Batcher(sess), Batcher(sess)
+    rnd = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    b._pad_part = PackedInt8(
+        torch.randint(-127, 128, (1, 1, cfg.d_model), generator=rnd,
+                      device="cuda", dtype=torch.int8),
+        torch.rand((1, 1, 1), generator=rnd, device="cuda") + 0.01,
+        cfg.dtype)
+    n_rows = [0]
+
+    def same_rows(live):
+        idx = torch.tensor(live, device="cuda")
+        for ga, gb in zip(a._sc, b._sc):
+            for la, lb in zip(ga, gb):
+                for i, leaves in la.items():
+                    for k, va in leaves.items():
+                        if not torch.equal(va[idx], lb[i][k][idx]):
+                            fail(f"row independence: cache leaf {k} of "
+                                 f"live slots {live} differs with random "
+                                 "pad rows")
+        n_rows[0] += len(live)
+    # run a's logits as its slots receive them, before the down wire, and
+    # its tokens, by queue index
+    stack_apply, capture = sess.stack.apply, [None]
+    forced = [[] for _ in tenants]
+    picks = [[] for _ in tenants]
+
+    def apply(t, name, direction):
+        if name == "logits" and capture[0] is not None:
+            for slot, k in capture[0].items():
+                forced[k].append(t[slot, -1].float())
+        return stack_apply(t, name, direction)
+    sess.stack.apply = apply
+    queue_a, queue_b = list(range(len(tenants))), list(range(len(tenants)))
+    seat = {}
+    while queue_a or a.tenants:
+        while queue_a and a.free_slots():
+            k = queue_a.pop(0)
+            seat[a.join(prompts[k], budgets[k])] = k
+        while queue_b and b.free_slots():
+            k = queue_b.pop(0)
+            if seat.get(b.join(prompts[k], budgets[k])) != k:
+                fail("row independence: the two runs seat different slots")
+        live = sorted(a.tenants)
+        if sorted(b.tenants) != live:
+            fail("row independence: the two runs seat different slots")
+        capture[0] = {slot: seat[slot] for slot in live}
+        out_a = a.step()
+        capture[0] = None
+        out_b = b.step()
+        if out_a != out_b:
+            fail(f"row independence: tokens {out_a} != {out_b} with random "
+                 "pad rows")
+        same_rows(live)
+        for slot in live:
+            k = seat[slot]
+            picks[k].append(out_a[slot])
+            if slot in a.tenants:            # not finished: force its input
+                tok = solo[k][len(picks[k])]
+                cur = torch.tensor([[tok]], device="cuda")
+                for bt in (a, b):
+                    bt.tenants[slot].tokens[-1] = tok
+                    bt.tenants[slot].cur = cur
+    if [len(p) + 1 for p in picks] != budgets:
+        fail(f"forced run token counts {[len(p) + 1 for p in picks]} != "
+             f"max_new {budgets}")
+    print(f"  row independence: random pad rows leave every live token and "
+          f"every live cache row ({n_rows[0]} slot-steps, all "
+          f"{cfg.n_layers - CUT} server layers) bitwise the same")
+    del sess.stack.apply
+    del a, b
+
+    # run a against the solo streams.  Their inputs are equal at every
+    # step; only the server's GEMMs differ (M = 8 rows against M = 1), so
+    # a row's logits must be within BAT_SOLO_REL of the solo top logit,
+    # and its token the solo one wherever the solo argmax, lowered by its
+    # difference, clears every other logit, raised by its own, by more
+    # than one int8 level of the down wire
+    rel, held, equal = [], 0, 0
+    for k, n in enumerate(budgets):
+        for i in range(1, n):
+            want, got = solo_logits[k][i], forced[k][i - 1]
+            d = (got - want).abs()
+            j = int(torch.argmax(want))
+            rel.append(d.max().item() / abs(want[j].item()))
+            if rel[-1] > BAT_SOLO_REL:
+                fail(f"tenant {k}, token {i}: the batched logits differ "
+                     f"from the solo ones by {rel[-1]:.4g} of the top "
+                     f"logit, above {BAT_SOLO_REL}")
+            rival = want + d
+            rival[j] = -math.inf
+            gap = (want[j] - d[j] - rival.max()).item()
+            level = max(want.abs().max().item(),
+                        got.abs().max().item()) / 127
+            if gap > level:
+                held += 1
+                if picks[k][i - 1] != solo[k][i]:
+                    fail(f"tenant {k}: token {i} {picks[k][i - 1]} != solo "
+                         f"{solo[k][i]}, though the solo argmax clears "
+                         f"every other logit by {gap:.4g} after the runs' "
+                         f"differences, more than an int8 level "
+                         f"({level:.4g})")
+            equal += picks[k][i - 1] == solo[k][i]
+    # the counted run: while a tenant's tokens so far are its solo ones,
+    # its inputs are run a's (and rows are independent), so its next
+    # token is run a's, bitwise
+    matched, total, prefix = 0, 0, 0
+    for k, t in enumerate(done):
+        for i in range(1, budgets[k]):
+            if t.tokens[:i] != solo[k][:i]:
+                break
+            prefix += 1
+            if t.tokens[i] != picks[k][i - 1]:
+                fail(f"tenant {k}: the counted run's token {i} "
+                     f"{t.tokens[i]} != the forced run's "
+                     f"{picks[k][i - 1]} on the same inputs")
+        matched += sum(x == y for x, y in zip(solo[k], t.tokens))
+        total += budgets[k]
+    print(f"  against each tenant's solo B=1 stream: first tokens equal; "
+          f"with the solo inputs forced, a row's logits within "
+          f"{max(rel):.4g} of the solo top logit at most (limit "
+          f"{BAT_SOLO_REL}, median {statistics.median(rel):.4g}, "
+          f"{len(rel)} tokens), {equal}/{len(rel)} tokens the solo ones, "
+          f"all {held} whose solo argmax clears the difference and an int8 "
+          f"level; the counted run == the forced run on its {prefix} "
+          f"steps with solo inputs; {matched}/{total} = "
+          f"{matched / total:.3f} of the counted run's tokens equal to solo")
+
+    # a full step's busy share: all slots live
+    prof = Batcher(sess)
+    for prompt in prompts[:BAT_SLOTS]:
+        prof.join(prompt, 64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(6):
+        prof.step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 6
+    busy_ms = profile_device(torch, f"batcher step ({BAT_SLOTS} live)",
+                             prof.step, step_s, steps=4)
+    del prof, sess, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": len(steps), "wall_s": wall,
+            "tok_per_s": tok_s, "full_step_ms": step_s * 1e3,
+            "busy_ms": busy_ms, "bytes": want_bytes,
+            "tokens": bat.tokens_generated,
+            "solo_match_fraction": matched / total,
+            "solo_logit_diff_max": max(rel), "solo_rel_limit": BAT_SOLO_REL}
+
+
+def reduced_batcher_against_cpu(torch):
+    """Reduced fp32 models under one join schedule (7 tenants, 3 slots,
+    prompts 5-19, 3-8 tokens, seeded) served by the `Batcher` on the card
+    and on the CPU from the same weights over the physical wire: the same
+    streams token for token (phi4-mini through the fused entry, Mamba2,
+    RecurrentGemma with an 8-row window that wraps per row, DeepSeek-V2's
+    MLA per row at the flash kernel's (64, 32) pair)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Batcher, ServePlan, ServeSession
+
+    tenants = bat_tenants(7, (5, 19), (3, 8), seed=SEED + 4)
+    budgets = [n for _, n in tenants]
+    for arch, red, fused in BAT_REDUCED:
+        cfg = get_config(arch).reduced(**red)
+        params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                       "cpu")
+        prompts = _bat_prompts(torch, tenants, cfg.vocab, "cpu")
+        plan = ServePlan(arch=cfg, wire="quantize_int8:physical",
+                         max_batch=3, max_len=30, fused_entry=fused)
+        streams = {}
+        for device in ("cpu", "cuda"):
+            bat = Batcher(ServeSession(plan, params, device=device))
+            done, _ = run_queue(torch, bat, [p.to(device) for p in prompts],
+                                budgets)
+            streams[device] = [t.tokens for t in done]
+        if streams["cpu"] != streams["cuda"]:
+            fail(f"reduced {cfg.name} batcher: card streams "
+                 f"{streams['cuda']} != CPU streams {streams['cpu']}")
+        print(f"reduced {cfg.name} batcher, card == CPU plain path: "
+              f"{streams['cpu']}")
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3950,6 +4565,9 @@ def main():
     for letter, arch in zip("lm", MOE_RUNS):
         moe[arch] = phase(f"3{letter}", moe_path, torch, arch)
         phase(f"3{letter} reduced", reduced_moe_against_cpu, torch, arch)
+    mono = phase("3n", mono_path, torch)
+    bat = phase("3o", batcher_path, torch)
+    phase("3o reduced", reduced_batcher_against_cpu, torch)
 
     # the wire launches per payload add up to what each path was held to
     paths = (("serving", run), ("training", train), ("ssm_serving", ssm),
@@ -3960,10 +4578,11 @@ def main():
              *((path_name(m, sc), r) for (m, sc), r in sched.items()),
              *((_lm_path_name(a, m, sc), r) for (a, m, sc), r in lm.items()),
              *cli.items(), ("resnet_vanilla_training", resnet),
-             *((MOE_RUNS[arch].path, r) for arch, r in moe.items()))
+             *((MOE_RUNS[arch].path, r) for arch, r in moe.items()),
+             *mono.items(), (BAT_PATH, bat))
     for path, res in paths:
-        want = sum(p[-1] for p in payloads if p[0] == path)
-        for name in ("wire_quant", "wire_dequant"):
+        for i, name in enumerate(("wire_quant", "wire_dequant")):
+            want = sum(p[-1][i] for p in payloads if p[0] == path)
             if res["launches"][name] != want:
                 fail(f"{path}: {res['launches'][name]} {name} launches, "
                      f"but its payloads in phase 2 add up to {want}")

@@ -19,7 +19,9 @@ and the port's.
   "h"}`, the attention ring's `{"k", "v", "pos"}` and MLA's compressed
   ring `{"c_kv", "k_pe", "pos"}`; each leaf keeps its dtype (a conv
   window and the rings the model's, a state float32), and a ring's `pos`
-  is a host int in the port, an int32 in the reference.
+  is a host int in the port, an int32 in the reference; a per-row cursor
+  (`per_slot_pos`, the `Batcher`'s stacked cache) is a (B,) int32 in
+  both, and `caches_to_numpy` carries it over.
 * A whole LM training state (`lm_state_from_jax` / `lm_state_to_numpy`):
   a `Plan` over `lm_split_fns` or over the LM's `FullFns` keeps each
   "groups" list in the LM layout above, inside trees that are otherwise

@@ -15,7 +15,8 @@ import torch
 
 # arch ids whose config module the port carries so far
 PORTED_ARCH_IDS = ["phi4_mini_3_8b", "mamba2_130m", "recurrentgemma_2b",
-                   "qwen3_moe_30b_a3b", "deepseek_v2_236b"]
+                   "qwen3_moe_30b_a3b", "deepseek_v2_236b", "chatglm3_6b",
+                   "qwen1_5_32b", "mistral_large_123b"]
 
 
 @dataclasses.dataclass(frozen=True)

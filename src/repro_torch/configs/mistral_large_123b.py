@@ -1,0 +1,10 @@
+"""Mistral-Large-123B [hf:mistralai/Mistral-Large-Instruct-2407]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="mistral-large-123b", family="dense",
+    n_layers=88, d_model=12288, n_heads=96, n_kv_heads=8, head_dim=128,
+    d_ff=28672, vocab=32768, rope_theta=1000000.0,
+    long_window=8192,          # Mistral's own SWA heritage
+    default_cut=4,
+    source="hf:mistralai/Mistral-Large-Instruct-2407")

@@ -14,9 +14,10 @@ Caches follow the same layout.
 Split hooks: `split_params(params, cut)` gives the client the embedding
 and layers [0, cut) and the server the rest plus the final norm and the
 head.  Training runs the no-cache forward (`forward`, `loss`, and the
-halves `apply_client` / `apply_server`); serving prefills and decodes
-each half against its own caches.  Either way only the cut activation
-crosses.  The port builds the dense family, the MoE family (Qwen3-MoE's
+halves `apply_client` / `apply_server`); monolithic serving prefills and
+decodes the whole model (`init_cache`, `prefill`, `decode_step`), split
+serving each half against its own caches.  Either way only the cut
+activation crosses.  The port builds the dense family, the MoE family (Qwen3-MoE's
 GQA + MoE blocks; DeepSeek-V2's MLA blocks, a dense first group, then
 MoE with shared experts), the SSM family (Mamba2) and the hybrid family
 (RecurrentGemma's composite super-blocks).  Each block's returned cache
@@ -184,6 +185,28 @@ def group_prefill(params: list, g: GroupSpec, x, caches: list):
     return x, caches
 
 
+def per_slot_pos(caches, batch: int):
+    """Turn every `pos` cursor of a cache tree (an int) into a (batch,)
+    int32 tensor on its ring's device, in place, and return the tree: the
+    layout of the serving `Batcher`, whose stacked slots each advance
+    their own position (`nn.attention.gqa_decode`).  Recurrent caches
+    (Mamba2, RG-LRU) carry no cursor and pass through unchanged."""
+    def walk(t):
+        if isinstance(t, dict):
+            if "pos" in t and not isinstance(t["pos"], torch.Tensor):
+                ring = next(v for v in t.values()
+                            if isinstance(v, torch.Tensor))
+                t["pos"] = torch.full((batch,), t["pos"], dtype=torch.int32,
+                                      device=ring.device)
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+    walk(caches)
+    return caches
+
+
 # ---------------------------------------------------------------------------
 # The LM
 # ---------------------------------------------------------------------------
@@ -232,6 +255,27 @@ class LM:
         if mask is not None:
             return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
         return nll.mean()
+
+    # ---- monolithic serving ----
+    def init_cache(self, batch: int, max_len: int, device=None):
+        return [group_init_cache(g, batch, max_len, device)
+                for g in self.groups]
+
+    def prefill(self, params, batch, caches):
+        """One teacher-forced forward that fills `caches` (every attention
+        layer launches flash once).  Returns (logits (B, S, V), caches);
+        logits[:, -1] picks the first generated token."""
+        x = self.embed(params, batch)
+        for g, gp, c in zip(self.groups, params["groups"], caches):
+            x, _ = group_prefill(gp, g, x, c)
+        return self.head(params, x), caches
+
+    def decode_step(self, params, tokens, caches):
+        """tokens (B, 1) -> (logits (B, 1, V), caches)."""
+        x = L.embedding_apply(params["embed"], tokens)
+        for g, gp, c in zip(self.groups, params["groups"], caches):
+            x, _ = group_decode(gp, g, x, c)
+        return self.head(params, x), caches
 
     def flat_layers(self) -> int:
         return sum(g.n_layers for g in self.groups)

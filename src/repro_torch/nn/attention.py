@@ -15,11 +15,15 @@ Decode attends plainly, as the reference does: GQA with
 `grouped_attention` over the ring, MLA with the absorbed weights against
 the compressed cache in float32.  Unlike the reference, which returns
 new caches, the port writes the new rows into the cache tensors in place
-and advances `pos`, a host integer (one cursor for the whole batch), so
-decode never reads a device value back.  A sliding-window ring holds
-`min(max_len, window)` rows, indexed `pos % cache_len`.  Native-dtype
-caches only: the int8 KV cache, cross-attention and the
-sequence-sharded decode wait for later slices.
+and advances `pos`.  `pos` is either a host integer, one cursor for the
+whole batch, or a (B,) int32 tensor on the cache's device, one cursor
+per row (`models.lm.per_slot_pos`: the serving `Batcher` keeps tenants
+at their own positions in one stacked cache); either way decode never
+reads a device value back.  A sliding-window ring holds
+`min(max_len, window)` rows, indexed `pos % cache_len` (per row, so
+each row's ring wraps on its own).  Native-dtype caches only: the int8
+KV cache, cross-attention and the sequence-sharded decode wait for
+later slices.
 """
 from __future__ import annotations
 
@@ -119,26 +123,48 @@ def gqa_init_cache(cfg: AttnConfig, batch: int, max_len: int, device=None):
             "pos": 0}
 
 
-def _ring_put(buf: torch.Tensor, val: torch.Tensor, slot: int) -> None:
-    """Write the one-token rows `val` (B, 1, ...) at ring slot `slot`,
-    in place."""
-    buf[:, slot] = val[:, 0]
+def _per_row(pos) -> bool:
+    """Whether `pos` is the per-row (B,) cursor rather than one int."""
+    return isinstance(pos, torch.Tensor)
 
 
-def _valid_mask(pos: int, cache_len: int, batch: int,
+def _positions(pos, batch: int, device) -> torch.Tensor:
+    """(B, 1) rope positions of the token being decoded."""
+    if _per_row(pos):
+        return pos[:, None]
+    return torch.full((batch, 1), pos, dtype=torch.int32, device=device)
+
+
+def _ring_put(buf: torch.Tensor, val: torch.Tensor, slot) -> None:
+    """Write the one-token rows `val` (B, 1, ...) at ring slot `slot`, in
+    place: one int for the whole batch, or (B,) slots, one per row."""
+    if _per_row(slot):
+        buf[torch.arange(buf.shape[0], device=buf.device),
+            slot.long()] = val[:, 0]
+    else:
+        buf[:, slot] = val[:, 0]
+
+
+def _valid_mask(pos, cache_len: int, batch: int,
                 device=None) -> torch.Tensor:
-    """(B, 1, T) attend-mask over the ring: index < min(pos+1, len)."""
+    """(B, 1, T) attend-mask over the ring: index < min(pos+1, len), with
+    `pos` one int or (B,) per row."""
     idx = torch.arange(cache_len, device=device)
+    if _per_row(pos):
+        valid = idx[None, :] < torch.clamp_max(pos + 1, cache_len)[:, None]
+        return valid[:, None, :]
     valid = (idx < min(pos + 1, cache_len))[None, :]
     return valid[:, None, :].expand(batch, 1, cache_len)
 
 
 def gqa_decode(params, cfg: AttnConfig, x, cache, *, qkv=None):
     """One-token decode.  x: (B, 1, D).  Sliding-window caches are ring
-    buffers indexed mod window.  `qkv` optionally supplies the flat
-    pre-rope (q, k, v) projections, shapes (B, 1, H*hd) / (B, 1, K*hd):
-    the serving engine's fused entry computes them from the int8 wire
-    payload.  Updates `cache` in place and returns (y, cache)."""
+    buffers indexed mod window.  `cache["pos"]` is one int for the batch
+    or a (B,) tensor, each row at its own position.  `qkv` optionally
+    supplies the flat pre-rope (q, k, v) projections, shapes
+    (B, 1, H*hd) / (B, 1, K*hd): the serving engine's fused entry
+    computes them from the int8 wire payload.  Updates `cache` in place
+    and returns (y, cache)."""
     B = x.shape[0]
     if qkv is None:
         q, k, v = _qkv(params, cfg, x)
@@ -148,7 +174,7 @@ def gqa_decode(params, cfg: AttnConfig, x, cache, *, qkv=None):
         k = k.reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
         v = v.reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
     pos = cache["pos"]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    positions = _positions(pos, B, x.device)
     q = apply_rope(q, positions, theta=cfg.rope_theta,
                    fraction=cfg.rope_fraction)
     k = apply_rope(k, positions, theta=cfg.rope_theta,
@@ -303,14 +329,15 @@ def mla_init_cache(cfg: AttnConfig, batch: int, max_len: int, device=None):
 def mla_decode(params, cfg: AttnConfig, x, cache):
     """Absorbed-weight decode: the scores are taken against the
     compressed cache c_kv in float32 (wk_b folded into q, wv_b applied
-    after the weighted sum), never a per-token K or V.  Updates `cache`
-    in place and returns (y, cache)."""
+    after the weighted sum), never a per-token K or V.  As in
+    `gqa_decode`, `cache["pos"]` is one int or (B,) per row.  Updates
+    `cache` in place and returns (y, cache)."""
     B = x.shape[0]
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
     pos = cache["pos"]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    positions = _positions(pos, B, x.device)
     q_nope, q_pe = _mla_q(params, cfg, x)                # (B,1,H,dn|dr)
     q_pe = apply_rope(q_pe, positions, theta=cfg.rope_theta)
     c_new, kpe_new = _mla_kv(params, cfg, x, positions)

@@ -59,10 +59,11 @@ def mix_seed(*words: int) -> int:
 
 def normal_init(gen, shape, dtype, stddev: float = 0.02, device=None):
     """Normal(0, stddev) drawn in float32 on `device` (default: the
-    generator's), then cast."""
+    generator's), then cast: one float32 copy of the leaf at a time (the
+    scaling is in place)."""
     device = gen.device if device is None else device
     w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (w * stddev).to(dtype)
+    return w.mul_(stddev).to(dtype)
 
 
 def lecun_init(gen, shape, dtype, fan_in: int | None = None, device=None):

@@ -16,7 +16,8 @@ q feeds the fused q8 QKV kernel (`_fused_server_decode`).
 Runs on the GPU unless the caller passes `device="cpu"`; without a
 visible GPU and without that, the session raises.  Prefill is one
 teacher-forced forward per half; decode is a Python loop of steps (the
-reference scans).  The port serves the dense family (phi4-mini), the
+reference scans).  The port serves the dense family (phi4-mini,
+ChatGLM3-6B, Qwen1.5-32B, Mistral-Large-123B), the
 MoE family (Qwen3-MoE: GQA + MoE blocks; DeepSeek-V2: MLA blocks with a
 compressed cache, a dense first layer, then MoE with shared experts),
 the SSM family (Mamba2) and the hybrid family (RecurrentGemma: RG-LRU
@@ -64,6 +65,23 @@ def _tree_map(fn, tree):
     return tree
 
 
+@torch.no_grad()
+def greedy_decode_scan(model, params, cache, first_token, steps: int):
+    """Monolithic greedy decode: `steps` tokens after `first_token` (B, 1),
+    each step's argmax written on the device into a preallocated (B,
+    steps) tensor, so no step reads a value back to the host.  The
+    reference compiles this loop into one `lax.scan`; here it is a loop
+    of `model.decode_step` launches.  Returns ((B, steps) tokens, cache)."""
+    out = torch.empty((first_token.shape[0], steps), dtype=torch.long,
+                      device=first_token.device)
+    tok = first_token
+    for i in range(steps):
+        logits, cache = model.decode_step(params, tok, cache)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out[:, i] = tok[:, 0]
+    return out, cache
+
+
 @dataclasses.dataclass(frozen=True)
 class ServePlan:
     """Declarative split-serving config -> `ServeSession`.
@@ -73,7 +91,8 @@ class ServePlan:
                   (None = the arch's default cut);
     wire        — `parse_wire` spec ("quantize_int8:physical"), a
                   transform sequence, or a `WireStack`; "" = dense wire;
-    max_batch   — batch rows `decode_cost()` prices by default;
+    max_batch   — batch rows `decode_cost()` prices by default (the
+                  `Batcher`'s slot count);
     max_len     — KV ring length (prompt + generation budget; a
                   sliding window's ring is at most the window); SSM and
                   RG-LRU caches do not depend on it;

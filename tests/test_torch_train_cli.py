@@ -111,7 +111,7 @@ def test_cli_refusals():
     for argv in (["--mode", "split", "--fleet"],
                  ["--mode", "monolithic", "--fleet"],
                  ["--mode", "split", "--topology", "u_shaped"],
-                 ["--arch", "chatglm3_6b"]):
+                 ["--arch", "internvl2_2b"]):
         full = ["--arch", ARCH, "--reduced", "--steps", "1", "--device",
                 "cpu"] + argv
         with pytest.raises(SystemExit, match="ROADMAP.md"):
