@@ -26,12 +26,15 @@ Phases, each of which ends the run with a nonzero exit on any error:
    Mistral-Large's group of 12)
    within the stated tolerances; each kernel's median
    time beside the plain version's, its bound and, where one PyTorch call
-   computes the same function, that call's time.  Then the training
-   gradient of rmsnorm, flash attention and the SSD at the LM training
-   shapes (fp32, every input requiring grad): one kernel launch and a
-   grad_fn, no launch in backward, and the plain version's autograd
-   gradients within rtol 1e-5; the backward timed beside `F.rms_norm`'s
-   and `scaled_dot_product_attention`'s.  The same in bf16 at the
+   computes the same function, that call's time; rmsnorm's rows 0-3
+   bitwise the same among 1, 4, 8 and 512 rows at every width.  Then the
+   training gradient of rmsnorm, flash attention and the SSD at the LM
+   training shapes (fp32, every input requiring grad): one kernel launch
+   and a grad_fn, rmsnorm's two backward kernels (bitwise the same on a
+   second call; timed alone beside their bound) and no launch in flash's
+   or the SSD's backward, and the plain version's autograd gradients
+   within rtol 1e-5; the backward timed beside `F.rms_norm`'s and
+   `scaled_dot_product_attention`'s.  The same in bf16 at the
    training CLI's shapes (batch 8 x seq 512, RecurrentGemma's windowed
    attention, the SSD at chunk 256 and 64), within rtol 2**-7.
 3. Serving: phi4-mini-3.8B at full width (all 32 layers, bf16, random
@@ -147,8 +150,9 @@ Phases, each of which ends the run with a nonzero exit on any error:
    `wire_report` bills 4 x 512 x (d + 4) B each way a turn, Mamba2's
    handoff the analytic sum over its client's 37 leaves (105,380,640 B)
    with `client_gb` exact, launches exact (rmsnorm 49 and ssd_scan 24 a
-   Mamba2 forward, rmsnorm 9 and flash_attention 4 a phi4-mini one, none
-   in backward, the wire kernels 2 a turn plus the handoff's leaves),
+   Mamba2 forward, rmsnorm 9 and flash_attention 4 a phi4-mini one,
+   rmsnorm_bwd 2 an rmsnorm in backward and nothing else there, the wire
+   kernels 2 a turn plus the handoff's leaves),
    physical == fake bitwise over 3 rounds under deterministic algorithms,
    a round's time and one profiled round.  Then Mamba2 over 3 rounds
    pipelined at M=2 (its meter equal to round-robin's over the same 3
@@ -256,6 +260,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
 L2_BYTES = 50 * 2 ** 20             # the H100 SXM's L2
 L2_COPIES = 4                       # 4 x 31.5 MB of W > the 50 MB L2
+# kernels one rmsnorm backward call launches when x and scale both need a
+# gradient (kernels/rmsnorm.py: rmsnorm_bwd_rows, then rmsnorm_bwd_cols)
+RMS_BWD_KERNELS = 2
 
 
 def fail(msg: str):
@@ -275,13 +282,16 @@ def card_line() -> str:
 # timing
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fns, *, calls: int = 24, reps: int = 15) -> float:
+def time_ms(torch, fns, *, calls: int = 24, reps: int = 15,
+            keep: bool = False) -> float:
     """Device time of one call: `calls` back-to-back calls, cycling
     through `fns`, are captured in one CUDA graph, and the median over
     `reps` replays (CUDA events around each) is divided by `calls`.  The
     graph keeps the host's launch overhead out of the number.  Cycling
     through inputs that together exceed the 50 MB L2 makes each call
-    find its inputs cold, as the real caller does."""
+    find its inputs cold, as the real caller does; with `keep`, every
+    call's output stays allocated while the graph lives, so no call
+    writes where an earlier one did and found it in L2 (`cold_copies`)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -289,9 +299,12 @@ def time_ms(torch, fns, *, calls: int = 24, reps: int = 15) -> float:
             f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    kept = []
     with torch.cuda.graph(graph):
         for i in range(calls):
-            fns[i % len(fns)]()
+            out = fns[i % len(fns)]()
+            if keep:
+                kept.append(out)
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -303,8 +316,17 @@ def time_ms(torch, fns, *, calls: int = 24, reps: int = 15) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
-    del graph
+    del graph, kept
     return statistics.median(times)
+
+
+def cold_copies(n_bytes: int, most: int = 64) -> int:
+    """Copies of a call's inputs that, cycled through by `time_ms` with
+    `keep`, move more than the L2 holds between two uses of one copy, for
+    a call that moves `n_bytes`; 0 where that takes more than `most`
+    copies (a decode row: a few KB, bound by the launch, timed warm)."""
+    k = 1 + L2_BYTES // n_bytes
+    return k if k <= most else 0
 
 
 def bound_ms(n_bytes: int, n_ops: float, op_type: str) -> tuple:
@@ -707,8 +729,17 @@ def check_splitcat(torch, gen) -> tuple:
                        "bf16" if wd == torch.bfloat16 else "fp32")
         held = "1e-4" if od == torch.float32 else "1 bf16 ulp"
         cold = "; W cold in L2" if len(copies) > 1 else ""
+        # one part and no bias: torch.matmul of the upcast payload times
+        # its row scales computes the same function
+        lib_ = ""
+        if len(widths) == 1 and not bias:
+            t_lib_ = time_ms(torch, [
+                lambda wi=wi: torch.matmul(qs_[0].to(wd), wi) * ss_[0]
+                for wi in copies])
+            lib_ = f", library {t_lib_:.4f} ms"
         print(f"splitcat_linear_q8 {tag}: {held}; kernel {t_:.4f} ms, plain "
-              f"{t_plain_:.4f} ms, bound {b_n[0]:.4f} ms ({b_n[1]}){cold}")
+              f"{t_plain_:.4f} ms{lib_}, bound {b_n[0]:.4f} ms "
+              f"({b_n[1]}){cold}")
         del copies
     return max_err, (t, t_plain, t_lib, b)
 
@@ -784,9 +815,12 @@ def check_rmsnorm(torch) -> tuple:
     """rmsnorm against its plain version: float32 at rtol 1e-5 (atol
     1e-6), bf16 within 1 bf16 ulp of the float32 plain result on the
     same inputs (the kernel sums in another order and rsqrtf is within 2
-    ulp).  Timed at each shape; returns (max abs err against the plain
-    output in the same type, timings at the Mamba2 prefill's
-    (4,512,768) bf16)."""
+    ulp).  Timed at each shape, the kernel, the plain version and
+    `F.rms_norm` alike: cold in L2 at the prefill shapes, warm at decode
+    (`cold_copies`); then each width's rows 0-3 normalised among 1, 4, 8
+    and 512 rows must be bitwise equal.  Returns (max abs
+    err against the plain output in the same type, timings at the Mamba2
+    prefill's (4,512,768) bf16)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -824,19 +858,48 @@ def check_rmsnorm(torch) -> tuple:
                 if beyond:
                     fail(f"rmsnorm {tag}: {beyond} outputs beyond 1 bf16 ulp "
                          "of the float32 plain result")
-            t = time_ms(torch, [lambda: rmsnorm(x, sc)])
-            t_plain = time_ms(torch, [lambda: ref.rmsnorm_ref(x, sc)])
-            t_lib = (time_ms(torch, [lambda: F.rms_norm(
-                x.float(), shape[-1:], sc.float(), 1e-6).to(dtype)])
+            # a prefill's x and scale cold: copies cycled past the L2,
+            # every output kept; a decode row's warm (cold_copies)
+            k = cold_copies(nbytes(x, sc, y))
+            ins = [(x, sc)] + [(x.clone(), sc.clone()) for _ in range(k - 1)]
+
+            def timed(f):
+                return time_ms(torch, [lambda a=a, b=b: f(a, b)
+                                       for a, b in ins],
+                               calls=max(24, k), keep=k > 0)
+            t = timed(rmsnorm)
+            t_plain = timed(ref.rmsnorm_ref)
+            t_lib = (timed(lambda a, b: F.rms_norm(
+                a.float(), shape[-1:], b.float(), 1e-6).to(dtype))
                 if hasattr(F, "rms_norm") else None)
+            del ins
             bd = bound_ms(nbytes(x, sc, y), 4.0 * x.numel(), "fp32")
             lib = f"{t_lib:.4f} ms" if t_lib is not None else "none"
             held = "rtol 1e-5" if dtype == torch.float32 else "1 bf16 ulp"
+            l2 = (f"cold in L2 ({k} copies)" if k
+                  else "warm in L2, no roofline claim")
             print(f"rmsnorm {tag}: {held}, max abs err {err:.3e}; kernel "
                   f"{t:.4f} ms, plain "
-                  f"{t_plain:.4f} ms, library {lib}, bound {bd[0]:.5f} ms "
-                  f"({bd[1]})")
+                  f"{t_plain:.4f} ms, library {lib}, bound {bd[0]:.4g} ms "
+                  f"({bd[1]}); {l2}")
             timings[(shape, dtype)] = (t, t_plain, t_lib, bd)
+    # a row's output does not depend on the rows around it (the Batcher's
+    # solo and stacked steps, monolithic == split): rows 0-3 normalised
+    # among 1, 4, 8 and 512 rows are bitwise equal, at every width
+    widths = sorted({shape[-1] for shape in shapes})
+    for d in widths:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((512, d), generator=gen, device="cuda").to(dtype)
+            sc = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                        device="cuda")).to(dtype)
+            full = rmsnorm(x, sc)
+            for n in (1, 4, 8):
+                if not torch.equal(rmsnorm(x[:n].clone(), sc)[:4],
+                                   full[:min(n, 4)]):
+                    fail(f"rmsnorm width {d} {dtype}: rows 0-3 among {n} "
+                         "rows differ from the same rows among 512")
+    print(f"rmsnorm rows 0-3 among 1, 4, 8 and 512 rows: bitwise equal at "
+          f"widths {widths}, bf16 and fp32")
     return max_err, timings[((4, 512, 768), torch.bfloat16)]
 
 
@@ -1096,24 +1159,32 @@ def check_grads(torch) -> dict:
     to the plain forward as above in fp32: rmsnorm at 1e-5, flash at
     2e-5, the SSD within 1e-3 x rms + 1e-4 x |v|; in bf16 within 2 bf16
     ulps of the plain bf16 output, plus the SSD's fp32 term), its output
-    carry a grad_fn, and its backward (the plain version recomputed on
-    the saved inputs) launch nothing and give the plain version's
-    autograd gradients within rtol 1e-5, atol 1e-6 x the largest in fp32,
-    and within rtol = 2**-7, atol = 2**-7 x the largest (one bf16 ulp at
-    the top of a binade) in bf16 (the same arithmetic; only a library's
-    choice of summation order could part them).  The SSD's x, B and C are
-    views into one projection, as Mamba2 hands them over.  Timed: the
-    kernel's forward at the shape (fp32: flash runs its `flash_fwd`
-    kernel, not the bf16 `wgmma` one) beside the plain forward, the
-    Function's backward (recompute and differentiate), the plain
-    version's backward alone, and where a PyTorch call computes the same
-    function (`F.rms_norm`, `scaled_dot_product_attention`) that call's
-    forward and backward.  Returns {kernel: (backward ms, plain backward
-    ms, library backward ms)} at each kernel's first fp32 shape, and the
-    same at its first bf16 shape."""
+    carry a grad_fn, and its backward give the plain version's autograd
+    gradients within rtol 1e-5, atol 1e-6 x the largest in fp32, and
+    within rtol = 2**-7, atol = 2**-7 x the largest (one bf16 ulp at the
+    top of a binade) in bf16.  Flash's and the SSD's backward recompute
+    the plain version on the saved inputs and launch nothing (the same
+    arithmetic; only a library's choice of summation order could part
+    them); rmsnorm's launches exactly its RMS_BWD_KERNELS backward kernels
+    (the closed form, summed in another order), and two of its backward
+    calls give the same bits.  The SSD's x, B and C are views into one
+    projection, as Mamba2 hands them over.  Timed: the kernel's forward
+    at the shape (fp32: flash runs its `flash_fwd` kernel, not the bf16
+    `wgmma` one) beside the plain forward, the Function's backward, the
+    plain version's backward alone, and where a PyTorch call computes the
+    same function (`F.rms_norm`, `scaled_dot_product_attention`) that
+    call's forward and backward; rmsnorm's backward kernels alone too
+    (CUDA-graph replays, inputs cold in L2) beside their bound (x, g and
+    scale read, dx and dscale written) and the bytes of their fp32
+    workspace of partial dscale rows (written once and read once, on top
+    of the bound).  Returns {kernel: (backward ms, plain backward ms,
+    library backward ms, backward kernels ms, their bound, workspace
+    bytes)} at each kernel's first fp32 shape (the last three None but for
+    rmsnorm), and the same at its first bf16 shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rmsnorm import _launch_bwd, bwd_grid
     from repro_torch.kernels.ssd_scan import ssd_chunked_plain
 
     gen = torch.Generator(device="cuda").manual_seed(2048)
@@ -1241,8 +1312,15 @@ def check_grads(torch) -> dict:
         cts = [randn(*t.shape).to(t.dtype) for t in o]
         g = torch.autograd.grad(o, leaves, cts, retain_graph=True)
         g_p = torch.autograd.grad(p_o, p_leaves, cts, retain_graph=True)
-        if ops.launch_counts() != after:
-            fail(f"{tag}: the backward launched a kernel")
+        n_bwd = RMS_BWD_KERNELS if name == "rmsnorm" else 0
+        moved = {k: v - after[k] for k, v in ops.launch_counts().items()}
+        if moved != {k: n_bwd * (k == "rmsnorm_bwd") for k in moved}:
+            fail(f"{tag}: the backward launched {moved}, not "
+                 f"{n_bwd} rmsnorm_bwd and nothing else")
+        if name == "rmsnorm":
+            again = torch.autograd.grad(o, leaves, cts, retain_graph=True)
+            if not all(torch.equal(a, b) for a, b in zip(g, again)):
+                fail(f"{tag}: two backward calls differ")
         worst = 0.0
         for a, b in zip(g, g_p):
             a, b = a.float(), b.float()
@@ -1276,15 +1354,39 @@ def check_grads(torch) -> dict:
                 print(f"  library yardstick not timed: {e}")
         lib_s = (f"{t_lib_fwd:.4f} / {t_lib:.4f} ms" if t_lib is not None
                  else "none")
+        t_k = bd = ws = None
+        kern_s = "(plain recompute + autograd)"
+        if name == "rmsnorm":
+            # the function's own bytes: x, g and scale read, dx and
+            # dscale written; the fp32 workspace of partial dscale rows
+            # (written once, read once) is the design's overhead, printed
+            # beside it.  x, g and scale cold: copies cycled past the L2.
+            x, sc = fixed
+            n_bytes = nbytes(x, cts[0], sc, g[0], g[1])
+            bd = bound_ms(n_bytes, 10.0 * x.numel(), "fp32")
+            ws = bwd_grid(x, sc, True) * x.shape[-1] * 4
+            k = cold_copies(n_bytes)
+            ins = [(x, sc, cts[0])] + [
+                (x.clone(), sc.clone(), cts[0].clone())
+                for _ in range(k - 1)]
+            t_k = time_ms(torch, [
+                lambda a=a, b=b, c=c: _launch_bwd(a, b, c, 1e-6)
+                for a, b, c in ins], calls=max(8, k), reps=9, keep=True)
+            del ins
+            kern_s = (f"({RMS_BWD_KERNELS} kernels, bitwise on a second "
+                      f"call; alone {t_k:.4f} ms, cold in L2 ({k} copies), "
+                      f"bound {bd[0]:.5f} ms ({bd[1]}, {n_bytes} B), "
+                      f"{bd[0] / t_k:.1%} of it; workspace {ws} B written "
+                      "and read on top)")
         print(f"{tag}, inputs requiring grad: kernel forward (1 "
               f"launch, grad_fn), gradient within rtol {g_tol:.3g} of the "
               f"plain autograd (largest {worst:.2e} of the leaf's scale); "
               f"forward: kernel {t_fwd:.4f} ms, plain {t_fwd_plain:.4f} ms; "
-              f"backward (plain recompute + autograd) {t_bwd:.4f} ms, "
+              f"backward {kern_s} {t_bwd:.4f} ms, "
               f"plain backward alone {t_plain:.4f} ms; library forward / "
               f"backward {lib_s}")
         (out if dtype == torch.float32 else out_bf16).setdefault(
-            name, (t_bwd, t_plain, t_lib))
+            name, (t_bwd, t_plain, t_lib, t_k, bd, ws))
         del runs, leaves, o, p_leaves, p_o, g, g_p, cts
         torch.cuda.empty_cache()
     return out, out_bf16
@@ -1352,7 +1454,7 @@ def main_path(torch) -> dict:
     want = {"wire_quant": 2 + 2 * (GEN - 1), "wire_dequant": 2 + 2 * (GEN - 1),
             "splitcat_linear_q8": GEN - 1, "splitcat_linear": 0,
             "rmsnorm": (2 * cfg.n_layers + 1) + (GEN - 1) * 2 * cfg.n_layers,
-            "ssd_scan": 0, "flash_attention": cfg.n_layers}
+            "rmsnorm_bwd": 0, "ssd_scan": 0, "flash_attention": cfg.n_layers}
     hold_launches(launches, want)
 
     tok = rest[:, -1:]
@@ -1747,7 +1849,8 @@ def ssm_path(torch) -> dict:
     # prefill (512 is two whole chunks, no remainder call), none at decode
     # (ssd_decode_step); the wire kernels once per hop each way
     per_forward = 2 * cfg.n_layers + 1
-    want = {"rmsnorm": per_forward * SGEN, "ssd_scan": cfg.n_layers,
+    want = {"rmsnorm": per_forward * SGEN, "rmsnorm_bwd": 0,
+            "ssd_scan": cfg.n_layers,
             "wire_quant": 2 * SGEN, "wire_dequant": 2 * SGEN,
             "splitcat_linear_q8": 0, "splitcat_linear": 0,
             "flash_attention": 0}
@@ -1898,7 +2001,8 @@ def hybrid_path(torch) -> dict:
     # at every decode step; flash_attention: one per attention layer at
     # prefill, none at decode; the wire kernels once per hop each way
     per_forward = 2 * cfg.n_layers + 1
-    want = {"rmsnorm": per_forward * HGEN, "flash_attention": n_attn,
+    want = {"rmsnorm": per_forward * HGEN, "rmsnorm_bwd": 0,
+            "flash_attention": n_attn,
             "wire_quant": 2 * HGEN, "wire_dequant": 2 * HGEN,
             "splitcat_linear_q8": 0, "splitcat_linear": 0, "ssd_scan": 0}
     hold_launches(launches, want)
@@ -2040,7 +2144,8 @@ TURN_KINDS = {
         client_params=38_720),
 }
 NO_OTHER_KERNEL = {"splitcat_linear_q8": 0, "splitcat_linear": 0,
-                   "rmsnorm": 0, "ssd_scan": 0, "flash_attention": 0}
+                   "rmsnorm": 0, "rmsnorm_bwd": 0, "ssd_scan": 0,
+                   "flash_attention": 0}
 
 
 def _vgg_segmodel(cfg):
@@ -2801,17 +2906,21 @@ def _lm_launches(torch, arch, mode, schedule, rounds) -> dict:
     A forward launches rmsnorm twice a block with an MLP (norm1, norm2),
     twice a Mamba2 block (norm1 and the gated norm) and once for the
     final norm, ssd_scan once a Mamba2 block and flash_attention once an
-    attention block; backward launches nothing (the Functions recompute
-    the plain versions).  A pipelined turn runs the client's forward twice
-    a microbatch (the staged forward and the backward's recompute) and
-    the server's once."""
+    attention block.  Its backward launches RMS_BWD_KERNELS rmsnorm_bwd
+    kernels for each of its rmsnorms (x and scale both need a gradient)
+    and nothing for the SSD and flash (their Functions recompute the
+    plain versions).  A pipelined turn runs the client's forward twice a
+    microbatch, the staged one without a graph and the backward's
+    recompute, which alone is differentiated, and the server's once."""
     cfg = _lm_config(torch, arch)
     _, cut, n = LM_RUNS[arch]
     m = MICROBATCHES.get(schedule, 1)
     mamba = cfg.family == "ssm"
 
-    def fwd(layers, final):
-        return {"rmsnorm": 2 * layers + final,
+    def fwd(layers, final, differentiated=True):
+        norms = 2 * layers + final
+        return {"rmsnorm": norms,
+                "rmsnorm_bwd": RMS_BWD_KERNELS * norms * differentiated,
                 "ssd_scan": layers if mamba else 0,
                 "flash_attention": 0 if mamba else layers}
     wire = {}
@@ -2821,15 +2930,15 @@ def _lm_launches(torch, arch, mode, schedule, rounds) -> dict:
         wire = {k: 2 * leaves * rounds for k in ("wire_quant",
                                                  "wire_dequant")}
     else:
-        client = 2 * m if schedule == "pipelined" else 1
-        per_round = ([fwd(cut, 0)] * client
+        staged = [fwd(cut, 0, False)] * m if schedule == "pipelined" else []
+        per_round = ([fwd(cut, 0)] * m + staged
                      + [fwd(cfg.n_layers - cut, 1)] * m) * n
         turns = n * rounds
         handoffs = (turns - 1 if n > 1 and schedule != "parallel" else 0)
         k = 2 * m * turns + handoffs * len(_lm_leaves(torch, arch, "client"))
         wire = {"wire_quant": k, "wire_dequant": k}
     out = {k: rounds * sum(f[k] for f in per_round)
-           for k in ("rmsnorm", "ssd_scan", "flash_attention")}
+           for k in ("rmsnorm", "rmsnorm_bwd", "ssd_scan", "flash_attention")}
     return {**wire, **out, "splitcat_linear_q8": 0, "splitcat_linear": 0}
 
 
@@ -3185,24 +3294,33 @@ def _cli_plan(torch, path, arch, argv, steps) -> dict:
              if cfg.pattern else ["ssm" if cfg.family == "ssm" else "attn"]
              * cfg.n_layers)
 
-    def fwd(lo, hi, final, k=1):
+    def fwd(lo, hi, final, k=1, differentiated=True):
+        """k forwards of layers [lo, hi) (+ the final norm); a
+        differentiated one's backward launches RMS_BWD_KERNELS kernels an
+        rmsnorm (x and scale both need a gradient)."""
         ks = kinds[lo:hi]
-        return Counter({"rmsnorm": k * (2 * len(ks) + final),
+        norms = k * (2 * len(ks) + final)
+        return Counter({"rmsnorm": norms,
+                        "rmsnorm_bwd": RMS_BWD_KERNELS * norms
+                        * differentiated,
                         "ssd_scan": k * ks.count("ssm"),
                         "flash_attention": k * ks.count("attn")})
     L = cfg.n_layers
     if split:
-        client = 2 * m if a.schedule == "pipelined" else 1
+        # a pipelined turn's staged client forwards keep no graph: only
+        # the backward's recompute of each microbatch is differentiated
+        staged = a.schedule == "pipelined"
         per_round = Counter()
         for _ in range(n):
-            per_round += fwd(0, a.cut, 0, client) + fwd(a.cut, L, 1, m)
+            per_round += (fwd(0, a.cut, 0, m) + fwd(a.cut, L, 1, m)
+                          + fwd(0, a.cut, 0, m if staged else 0, False))
         evals = Counter()
         for _ in range(n):
-            evals += fwd(0, L, 1)
+            evals += fwd(0, L, 1, differentiated=False)
     else:
         k = {"monolithic": 1, "large_batch": n,
              "fedavg": n * a.local_steps}[a.mode]
-        per_round, evals = fwd(0, L, 1, k), fwd(0, L, 1)
+        per_round, evals = fwd(0, L, 1, k), fwd(0, L, 1, differentiated=False)
     launches = Counter()
     for _ in range(steps):
         launches += per_round
@@ -3227,7 +3345,7 @@ def _cli_plan(torch, path, arch, argv, steps) -> dict:
                 wire_k += c * (turns - 1)
     want = {"wire_quant": wire_k, "wire_dequant": wire_k,
             "splitcat_linear_q8": 0, "splitcat_linear": 0,
-            **{k: launches[k] for k in ("rmsnorm", "ssd_scan",
+            **{k: launches[k] for k in ("rmsnorm", "rmsnorm_bwd", "ssd_scan",
                                         "flash_attention")}}
     h = ([0] * n if a.schedule == "parallel" or n == 1
          else [steps - 1] + [steps] * (n - 1))
@@ -3777,7 +3895,7 @@ def moe_path(torch, arch: str) -> dict:
     # entry once per decode step when fused
     per_forward = (4 if mixer == "mla" else 2) * cfg.n_layers + 1
     want = {"rmsnorm": per_forward * GEN - (GEN - 1) * int(fused),
-            "flash_attention": cfg.n_layers,
+            "rmsnorm_bwd": 0, "flash_attention": cfg.n_layers,
             "wire_quant": 2 * GEN, "wire_dequant": 2 * GEN,
             "splitcat_linear_q8": (GEN - 1) * int(fused),
             "splitcat_linear": 0, "ssd_scan": 0}
@@ -3950,7 +4068,7 @@ def _mono_launches(cfg, runs: int = 2) -> dict:
     one prefill and GEN - 1 decode steps, every forward 2 norms a layer
     and the final norm; flash once a layer at prefill; no wire kernel."""
     return {"rmsnorm": runs * GEN * (2 * cfg.n_layers + 1),
-            "flash_attention": runs * cfg.n_layers,
+            "rmsnorm_bwd": 0, "flash_attention": runs * cfg.n_layers,
             "wire_quant": 0, "wire_dequant": 0, "splitcat_linear_q8": 0,
             "splitcat_linear": 0, "ssd_scan": 0}
 
@@ -4191,7 +4309,7 @@ def _bat_want_launches(tenants, steps, cfg, cut) -> dict:
     server = cfg.n_layers - cut
     return {"rmsnorm": n * (2 * cfg.n_layers + 1) + live * 2 * cut
             + len(steps) * (2 * server - 1 + 1),
-            "flash_attention": n * cfg.n_layers,
+            "rmsnorm_bwd": 0, "flash_attention": n * cfg.n_layers,
             "wire_quant": 2 * n + live + len(steps) + 1,
             "wire_dequant": 2 * n + 2 * len(steps),
             "splitcat_linear_q8": len(steps), "splitcat_linear": 0,
@@ -4644,10 +4762,19 @@ def main():
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
         if k["name"] in bwd:     # the training gradient (phase 2)
-            (k["backward_ms"], k["backward_plain_ms"],
-             k["backward_library_ms"]) = bwd[k["name"]]
-            (k["backward_bf16_ms"], k["backward_bf16_plain_ms"],
-             k["backward_bf16_library_ms"]) = bwd_bf16[k["name"]]
+            for pre, times in (("backward", bwd), ("backward_bf16",
+                                                   bwd_bf16)):
+                t_bwd, t_plain, t_lib, t_k, bd, ws = times[k["name"]]
+                k.update({f"{pre}_ms": t_bwd, f"{pre}_plain_ms": t_plain,
+                          f"{pre}_library_ms": t_lib})
+                if t_k is not None:     # rmsnorm's backward kernels
+                    k.update({f"{pre}_kernel_ms": t_k,
+                              f"{pre}_kernel_bound_ms": bd[0],
+                              f"{pre}_kernel_bound_by": bd[1],
+                              f"{pre}_kernel_workspace_bytes": ws})
+    rn = next(k for k in kernels if k["name"] == "rmsnorm")
+    rn["backward_launches"] = n["rmsnorm_bwd"]
+    rn["backward_launches_by_path"] = by_path["rmsnorm_bwd"]
     print("kernel times above are at the main paths' shapes: wire_quant "
           "and wire_dequant on the (4,1,200064) bf16 logits, "
           "splitcat_linear_q8 on the (4,1,3072) x (3072,5120) bf16 entry, "
@@ -4663,7 +4790,12 @@ def main():
           "shapes (4,512,768), x (4,512,24,64) from a zero state and q "
           "(4,512,24,128) causal, fp32, and (backward_bf16_*) at the "
           "CLI's (8,512,768), x (8,512,24,64) and q (8,512,10,256) "
-          "windowed, bf16")
+          "windowed, bf16 (backward_*_ms: the Function's backward from "
+          "CUDA events; rmsnorm's backward_*_kernel_ms: its "
+          f"{RMS_BWD_KERNELS} backward kernels alone, from CUDA-graph "
+          "replays with x and g cold in L2, beside a bound over the "
+          "function's own bytes; _kernel_workspace_bytes: the fp32 "
+          "partial-dscale rows they write and read on top)")
     print("serving path: " + json.dumps(
         {k: v for k, v in run.items() if k != "launches"}))
     print("training path: " + json.dumps(

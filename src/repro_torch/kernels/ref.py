@@ -82,6 +82,21 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                    eps: float = 1e-6):
+    """The gradient of `rmsnorm_ref` at (x, scale) for the output gradient
+    g, in closed form in float32: with r = rsqrt(mean(x^2) + eps), xh =
+    x r and gy = g scale, dx = r (gy - xh mean(gy xh)) in x's type and
+    dscale = the sum over rows of g xh in scale's type."""
+    x32, g32 = x.float(), g.float()
+    r = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    xh = x32 * r
+    gy = g32 * scale.float()
+    dx = r * (gy - xh * (gy * xh).mean(dim=-1, keepdim=True))
+    ds = (g32 * xh).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), ds.to(scale.dtype)
+
+
 def ssd_scan_ref(x, dt, A, Bm, Cm):
     """Naive O(S) recurrence oracle for the SSD scan.
     x: (B,S,H,P) dt: (B,S,H) A: (H,) Bm/Cm: (B,S,G,N) -> (B,S,H,P);

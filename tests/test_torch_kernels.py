@@ -306,7 +306,8 @@ def test_cpu_and_meta_tensors_launch_nothing():
     assert ops.launch_counts() == {"wire_quant": 0, "wire_dequant": 0,
                                    "splitcat_linear_q8": 0,
                                    "splitcat_linear": 0, "rmsnorm": 0,
-                                   "ssd_scan": 0, "flash_attention": 0}
+                                   "rmsnorm_bwd": 0, "ssd_scan": 0,
+                                   "flash_attention": 0}
 
 
 def test_build_targets_sm90a_without_fast_math():
@@ -1219,11 +1220,14 @@ def _grad_card_call(case, fn, leaves, kw):
 @pytest.mark.parametrize("case", GRAD_CARD)
 def test_kernel_gradient_on_card(cuda, case):
     """Every input requires grad: the wrapper launches its kernel once
-    (the counter moves) and returns outputs with a grad_fn; the backward
-    launches nothing, and its gradients equal the plain version's autograd
-    on the card at rtol = 1e-5, atol = 1e-6 x the largest gradient (the
-    backward recomputes that plain version on the same inputs, so only a
-    library's choice of summation order could part them).  The forward
+    (the counter moves) and returns outputs with a grad_fn; rmsnorm's
+    backward launches its two backward kernels (the rows, then dscale's
+    column sums) and nothing else, flash's and the SSD's launch nothing,
+    and the gradients equal the plain version's autograd on the card at
+    rtol = 1e-5, atol = 1e-6 x the largest gradient (flash and the SSD
+    recompute that plain version on the same inputs, so only a library's
+    choice of summation order could part them; rmsnorm's closed form sums
+    in another order than autograd).  The forward
     is held to its plain version: rmsnorm at 1e-5, flash at 2e-5 and the
     SSD within 1e-3 x rms + 1e-4 x |v| (chip_smoke.py's rule: at chunks
     other than the kernel's 64-row tile the decays round differently)."""
@@ -1258,9 +1262,91 @@ def test_kernel_gradient_on_card(cuda, case):
         for i, w in enumerate(want)]
     sum((o * c).sum() for o, c in zip(out, cts)).backward()
     sum((w * c).sum() for w, c in zip(want, cts)).backward()
-    assert ops.launch_counts() == after
+    assert ops.launch_counts() == {
+        **after, "rmsnorm_bwd": after["rmsnorm_bwd"] + 2 * (name == "rmsnorm")}
     got = [t.grad for t in leaves]
     exp = [t.grad for t in plain_leaves]
     for g, e in zip(got, exp):
         torch.testing.assert_close(g, e, rtol=1e-5,
                                    atol=1e-6 * e.abs().max().item())
+
+
+def _rms_bwd_close(got, want32, dtype):
+    """fp32: rtol 1e-5, atol 1e-6 x the largest; bf16: one bf16 ulp of the
+    float32 result on the same inputs more."""
+    got, want32 = got.float(), want32.float()
+    tol = 1e-5 * want32.abs() + 1e-6 * want32.abs().max()
+    if dtype == "bfloat16":
+        tol = tol + torch.exp2(torch.floor(torch.log2(
+            want32.abs().clamp_min(2.0 ** -126))) - 7)
+    return bool(((got - want32).abs() <= tol).all())
+
+
+# rmsnorm's backward kernels: the LM training widths, a ragged width, and
+# rows too wide to stay in registers (the streaming path)
+RMS_BWD_CARD = [(2, 100, 768, "float32"), (3, 64, 3072, "float32"),
+                (2, 64, 2560, "bfloat16"), (4, 33, 768, "bfloat16"),
+                (2, 33, 100, "float32"), (2, 7, 20000, "float32")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d,dtype", RMS_BWD_CARD,
+                         ids=[f"{b}x{s}x{d}-{t}" for b, s, d, t in
+                              RMS_BWD_CARD])
+def test_rmsnorm_bwd_kernel_on_card(cuda, b, s, d, dtype):
+    """The backward kernels against `ref.rmsnorm_bwd_ref` in float32 on
+    the same inputs (`_rms_bwd_close`), for dx and dscale together, dx
+    alone and dscale alone (2, 1 and 2 launches; None for the gradient not
+    asked for); a second call bitwise equal; and through the Function,
+    against autograd of the plain forward at check_grads' limits (rtol
+    1e-5, atol 1e-6 x the largest in fp32; 2**-7 of both in bf16)."""
+    from repro_torch.kernels.rmsnorm import _launch_bwd
+
+    gen = torch.Generator(device=cuda).manual_seed(40 + d)
+    dt = getattr(torch, dtype)
+    x = torch.randn(b, s, d, generator=gen, device=cuda).to(dt)
+    sc = (1 + 0.1 * torch.randn(d, generator=gen, device=cuda)).to(dt)
+    g = torch.randn(b, s, d, generator=gen, device=cuda).to(dt)
+    want = ref.rmsnorm_bwd_ref(x.float(), sc.float(), g.float())
+    for need in ((True, True), (True, False), (False, True)):
+        before = ops.launch_counts()["rmsnorm_bwd"]
+        got = _launch_bwd(x, sc, g, 1e-6, *need)
+        assert ops.launch_counts()["rmsnorm_bwd"] - before == 1 + need[1]
+        again = _launch_bwd(x, sc, g, 1e-6, *need)
+        for a, rep, w, on in zip(got, again, want, need):
+            if not on:
+                assert a is None and rep is None
+                continue
+            assert torch.equal(a, rep)
+            assert _rms_bwd_close(a, w, dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, sc)]
+    plain = [t.clone().requires_grad_() for t in (x, sc)]
+    ops.rmsnorm(*leaves).backward(g)
+    ref.rmsnorm_ref(*plain).backward(g)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    atol = 1e-6 if dtype == "float32" else 2.0 ** -7
+    for a, p in zip(leaves, plain):
+        torch.testing.assert_close(a.grad.float(), p.grad.float(), rtol=tol,
+                                   atol=atol * p.grad.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [512, 768, 3072, 12288, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_rows_independent_on_card(cuda, d, dtype):
+    """A row's output does not depend on the rows around it: rows 0-3
+    normalised among 1, 4, 8 and 512 rows, and among 512 rows one element
+    off 16-byte alignment (element loads in the vector path's order),
+    are bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(50 + d)
+    dt = getattr(torch, dtype)
+    x = torch.randn(512, d, generator=gen, device=cuda).to(dt)
+    sc = (1 + 0.1 * torch.randn(d, generator=gen, device=cuda)).to(dt)
+    full = ops.rmsnorm(x, sc)
+    for n in (1, 4, 8):
+        assert torch.equal(ops.rmsnorm(x[:n].clone(), sc)[:4],
+                           full[:min(n, 4)])
+    buf = torch.empty(512 * d + 1, dtype=dt, device=cuda)
+    off = buf[1:].view(512, d)
+    off.copy_(x)
+    assert torch.equal(ops.rmsnorm(off, sc), full)

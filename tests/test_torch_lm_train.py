@@ -17,7 +17,10 @@ Tolerances, each with its reason:
   sequence, so a leaf's gradient is a long sum whose rounding grows with
   it, and entries far below the leaf's scale carry that absolute error;
 * the doubling scan against the old in-place one, and the kernels'
-  autograd plumbing on the CPU: BITWISE (the same arithmetic).
+  autograd plumbing on the CPU: BITWISE (the same arithmetic); rmsnorm's
+  backward, a closed form of its own, BITWISE to its plain version
+  `ref.rmsnorm_bwd_ref` and within rtol 1e-5 (atol 1e-6 x the largest)
+  of autograd through the plain forward, which sums in another order.
 """
 import jax
 import jax.numpy as jnp
@@ -343,15 +346,18 @@ def test_kernel_functions_backpropagate_the_plain_gradient(monkeypatch):
     windowed, the SSD from a zero and a carried state), with its launch
     replaced by the plain forward (a CUDA kernel has no CPU mode; on the
     card the wrapper routes a grad-requiring input here, which
-    tests/test_torch_kernels.py holds): the output has a grad_fn, the
-    forward counts one launch, and the backward equals plain autograd
-    bitwise and launches nothing."""
+    tests/test_torch_kernels.py holds): the output has a grad_fn and the
+    forward counts one launch.  Flash's and the SSD's backward equals
+    plain autograd bitwise and launches nothing; rmsnorm's goes through
+    its backward launch once, asking for dx and dscale (2 kernels on the
+    card), and gives its plain version `ref.rmsnorm_bwd_ref` bitwise."""
     for case in CASES:
         _check_function(case, monkeypatch)
 
 
 def _check_function(case, monkeypatch):
     rng = np.random.default_rng(26)
+    bwd_calls = []
     if case == "rmsnorm":
         mod = trn
         ins = (torch.from_numpy(rng.standard_normal((2, 5, 16)).astype(
@@ -361,6 +367,15 @@ def _check_function(case, monkeypatch):
 
         def plain(x, s, eps):
             return ref.rmsnorm_ref(x, s, eps=eps)
+
+        def launch_bwd(x, s, g, eps, need_x, need_s):
+            """The backward kernels' plain version; counts what the card
+            launches (the rows kernel, and the column sum for dscale)."""
+            bwd_calls.append((need_x, need_s))
+            mod.launches["rmsnorm_bwd"] += 1 + int(need_s)
+            dx, ds = ref.rmsnorm_bwd_ref(x, s, g, eps)
+            return dx if need_x else None, ds if need_s else None
+        monkeypatch.setattr(mod, "_launch_bwd", launch_bwd)
         fn = trn._RMSNormFn
     elif case.startswith("flash"):
         mod = tfa
@@ -383,7 +398,7 @@ def _check_function(case, monkeypatch):
                                           initial_state=init,
                                           return_state=return_state)
         fn = tssd._SSDFn
-    (name,) = mod.launches
+    name = next(iter(mod.launches))          # the forward's counter
 
     def launch(*args):
         mod.launches[name] += 1
@@ -394,9 +409,10 @@ def _check_function(case, monkeypatch):
                 for t in ins]
     leaves_k = [None if t is None else t.detach().clone().requires_grad_()
                 for t in ins]
-    before = mod.launches[name]
+    before = dict(mod.launches)
+    fwd = {**before, name: before[name] + 1}
     out_k = fn.apply(*leaves_k, *extra)
-    assert mod.launches[name] == before + 1
+    assert mod.launches == fwd
     out_p = plain(*leaves_p, *extra)
     out_p = out_p if isinstance(out_p, tuple) else (out_p,)
     out_k = out_k if isinstance(out_k, tuple) else (out_k,)
@@ -405,12 +421,21 @@ def _check_function(case, monkeypatch):
            for o in out_p]
     sum((o * c).sum() for o, c in zip(out_k, cts)).backward()
     sum((o * c).sum() for o, c in zip(out_p, cts)).backward()
-    assert mod.launches[name] == before + 1
     for a, b in zip(out_k, out_p):
         assert torch.equal(a, b)
-    for a, b in zip(leaves_k, leaves_p):
-        if a is not None:
-            assert torch.equal(a.grad, b.grad)
+    if case != "rmsnorm":
+        assert mod.launches == fwd
+        for a, b in zip(leaves_k, leaves_p):
+            if a is not None:
+                assert torch.equal(a.grad, b.grad)
+        return
+    assert bwd_calls == [(True, True)]
+    assert mod.launches == {**fwd, "rmsnorm_bwd": before["rmsnorm_bwd"] + 2}
+    want = ref.rmsnorm_bwd_ref(*ins, cts[0], extra[0])
+    for a, w, b in zip(leaves_k, want, leaves_p):
+        assert torch.equal(a.grad, w)
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5,
+                                   atol=1e-6 * b.grad.abs().max().item())
 
 
 def test_lm_batch_follows_the_reference_rule():
