@@ -23,13 +23,18 @@ Phases, each of which ends the run with a nonzero exit on any error:
    with q/k 192 wide and v 128, beside its bound with one and with two
    p v products, Qwen3-30B-A3B's GQA prefill, a group of 8, ChatGLM3's
    group of 16, the reference's qwen1_5_32b MHA 40/40 and
-   Mistral-Large's group of 12)
+   Mistral-Large's group of 12, and the examples' training attention:
+   the 100M driver's 8 over 4 heads of 64 at seq 128, quickstart's 4
+   over 2 of 32 at seq 32; the multimodal example's (64,20)|(64,20) x
+   (40,4) + b splitcat entry; rmsnorm at their widths 512 and 128)
    within the stated tolerances; each kernel's median
    time beside the plain version's, its bound and, where one PyTorch call
    computes the same function, that call's time; rmsnorm's rows 0-3
    bitwise the same among 1, 4, 8 and 512 rows at every width.  Then the
    training gradient of rmsnorm, flash attention and the SSD at the LM
-   training shapes (fp32, every input requiring grad): one kernel launch
+   training shapes and the examples' (fp32, every input requiring grad:
+   rmsnorm (16,128,512) and (8,32,128), flash q (16,128,8,64) k/v
+   (16,128,4,64) and q (8,32,4,32) k/v (8,32,2,32)): one kernel launch
    and a grad_fn, rmsnorm's two backward kernels (bitwise the same on a
    second call; timed alone beside their bound) and no launch in flash's
    or the SSD's backward, and the plain version's autograd gradients
@@ -234,6 +239,24 @@ Phases, each of which ends the run with a nonzero exit on any error:
    tok/s and a full step's busy share; reduced fp32 phi4-mini (fused),
    Mamba2, RecurrentGemma (its window wrapping per row) and DeepSeek-V2
    (MLA per row) under one join schedule, card == CPU token for token.
+3p. The paper's results and the examples: `repro_torch.launch.
+   paper_tables.main(["--full"])` in-process, Tables 1-2 as
+   `table{1,2}_rows` give them (the CPU tests hold those to the
+   reference's), and Fig. 3 over
+   the paper's VGG-16 (10 classes, 4 clients of 128 rows, AdamW 1e-4,
+   30 rounds through the deprecated shims, a point every 5 rounds on 256
+   held-out rows): each method's client TFLOPs strictly rising and equal
+   to 3 x `vgg16_flops_per_sample` x the rows seen (cut 2 for splitNN),
+   splitNN's below both baselines' at every point, fedavg's equal to
+   large_batch's, every final accuracy at least `FIG3_MIN_ACC`'s (set
+   from `chip_spread.py fig3`); no kernel launched.  Then each
+   `examples/torch_*.py`'s `main()` at the reference's sizes, its own
+   asserts passing, launch counters zeroed just before and read just
+   after: quickstart (reduced phi4-mini, 60 steps) and the 100M driver
+   (12 layers of d 512, 300 steps, fp32) launch rmsnorm 2L+1, rmsnorm_bwd
+   2 x that and flash L a step exactly, the multimodal example one
+   splitcat_linear (its fused evaluation, equal to `Session.evaluate`'s
+   accuracy), multi-hop none; wall seconds and tokens/s printed.
    Each phase's wall seconds are printed on a line of its own.
 4. A `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
@@ -766,6 +789,9 @@ def check_splitcat_dense(torch, gen) -> tuple:
         ("ragged (3,17,96)|(3,17,33)|(3,17,7)x(136,131)+b",
          [randn(3, 17, 96), randn(3, 17, 33), randn(3, 17, 7)],
          randn(136, 131, scale=136 ** -0.5), randn(131)),
+        ("multimodal example eval (64,20)|(64,20)x(40,4)+b",
+         [randn(64, 20), randn(64, 20)], randn(40, 4, scale=40 ** -0.5),
+         randn(4)),
     ]
     max_err, timings = 0.0, {}
     for tag, parts, w, b in cases:
@@ -830,11 +856,13 @@ def check_rmsnorm(torch) -> tuple:
     # Mamba2, phi4-mini and RecurrentGemma's widths, then the MoE family's:
     # Qwen3-30B-A3B's 2048, DeepSeek-V2's 5120 (Qwen1.5-32B's too), MLA's
     # q_norm (1536) and kv_norm (512), then ChatGLM3-6B's 4096 and
-    # Mistral-Large's 12,288, at prefill and at decode
+    # Mistral-Large's 12,288, at prefill and at decode; then the 100M
+    # example's and quickstart's training rows (d 512 and 128)
     shapes = [(4, 512, 768), (4, 1, 768), (4, 512, 1536), (4, 1, 3072),
               (4, 128, 2048), (4, 1, 2048), (4, 128, 5120), (4, 1, 5120),
               (4, 128, 512), (4, 1, 512), (4, 1, 1536), (4, 128, 4096),
-              (4, 1, 4096), (4, 128, 12288), (4, 1, 12288)]
+              (4, 1, 4096), (4, 128, 12288), (4, 1, 12288),
+              (16, 128, 512), (8, 32, 128)]
     max_err, timings = 0.0, {}
     for shape in shapes:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1058,7 +1086,9 @@ def check_flash(torch) -> tuple:
              ("qwen1_5_32b MHA 40/40 prefill", (4, 128, 40, 40, 128, 128),
               None, True),
              ("Mistral-Large prefill", (4, 128, 96, 8, 128, 128), None,
-              True)]
+              True),
+             ("100M example training", (16, 128, 8, 4, 64, 64), None, True),
+             ("quickstart training", (8, 32, 4, 2, 32, 32), None, True)]
     max_err, timings = 0.0, {}
     for tag, (b, s, h, kh, d, dv), window, timed in cases:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
@@ -1276,7 +1306,8 @@ def check_grads(torch) -> dict:
     out, out_bf16 = {}, {}
     for tag, name, make, fn, plain, lib, fwd_close, dtype in (
             rms(768), rms(3072), flash(None), flash(128), ssd(False),
-            ssd(True),
+            ssd(True), rms(512, 16, 128), rms(128, 8, 32),
+            flash(None, 16, 128, 8, 4, 64), flash(None, 8, 32, 4, 2, 32),
             rms(768, CLI_B, CLI_S, bf), rms(2560, CLI_B, CLI_S, bf),
             flash(2048, CLI_B, CLI_S, 10, 1, 256, bf),
             ssd(False, CLI_B, CLI_S, 256, bf), ssd(False, CLI_B, 64, 64, bf)):
@@ -4595,6 +4626,189 @@ def reduced_batcher_against_cpu(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 3p: the paper's Tables 1-2 and Fig. 3, and the four examples
+# ---------------------------------------------------------------------------
+
+FIG3_PATH = "paper_fig3"
+FIG3_METHODS = ("splitnn", "federated", "large_batch")
+# the least final held-out accuracy each Fig. 3 method must reach after
+# 30 rounds, set below the least of seven card runs (`chip_spread.py
+# fig3` and this phase; each run's readings in PERF.md section 6):
+# splitNN read 0.9961-1.0, federated 0.5391-1.0, large_batch
+# 0.7969-0.9883; federated's floor is 3x chance
+FIG3_MIN_ACC = {"splitnn": 0.9, "federated": 0.3, "large_batch": 0.5}
+EXAMPLE_NAMES = ("quickstart", "multihop_tor", "multimodal_vertical",
+                 "e2e_train_100m")
+
+
+def _example(name: str):
+    """`examples/torch_<name>.py` as a module, its `main` not yet run."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _no_launches() -> dict:
+    from repro_torch.kernels import ops
+
+    return {k: 0 for k in ops.launch_counts()}
+
+
+def _lm_turn_launches(cfg, cut: int, steps: int) -> dict:
+    """rmsnorm, rmsnorm_bwd and flash_attention over `steps` vanilla turns
+    of one client over a dense LM: the client's forward (`cut` blocks,
+    two norms each) and the server's (the other blocks and the final
+    norm), both differentiated (RMS_BWD_KERNELS backward kernels an
+    rmsnorm), one flash prefill a block; the fake int8 wire launches
+    nothing."""
+    norms = steps * (2 * cut + 2 * (cfg.n_layers - cut) + 1)
+    return {**_no_launches(), "rmsnorm": norms,
+            "rmsnorm_bwd": RMS_BWD_KERNELS * norms,
+            "flash_attention": steps * cfg.n_layers}
+
+
+def paper_tables_path(torch) -> dict:
+    """`paper_tables.main(["--full"])`: Tables 1-2 as `table{1,2}_rows`
+    give them, and Fig. 3 over the paper's VGG-16 (10 classes, 4 clients
+    of 128 rows, AdamW 1e-4, 30 rounds): each method's cumulative client TFLOPs rising, equal to 3 x
+    the forward's analytic FLOPs a row (`vgg16_flops_per_sample`: cut 2
+    for splitNN, the whole net for the baselines) times the rows seen,
+    splitNN's below both baselines' at every point and fedavg's equal to
+    large_batch's (one local step); every method's final held-out
+    accuracy at least `FIG3_MIN_ACC`'s.  No kernel runs here."""
+    from repro_torch.core.accounting import vgg16_flops_per_sample
+    from repro_torch.kernels import ops
+    from repro_torch.launch import paper_tables as pt
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = pt.main(["--full"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    hold_launches(launches, _no_launches())
+
+    # the rows themselves are host arithmetic, held to the reference's at
+    # 1e-12 by tests/test_torch_protocol.py on the CPU
+    for table, rows_fn, key in (("table1", pt.table1_rows, "tflops"),
+                                ("table2", pt.table2_rows, "gb")):
+        if out[table] != rows_fn():
+            fail(f"{table}: paper_tables.main printed {out[table]}, "
+                 f"not {rows_fn.__name__}() {rows_fn()}")
+        print(f"{table} ({key} a client): " + ", ".join(
+            f"{m} n={n} {v:.6g}" for m, n, v in out[table]))
+
+    cfg, rows = pt.FULL["cfg"], pt.FULL["rows"]
+    curve = {m: [(t, a) for mm, t, a in out["fig3"] if mm == m]
+             for m in FIG3_METHODS}
+    every = pt.EVAL_EVERY
+    points = V_ROUNDS // every
+    per_row = {"splitnn": vgg16_flops_per_sample(upto_layer=V_CUT),
+               "federated": vgg16_flops_per_sample(),
+               "large_batch": vgg16_flops_per_sample()}
+    if [m for m, _, _ in out["fig3"]] != list(FIG3_METHODS) * points:
+        fail(f"fig3: methods {[m for m, _, _ in out['fig3']]}, want "
+             f"{list(FIG3_METHODS)} x {points}")
+    for m, pts in curve.items():
+        for i, (t, _) in enumerate(pts):
+            want = 3 * per_row[m] * rows * every * (i + 1) / 1e12
+            if abs(t - want) > 1e-9 * want:
+                fail(f"fig3 {m} point {i}: {t} client TFLOPs, want {want}")
+        if not all(a[0] < b[0] for a, b in zip(pts, pts[1:])):
+            fail(f"fig3 {m}: client TFLOPs not strictly rising {pts}")
+    for i in range(points):
+        s, f, lb = (curve[m][i][0] for m in FIG3_METHODS)
+        if not (s < f and s < lb and f == lb):
+            fail(f"fig3 point {i}: splitNN {s}, fedavg {f}, large_batch "
+                 f"{lb} TFLOPs")
+    final = {m: pts[-1][1] for m, pts in curve.items()}
+    for m, acc in final.items():
+        if not acc >= FIG3_MIN_ACC[m]:
+            fail(f"fig3 {m}: final held-out accuracy {acc:.4f} below "
+                 f"{FIG3_MIN_ACC[m]} (chip_spread.py fig3)")
+    print(f"fig3 ({cfg.name}, {V_CLIENTS} clients x {rows} rows, "
+          f"{V_ROUNDS} rounds, {wall:.1f} s): " + json.dumps(
+              {m: [[t, a] for t, a in pts] for m, pts in curve.items()}))
+    return {"launches": launches, "wall_s": wall, "final_accuracy": final,
+            "client_tflops": {m: pts[-1][0] for m, pts in curve.items()}}
+
+
+def _wire_bytes_ok(w, quantized: bool) -> bool:
+    n = 1
+    for s in w["shape"]:
+        n *= s
+    if quantized:       # int8 values and one fp32 scale a last-axis row
+        return w["bytes"] == n + 4 * (n // w["shape"][-1])
+    return w["bytes"] == 4 * n
+
+
+def examples_path(torch) -> dict:
+    """Each example's `main()` on the card at the reference's sizes (the
+    100M driver at its ~100M size, not --tiny), its own asserts passing,
+    launch counters zeroed just before and read just after: quickstart
+    and the 100M driver launch `_lm_turn_launches` of their configs
+    exactly, the multimodal example one `splitcat_linear` (its fused
+    evaluation, equal to `Session.evaluate`'s accuracy), multi-hop none;
+    each wire report's bytes are its shapes' (int8 plus a scale a row
+    under quickstart's quantize_int8, fp32 otherwise).  Returns
+    {path: result}."""
+    from repro_torch.kernels import ops
+
+    out = {}
+    for name in EXAMPLE_NAMES:
+        ex = _example(name)
+        want = _no_launches()
+        if name == "quickstart":
+            want = _lm_turn_launches(ex.config(), ex.CUT, ex.STEPS)
+            tokens = ex.STEPS * ex.BATCH * ex.SEQ
+        elif name == "e2e_train_100m":
+            cfg, steps, b, s = ex.config(False)
+            want = _lm_turn_launches(cfg, ex.cut_of(cfg), steps)
+            tokens = steps * b * s
+        elif name == "multimodal_vertical":
+            want = {**want, "splitcat_linear": 1}
+            tokens = None
+        else:
+            tokens = None
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = ex.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        hold_launches(launches, want)
+        if not all(_wire_bytes_ok(w, name == "quickstart")
+                   for w in res["wire_report"]):
+            fail(f"example {name}: wire report {res['wire_report']}")
+        if name == "multimodal_vertical" and not (
+                res["accuracy_fused"] == res["accuracy"] > 0.8):
+            fail(f"example {name}: fused {res['accuracy_fused']} vs "
+                 f"Session.evaluate {res['accuracy']}")
+        path = f"example_{name}"
+        out[path] = {"launches": launches, "wall_s": wall,
+                     "first_loss": res["losses"][0],
+                     "last_loss": res["losses"][-1],
+                     "wire": [[w["name"], list(w["shape"]), w["bytes"]]
+                              for w in res["wire_report"]]}
+        if tokens is not None:
+            out[path]["tokens_per_s"] = tokens / wall
+        if name == "e2e_train_100m":
+            out[path].update(params=res["params"],
+                             fit_tokens_per_s=res["tok_s"])
+        print(f"example {name}: {wall:.2f} s wall"
+              + (f", {tokens / wall:,.0f} tokens/s" if tokens else "")
+              + f", loss {res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}"
+              f", launches held: { {k: v for k, v in launches.items() if v} }")
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4686,6 +4900,8 @@ def main():
     mono = phase("3n", mono_path, torch)
     bat = phase("3o", batcher_path, torch)
     phase("3o reduced", reduced_batcher_against_cpu, torch)
+    fig3 = phase("3p tables", paper_tables_path, torch)
+    examples = phase("3p examples", examples_path, torch)
 
     # the wire launches per payload add up to what each path was held to
     paths = (("serving", run), ("training", train), ("ssm_serving", ssm),
@@ -4697,7 +4913,8 @@ def main():
              *((_lm_path_name(a, m, sc), r) for (a, m, sc), r in lm.items()),
              *cli.items(), ("resnet_vanilla_training", resnet),
              *((MOE_RUNS[arch].path, r) for arch, r in moe.items()),
-             *mono.items(), (BAT_PATH, bat))
+             *mono.items(), (BAT_PATH, bat), (FIG3_PATH, fig3),
+             *examples.items())
     for path, res in paths:
         for i, name in enumerate(("wire_quant", "wire_dequant")):
             want = sum(p[-1][i] for p in payloads if p[0] == path)

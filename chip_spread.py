@@ -4,10 +4,10 @@ GPU, against the number of training rounds: why `chip_smoke.py` trains
 multitask and extended_vanilla 30 rounds more before their accuracy
 check.
 
-Run from the root of a checkout, with no arguments (both parts below) or
-with `resnet` (the second only):
+Run from the root of a checkout, with no arguments (the first two parts
+below), with `resnet` (the second only) or with `fig3` (the third only):
 
-    python3 chip_spread.py [resnet]
+    python3 chip_spread.py [resnet | fig3]
 
 `chip_smoke.py`'s branch-kind paths (two full-width VGG-16 branches into
 a 1024 -> 10 trunk, two 1024 -> 10 task heads, or a 1024 -> 512 ReLU mid
@@ -28,6 +28,13 @@ cut 2, 4 clients round-robin with the p2p handoff, 128 rows a turn, 30
 rounds, AdamW(1e-4), the physical wire): each client's accuracy on the
 512 held-out rows of 100 classes, against the 3x chance limit that path
 holds.
+
+Then Fig. 3 (`repro_torch.launch.paper_tables`, `chip_smoke.py` phase
+3p: the paper's VGG-16 over 10 classes, 4 clients of 128 rows, AdamW
+1e-4, 30 rounds, seed 0) `FIG3_REPEATS` times: each method's held-out
+accuracy at every point of the curve, then per method the least, the
+largest and the mean final accuracy, from which phase 3p's
+`FIG3_MIN_ACC` is set.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 REPEATS = 6
 RESNET_REPEATS = 3
+FIG3_REPEATS = 4
 ROUND_COUNTS = {"vertical": (30,), "multitask": (30, 60),
                 "extended_vanilla": (30, 45, 60)}
 
@@ -56,9 +64,28 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(cs.card_line())
+    if sys.argv[1:] == ["fig3"]:
+        fig3_spread()
+        return
     if sys.argv[1:] != ["resnet"]:
         branch_spread(torch, cs, CONFIG, leakage_probe, quantize_int8)
     resnet_spread(torch, cs, leakage_probe, quantize_int8)
+
+
+def fig3_spread():
+    from repro_torch.launch import paper_tables as pt
+
+    final = {}
+    for rep in range(FIG3_REPEATS):
+        curve = pt.fig3_accuracy_vs_flops(**pt.FULL)
+        for method, _, acc in curve[-3:]:
+            final.setdefault(method, []).append(acc)
+        print(f"fig3 run {rep}: accuracy by point " + ", ".join(
+            f"{m} {a:.4f}" for m, _, a in curve), flush=True)
+    for method, accs in final.items():
+        print(f"fig3 {method} after 30 rounds: accuracy {min(accs):.4f} to "
+              f"{max(accs):.4f}, mean {statistics.mean(accs):.4f} over "
+              f"{len(accs)} runs")
 
 
 def branch_spread(torch, cs, CONFIG, leakage_probe, quantize_int8):

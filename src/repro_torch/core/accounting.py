@@ -92,6 +92,10 @@ class Meter:
             else:
                 self.bytes_down[ci] += w.bytes
 
+    def add_sync_bytes(self, ci, params):
+        """One p2p weight handoff of `params` to client `ci`, dense."""
+        self.sync_bytes[ci] += bytes_of_tree(params)
+
     def totals(self) -> dict:
         return {
             "client_tflops": [f / 1e12 for f in self.flops],

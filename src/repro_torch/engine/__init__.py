@@ -6,8 +6,9 @@ from repro_torch.engine.program import (Aggregate, ClientBwd,  # noqa: F401
                                         SendCut, ServerFwdBwd, Step,
                                         StepProgram, WeightHandoff,
                                         copy_tree, stack_batches,
-                                        stack_trees, tree_at, tree_update,
-                                        unstack_tree)
+                                        stack_state, stack_trees, tree_at,
+                                        tree_index, tree_update,
+                                        unstack_state, unstack_tree)
 from repro_torch.engine.topology import (Topology,  # noqa: F401
                                          extended_vanilla, lower,
                                          lower_baseline, multihop,

@@ -44,7 +44,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.nn.module import tree_map
+from repro_torch.nn.module import tree_leaves, tree_map
 from repro_torch.optim import apply_updates
 
 # ---------------------------------------------------------------------------
@@ -63,10 +63,14 @@ def unstack_tree(tree, n: int) -> list:
 
 
 def tree_at(tree, i: int):
-    """Client `i`'s slice of the leading client axis (views).  It also
-    serves for the reference's `tree_index`: eager torch has no traced
-    index to tell apart from a static one."""
+    """Client `i`'s slice of the leading client axis (views)."""
     return tree_map(lambda a: a[i], tree)
+
+
+def tree_index(tree, i):
+    """The reference's traced-index slice, `tree_at` with `i` an int or a
+    0-d tensor: eager torch has no traced index to tell apart."""
+    return tree_at(tree, int(i))
 
 
 def tree_update(tree, i: int, sub):
@@ -87,6 +91,30 @@ def stack_batches(batches: list) -> dict:
 def copy_tree(tree):
     """Leafwise copy: a state tree with its OWN storage."""
     return tree_map(torch.clone, tree)
+
+
+def stack_state(state: dict, n: int) -> dict:
+    """List-of-trees trainer state (the deprecated shims') -> stacked
+    engine state.  The non-stacked leaves are copied, not shared, as in
+    the reference; `last_trained` becomes an int32 0-d tensor on the
+    clients' device."""
+    dev = tree_leaves(state["clients"])[0].device
+    return {"clients": stack_trees(state["clients"]),
+            "server": copy_tree(state["server"]),
+            "opt_c": stack_trees(state["opt_c"]),
+            "opt_s": copy_tree(state["opt_s"]),
+            "last_trained": torch.tensor(int(state["last_trained"]),
+                                         dtype=torch.int32, device=dev)}
+
+
+def unstack_state(est: dict, n: int) -> dict:
+    """Inverse of `stack_state`: per-client trees and an int
+    `last_trained`."""
+    return {"clients": unstack_tree(est["clients"], n),
+            "server": est["server"],
+            "opt_c": unstack_tree(est["opt_c"], n),
+            "opt_s": est["opt_s"],
+            "last_trained": int(est["last_trained"])}
 
 
 # ---------------------------------------------------------------------------

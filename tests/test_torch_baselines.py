@@ -60,6 +60,9 @@ from repro_torch.engine import topology as topo
 from repro_torch.nn import convnets as TC
 from repro_torch.nn import module as tmod
 from repro_torch.optim import apply_updates
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # torch counter FLOPs / XLA cost-model FLOPs of the whole smoke-VGG

@@ -39,6 +39,9 @@ from repro_torch.configs import get_config
 from repro_torch.models.lm import per_slot_pos
 from repro_torch.nn import attention as TA
 from repro_torch.serve import Batcher, ServePlan, ServeSession
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 ARCH = "phi4_mini_3_8b"
 GEN, SLOTS, MAX_LEN = 6, 3, 20

@@ -32,6 +32,9 @@ from repro.serve import ServeSession as JServeSession
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.serve import Batcher, ServePlan, ServeSession
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 GEN, SLOTS, MAX_LEN = 6, 3, 20
 PROMPTS = (7, 11)

@@ -48,6 +48,9 @@ from repro_torch.nn import attention as TA
 from repro_torch.nn import layers as L
 from repro_torch.nn import rglru as R
 from repro_torch.serve import ServePlan, ServeSession
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 B, GEN = 2, 6
 WINDOW = 8

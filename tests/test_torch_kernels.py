@@ -49,6 +49,9 @@ from repro_torch.core import wire_compress as twc
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.splitcat_linear import (splitcat_linear_plain,
                                                  splitcat_linear_q8_plain)
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 
 def _payload(seed, shape, *, zero_rows=()):

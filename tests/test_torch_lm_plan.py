@@ -73,6 +73,9 @@ from repro_torch.engine import copy_tree
 from repro_torch.engine import topology as topo
 from repro_torch.models import build_model
 from repro_torch.nn import module as tmod
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # torch counter FLOPs / XLA cost-model FLOPs of the client forward, as

@@ -46,6 +46,9 @@ from repro_torch.nn import attention as TA
 from repro_torch.nn import module as tmod
 from repro_torch.nn import rglru as R
 from repro_torch.nn import transformer as TT
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5

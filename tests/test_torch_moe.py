@@ -33,6 +33,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import build_model
 from repro_torch.nn import attention as TA
 from repro_torch.nn import moe as TM
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B = 2

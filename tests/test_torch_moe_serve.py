@@ -42,6 +42,9 @@ from repro_torch.models import build_model
 from repro_torch.nn import moe as TM
 from repro_torch.nn.module import param_count
 from repro_torch.serve import ServePlan, ServeSession
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 B, GEN = 2, 6
 PROMPTS = (7, 24)              # no expert overflows; experts overflow

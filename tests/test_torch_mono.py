@@ -43,6 +43,9 @@ from repro_torch.launch import serve as tlaunch
 from repro_torch.models import build_model
 from repro_torch.nn.module import param_count, tree_map
 from repro_torch.serve import ServePlan, ServeSession, greedy_decode_scan
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 B, S, GEN = 2, 7, 6
 MAX_LEN = S + GEN + 2

@@ -25,6 +25,9 @@ from repro_torch.models import lm as tlm
 from repro_torch.nn import attention as TA
 from repro_torch.nn import layers as TL
 from repro_torch.nn import transformer as TT
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, S, MAX_LEN = 2, 7, 15

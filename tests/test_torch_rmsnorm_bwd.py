@@ -29,6 +29,9 @@ import torch
 from repro.nn import layers as JL
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as trn
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 WIDTHS = (64, 768, 100)
 LEAD = (2, 3)

@@ -31,9 +31,13 @@ on its dense wire).  Tolerances, each with its reason:
   dense-wire fedavg drift that `tests/test_torch_baselines.py` documents
   does not arise.
 
-The tests marked `gpu` train on the card against the CPU and skip without
-a CUDA GPU.
+The pipelined fits of all 8 modes against the reference are in
+`tests/test_torch_pipelined.py`, which imports this file's helpers.  The
+tests marked `gpu` train on the card against the CPU and skip without a
+CUDA GPU.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,6 +66,10 @@ from repro_torch.engine import program as prog
 from repro_torch.engine import topology as topo
 from repro_torch.models import build_model
 from repro_torch.nn import module as tmod
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
+
 
 GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -310,6 +318,15 @@ def _port_fit(mode, state=None, wire="physical", **over):
                               for b in _round_batches(mode)])
 
 
+@functools.lru_cache(maxsize=None)
+def _fresh_fit_meter(mode, wire="physical"):
+    """`_meter` and `meter()` of the port alone from a fresh init under
+    the mode's default schedule, once a (mode, wire): the cases that
+    compare a schedule's meter with the default's share it."""
+    sess, _ = _port_fit(mode, wire=wire)
+    return tuple(list(m) for m in _meter(sess)), sess.meter()
+
+
 def _state_of(jsess):
     """The reference session's state on the port."""
     return bridge.tree_from_jax(_np_tree(jsess.state))
@@ -358,45 +375,10 @@ def test_parallel_meter_matches_reference(parallel):
     kind, wire, jsess, tsess, _, _ = parallel
     assert _wire_meter(tsess) == _wire_meter(jsess)
     assert tsess.engine.meter.sync_bytes == [0] * N_CLIENTS
-    serial, _ = _port_fit(kind, wire=wire)
-    assert tsess.engine.meter.bytes_up == serial.engine.meter.bytes_up
-    assert tsess.engine.meter.bytes_down == serial.engine.meter.bytes_down
-    assert tsess.meter()["client_tflops"] == serial.meter()["client_tflops"]
-
-
-PIPELINED_CASES = [(mode, m) for mode in MODES for m in (1, 2)]
-
-
-@pytest.fixture(scope="module", params=PIPELINED_CASES,
-                ids=[f"{mode}-M{m}" for mode, m in PIPELINED_CASES])
-def pipelined(request):
-    mode, m = request.param
-    return (mode, m) + _fit(mode, schedule="pipelined", microbatches=m)
-
-
-def test_pipelined_fit_matches_reference(pipelined):
-    mode, m, jsess, tsess, lj, lt = pipelined
-    np.testing.assert_allclose(np.stack(lt), np.stack(lj), **TOL)
-    _assert_trees(tsess.state, jsess.state, TOL)
-    if mode in TURN_KINDS:
-        assert lt[0].shape == (N_CLIENTS,)
-        assert int(tsess.state["last_trained"]) == N_CLIENTS - 1
-    elif mode in BRANCH_KINDS:
-        assert lt[0].shape == (1,)
-    assert tsess.engine.microbatches == m
-
-
-def test_pipelined_meter_matches_reference_and_default_schedule(pipelined):
-    """Wire bytes do not depend on the microbatch count, and the handoff
-    is still billed once a turn: the meter is the reference's and the
-    mode's default schedule's, exactly."""
-    mode, m, jsess, tsess, _, _ = pipelined
-    assert _wire_meter(tsess) == _wire_meter(jsess)
-    default, _ = _port_fit(mode)
-    assert _meter(tsess) == _meter(default)
-    if mode in TURN_KINDS:
-        sync = tsess.engine.meter.sync_bytes
-        assert 0 < sync[0] < sync[1] == sync[2]
+    (_, up, down, _), totals = _fresh_fit_meter(kind, wire)
+    assert tsess.engine.meter.bytes_up == up
+    assert tsess.engine.meter.bytes_down == down
+    assert tsess.meter()["client_tflops"] == totals["client_tflops"]
 
 
 EQUAL_CASES = ([(mode, "pipelined") for mode in MODES]

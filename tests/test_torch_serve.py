@@ -42,6 +42,9 @@ from repro_torch.core.split import record
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as tlaunch
 from repro_torch.serve import ServePlan, ServeSession
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 ROOT = Path(__file__).resolve().parents[1]
 B, S, GEN = 2, 7, 6
@@ -238,8 +241,8 @@ def test_serve_cli_on_cpu(capsys):
 
 
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+        (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -257,4 +260,5 @@ def test_port_imports_neither_jax_nor_the_reference():
                 if top in ("jax", "jaxlib", "repro", "flax", "optax"):
                     bad.append(f"{path.relative_to(ROOT)}: {name}")
     assert len(_port_files()) > 20
+    assert len([p for p in _port_files() if p.parent.name == "examples"]) == 4
     assert not bad, bad

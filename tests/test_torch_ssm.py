@@ -42,6 +42,9 @@ from repro_torch.models import build_model
 from repro_torch.nn import layers as L
 from repro_torch.nn import ssm as S
 from repro_torch.serve import ServePlan, ServeSession
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 B, GEN = 2, 6
 PROMPTS = (7, 11)              # one chunk; a chunk of 8 and a remainder

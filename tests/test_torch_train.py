@@ -58,6 +58,9 @@ from repro_torch.kernels import ops
 from repro_torch.nn import convnets as TC
 from repro_torch.nn import layers as TL
 from repro_torch.nn import module as tmod
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 LEAK_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -39,6 +39,9 @@ from repro_torch.engine import tree_at
 from repro_torch.launch import train
 from repro_torch.models import build_model
 from repro_torch.nn.module import tree_leaves
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 ARCH = "phi4_mini_3_8b"
 FAST = ["--batch", "2", "--seq", "8", "--log-every", "0"]

@@ -49,6 +49,9 @@ from repro_torch.core.wire_compress import PackedInt8, _fake_quant_int8
 from repro_torch.data import partition as part
 from repro_torch.nn import convnets as TC
 from repro_torch.optim import schedules
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 N_CLIENTS, ROUNDS, HW, CUT = 2, 2, 16, 2

@@ -60,6 +60,9 @@ from repro_torch.engine import program as ir
 from repro_torch.engine import topology as topo
 from repro_torch.nn import convnets as TC
 from repro_torch.nn import module as tmod
+from _torch_threads import one_torch_thread
+
+one_torch_thread()
 
 GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
 TOL = dict(rtol=1e-5, atol=1e-5)
