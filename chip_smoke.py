@@ -16,14 +16,18 @@ Phases, each of which ends the run with a nonzero exit on any error:
    run and launches x (time - bound), beside the launch floor of a
    one-element op), `wire_roundtrip`'s value and gradient bitwise, the
    fused q8 entry matmul (the card tests' other shapes of it, and
-   Qwen3-30B-A3B's entry), the dense splitcat entry, rmsnorm at every
+   Qwen3-30B-A3B's and InternVL2-2B's entries), the dense splitcat
+   entry, rmsnorm at every
    served width (512 to 12,288, prefill and decode rows), the SSD scan
    and flash attention (phi4-mini's causal GQA prefill, RecurrentGemma's
    2048-row window over a 4096-row prompt, DeepSeek-V2's MLA prefill
    with q/k 192 wide and v 128, beside its bound with one and with two
    p v products, Qwen3-30B-A3B's GQA prefill, a group of 8, ChatGLM3's
    group of 16, the reference's qwen1_5_32b MHA 40/40 and
-   Mistral-Large's group of 12, and the examples' training attention:
+   Mistral-Large's group of 12, InternVL2-2B's 384-row prefill (16 over
+   8), Whisper-base's decoder prefill and, non-causal, its encoder over
+   1,500 frames (fp32 and bf16, against SDPA with is_causal=False), and
+   the examples' training attention:
    the 100M driver's 8 over 4 heads of 64 at seq 128, quickstart's 4
    over 2 of 32 at seq 32; the multimodal example's (64,20)|(64,20) x
    (40,4) + b splitcat entry; rmsnorm at their widths 512 and 128)
@@ -41,7 +45,8 @@ Phases, each of which ends the run with a nonzero exit on any error:
    within rtol 1e-5; the backward timed beside `F.rms_norm`'s and
    `scaled_dot_product_attention`'s.  The same in bf16 at the
    training CLI's shapes (batch 8 x seq 512, RecurrentGemma's windowed
-   attention, the SSD at chunk 256 and 64), within rtol 2**-7.
+   attention, the SSD at chunk 256 and 64, and Whisper's non-causal
+   encoder attention (8,1500,8,64)), within rtol 2**-7.
 3. Serving: phi4-mini-3.8B at full width (all 32 layers, bf16, random
    weights from a seeded generator), split at layer 4, served through
    `ServeSession` over the physical int8 wire with the fused entry:
@@ -257,6 +262,36 @@ Phases, each of which ends the run with a nonzero exit on any error:
    2 x that and flash L a step exactly, the multimodal example one
    splitcat_linear (its fused evaluation, equal to `Session.evaluate`'s
    accuracy), multi-hop none; wall seconds and tokens/s printed.
+3q. VLM serving: InternVL2-2B whole (24 layers, 1.89B parameters, bf16,
+   seeded weights) split at 4 over the physical wire with the fused
+   entry, batch 4, 256 seeded patches (4,256,1024) and a 128-token
+   prompt a request, 32 tokens: exactly 2,052 + 92,557 B a token a row
+   and 384 x 2,052 up and 92,557 down a row at prefill, the records the
+   real prefill and decode step bill equal to `prefill_cost(...,
+   extra)` and `decode_cost`'s; launches exact (flash 24 at the 384-row
+   shape, rmsnorm 49 + 31 x 48, the q8 entry 31, the wire 64 each);
+   physical == fake and monolithic (`LM.prefill` with the patches, then
+   `greedy_decode_scan`) == the split dense-wire session, bitwise;
+   prefill s, decode ms a step, tok/s, a profiled step's busy share,
+   the peak.  Then a `Batcher` of 4 slots serving 6 seeded tenants
+   (prompts 16-128, 8-32 tokens, each its own patches): bytes exactly
+   sum_t [(256 + S_t) 2,052 + 92,557 + (n_t - 1) 94,609], tokens and
+   launches exact, each first token its solo B=1 stream's; a reduced
+   VLM card == CPU.
+3r. Encoder-decoder serving and both families in the training CLI:
+   Whisper-base whole (6 + 6 layers, d 512, 1,500 frames, 70.7M
+   parameters, bf16) through the serve CLI in-process (batch 4, prompt
+   64, 32 tokens): its JSON line, exactly 6 non-causal and 6 causal
+   flash launches a prefill (the calls counted by mode), no rmsnorm and
+   no wire kernel, the generated tokens against `decode_full` re-run
+   teacher-forced over them (logits within 5% of the top one), and in
+   fp32 at full size the reference's prefill == decode-loop test (1e-4)
+   and the same teacher-forced check; a reduced Whisper card == CPU.
+   Then the training CLI in bf16, batch 8, 64 text tokens of ids below
+   1,024: Whisper-base monolithic 30 steps, fedavg and large_batch 3
+   each, InternVL2-2B (256 patches) monolithic 30 steps at the deepest
+   depth leaving 8 GiB free (all 24 layers on an 80 GB card): launches
+   exact, the loss falling, the peak; `--mode split` refused for both.
    Each phase's wall seconds are printed on a line of its own.
 4. A `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
@@ -440,6 +475,8 @@ def wire_payloads(torch) -> list:
     out += _resnet_payloads(torch)
     # phase 3o: the Batcher's joins, client rows, stacked payloads
     out += bat_payloads(torch)
+    # phase 3q: the VLM's split session and Batcher
+    out += vlm_payloads(torch)
     out += [(None, "no path", (4, 1, 3072), torch.float32, (0, 0)),
             (None, "no path", (4, 128, 3072), torch.float32, (0, 0))]
     return out
@@ -707,8 +744,9 @@ def check_splitcat(torch, gen) -> tuple:
           f"{t_plain:.4f} ms, library {t_lib:.4f} ms, bound {b[0]:.4f} ms "
           f"({b[1]}); {versus(t, t_lib, b)}; W cold in L2")
 
-    # the card tests' other shapes (tests/test_torch_kernels.py, Q8_CARD)
-    # and Qwen3-30B-A3B's fused entry (q, k and v: 4096 + 512 + 512), from
+    # the card tests' other shapes (tests/test_torch_kernels.py, Q8_CARD),
+    # Qwen3-30B-A3B's fused entry (q, k and v: 4096 + 512 + 512) and
+    # InternVL2-2B's (2048 + 1024 + 1024), from
     # a generator of their own so the checks after this one see the inputs
     # they always have; W cold where its copies exceed the L2
     own = torch.Generator(device="cuda").manual_seed(16)
@@ -722,7 +760,9 @@ def check_splitcat(torch, gen) -> tuple:
             ("35 rows (5,7,64|31)x(95,200)+b, fp32 W, bf16 out", (64, 31),
              (5, 7), 200, True, torch.float32, torch.bfloat16),
             ("Qwen3-MoE decode entry (4,1,2048)x(2048,5120) bf16", (2048,),
-             (4, 1), 5120, False, torch.bfloat16, torch.bfloat16)):
+             (4, 1), 5120, False, torch.bfloat16, torch.bfloat16),
+            ("InternVL2-2B decode entry (4,1,2048)x(2048,4096) bf16",
+             (2048,), (4, 1), 4096, False, torch.bfloat16, torch.bfloat16)):
         packs = [wire_quant(_payload(torch, lead + (k,), torch.float32, own))
                  for k in widths]
         qs_, ss_ = [p[0] for p in packs], [p[1] for p in packs]
@@ -1054,6 +1094,10 @@ def flash_bound(b, s, h, d, causal, window, in_bytes, out_bytes, dv=None,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the flash case that runs the kernel's non-causal mode (Whisper's encoder)
+WHISPER_ENC = "Whisper-base encoder (non-causal)"
+
+
 def check_flash(torch) -> tuple:
     """Flash attention against its plain version (the grouped einsum with
     the causal / window mask, softmax in float32) at the prefill shapes
@@ -1063,7 +1107,11 @@ def check_flash(torch) -> tuple:
     GQA (32 heads over 4, a group of 8), ChatGLM3-6B's (32 over 2, a group
     of 16), the reference's qwen1_5_32b plain MHA (40 over 40; the
     published Qwen1.5-32B is 40 over 8) and Mistral-Large's (96
-    over 8, a group of 12), plus a
+    over 8, a group of 12), InternVL2-2B's (16 over 8 at its 384-row
+    prefill: 256 patches and a 128-token prompt), Whisper-base's decoder
+    prefill (MHA 8 of 64 over 64 rows) and, non-causal, Whisper-base's
+    encoder (MHA 8 of 64 over its 1,500 frames, which leave 28 of the last
+    64-row KV tile real: only the bound check masks them), plus a
     ragged fp32 case at head_dim 32 with a window.  Tolerance: bf16
     within 1 bf16 ulp (floored at 1/256 of the rms) of the float32 plain
     result on the same inputs; fp32 within rtol = atol = 2e-5 (the sums
@@ -1088,12 +1136,17 @@ def check_flash(torch) -> tuple:
              ("Mistral-Large prefill", (4, 128, 96, 8, 128, 128), None,
               True),
              ("100M example training", (16, 128, 8, 4, 64, 64), None, True),
-             ("quickstart training", (8, 32, 4, 2, 32, 32), None, True)]
+             ("quickstart training", (8, 32, 4, 2, 32, 32), None, True),
+             ("InternVL2-2B prefill", (4, 384, 16, 8, 128, 128), None, True),
+             ("Whisper-base decoder prefill", (4, 64, 8, 8, 64, 64), None,
+              True),
+             (WHISPER_ENC, (4, 1500, 8, 8, 64, 64), None, True)]
     max_err, timings = 0.0, {}
     for tag, (b, s, h, kh, d, dv), window, timed in cases:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                    for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, dv)))
-        kw = dict(causal=True, window=window)
+        causal = tag != WHISPER_ENC
+        kw = dict(causal=causal, window=window)
         want32 = ref.flash_attention_ref(q, k, v, **kw)
         y32 = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -1118,7 +1171,7 @@ def check_flash(torch) -> tuple:
         max_err = max(max_err, err)
         del y_plain, y_ref32
         shape = (f"q {(b, s, h, d)} k {(b, s, kh, d)} v {(b, s, kh, dv)} "
-                 f"window {window}")
+                 f"window {window}" + ("" if causal else ", non-causal"))
         print(f"flash_attention {tag} {shape}: fp32 max abs err {err32:.3e} "
               f"(2e-5), bf16 within 1 ulp, max abs err {err:.3e} against the "
               "bf16 plain output")
@@ -1135,7 +1188,7 @@ def check_flash(torch) -> tuple:
         def library():
             if window is None:
                 return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True,
+                                                      is_causal=causal,
                                                       enable_gqa=True)
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   enable_gqa=True)
@@ -1145,9 +1198,9 @@ def check_flash(torch) -> tuple:
         except (RuntimeError, TypeError) as e:
             print(f"  library yardstick not timed: {e}")
             t_lib = None
-        bd = flash_bound(b, s, h, d, True, window, nbytes(qb, kb, vb),
+        bd = flash_bound(b, s, h, d, causal, window, nbytes(qb, kb, vb),
                          nbytes(y), dv)
-        one = flash_bound(b, s, h, d, True, window, nbytes(qb, kb, vb),
+        one = flash_bound(b, s, h, d, causal, window, nbytes(qb, kb, vb),
                           nbytes(y), dv, pv_products=1)
         lib = f"{t_lib:.4f} ms" if t_lib is not None else "none"
         print(f"  kernel {t:.4f} ms, plain {t_plain:.4f} ms, library "
@@ -1184,7 +1237,8 @@ def check_grads(torch) -> dict:
     rmsnorm (8,512,768) and (8,512,2560), RecurrentGemma's flash q
     (8,512,10,256), k/v (8,512,1,256) with its 2048-row window, Mamba2's
     SSD x (8,512,24,64) at chunk 256, and at the CLI's default seq 64,
-    chunk 64).  Every input requires grad, so each wrapper goes through
+    chunk 64; and phase 3r's Whisper encoder attention, non-causal, q/k/v
+    (8,1500,8,64)).  Every input requires grad, so each wrapper goes through
     its autograd Function; its forward must launch the kernel once (held
     to the plain forward as above in fp32: rmsnorm at 1e-5, flash at
     2e-5, the SSD within 1e-3 x rms + 1e-4 x |v|; in bf16 within 2 bf16
@@ -1257,15 +1311,18 @@ def check_grads(torch) -> dict:
                 ops.rmsnorm, ref.rmsnorm_ref, lib, close(1e-5, dtype),
                 dtype)
 
-    def flash(window, b=LB, s=LS, h=24, kv=8, d=128, dtype=torch.float32):
+    def flash(window, b=LB, s=LS, h=24, kv=8, d=128, dtype=torch.float32,
+              causal=True):
         def make():
             return ([randn(b, s, h, d).to(dtype), randn(b, s, kv, d).to(dtype),
-                     randn(b, s, kv, d).to(dtype)], {"window": window})
+                     randn(b, s, kv, d).to(dtype)],
+                    {"window": window, "causal": causal})
 
-        def lib(q, k, v, window):
+        def lib(q, k, v, window, causal):
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             if window is None:
-                o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                o = F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal,
                                                    enable_gqa=True)
             else:
                 mask = ref.causal_mask(s, s, window=window, device=q.device)
@@ -1273,7 +1330,8 @@ def check_grads(torch) -> dict:
                                                    enable_gqa=True)
             return o.transpose(1, 2)
         return (f"flash_attention q ({b},{s},{h},{d}) k/v ({b},{s},{kv},{d}) "
-                f"{name(dtype)} causal, window {window}", "flash_attention",
+                f"{name(dtype)} {'causal' if causal else 'non-causal'}, "
+                f"window {window}", "flash_attention",
                 make, ops.flash_attention, ref.flash_attention_ref, lib,
                 close(2e-5, dtype), dtype)
 
@@ -1310,7 +1368,8 @@ def check_grads(torch) -> dict:
             flash(None, 16, 128, 8, 4, 64), flash(None, 8, 32, 4, 2, 32),
             rms(768, CLI_B, CLI_S, bf), rms(2560, CLI_B, CLI_S, bf),
             flash(2048, CLI_B, CLI_S, 10, 1, 256, bf),
-            ssd(False, CLI_B, CLI_S, 256, bf), ssd(False, CLI_B, 64, 64, bf)):
+            ssd(False, CLI_B, CLI_S, 256, bf), ssd(False, CLI_B, 64, 64, bf),
+            flash(None, CLI_B, 1500, 8, 8, 64, bf, causal=False)):
         ins, kw = make()
         g_tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
         a_tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
@@ -4301,16 +4360,19 @@ def bat_payloads(torch) -> list:
          (len(steps), len(steps)))]
 
 
-def run_queue(torch, batcher, prompts: list, budgets: list, after=None):
+def run_queue(torch, batcher, prompts: list, budgets: list, after=None,
+              extras=None):
     """Seat the queue's tenants in order while a slot is free, step, and
     repeat until all have finished; `after(live)` runs after each step
-    with the slots that were live in it.  Returns (the Tenant objects in
-    queue order, the live count of each step)."""
-    tenants, steps, queue = [], [], list(zip(prompts, budgets))
+    with the slots that were live in it; `extras`, one per tenant, are
+    its modality inputs.  Returns (the Tenant objects in queue order, the
+    live count of each step)."""
+    tenants, steps = [], []
+    queue = list(zip(prompts, budgets, extras or [None] * len(prompts)))
     while queue or batcher.tenants:
         while queue and batcher.free_slots():
-            prompt, budget = queue.pop(0)
-            slot = batcher.join(prompt, budget)
+            prompt, budget, extra = queue.pop(0)
+            slot = batcher.join(prompt, budget, extra)
             tenants.append(batcher.tenants.get(slot) or batcher.finished[-1])
         live = sorted(batcher.tenants)
         if not live:
@@ -4809,6 +4871,664 @@ def examples_path(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3q: VLM serving (InternVL2-2B whole, split, patch inputs)
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "internvl2_2b"
+VLM_PATH, VLM_BAT_PATH = "internvl2_serving", "internvl2_batcher_serving"
+VLM_SLOTS, VLM_TENANTS = 4, 6
+VLM_PROMPTS, VLM_NEW = (16, 128), (8, 32)
+
+
+def vlm_tenants() -> list:
+    return bat_tenants(VLM_TENANTS, VLM_PROMPTS, VLM_NEW, seed=SEED + 5)
+
+
+def vlm_max_len(cfg) -> int:
+    """Every cache row a VLM request can fill: its patches first, then the
+    longest prompt and budget of phase 3q."""
+    return (cfg.n_patches + max(PROMPT, VLM_PROMPTS[1])
+            + max(GEN, VLM_NEW[1]) + 1)
+
+
+def vlm_payloads(torch) -> list:
+    """Phase 3q's wire payloads a counted run: the split session's prefill
+    (the patches' rows and the prompt's) and decode as phase 3's, then the
+    Batcher's as phase 3o's, each join sending its tenant's patches and
+    prompt up."""
+    cfg = _config(VLM_ARCH)
+    d, v, bf, p = cfg.d_model, cfg.vocab, cfg.dtype, cfg.n_patches
+    tenants = vlm_tenants()
+    steps = bat_schedule(tenants, VLM_SLOTS)
+    n = len(tenants)
+    return [(VLM_PATH, "prefill up (patches + prompt)", (B, p + PROMPT, d),
+             bf, (1, 1)),
+            (VLM_PATH, "decode up", (B, 1, d), bf, (GEN - 1,) * 2),
+            (VLM_PATH, "down (logits)", (B, 1, v), bf, (GEN, GEN)),
+            *((VLM_BAT_PATH, f"join up (patches + prompt {s})",
+               (1, p + s, d), bf, (1, 1)) for s, _ in tenants),
+            (VLM_BAT_PATH, "join down (logits)", (1, 1, v), bf, (n, n)),
+            (VLM_BAT_PATH, "step up (a tenant's row, the pad row once)",
+             (1, 1, d), bf, (sum(steps) + 1, 0)),
+            (VLM_BAT_PATH, "step stacked up (residual)", (VLM_SLOTS, 1, d),
+             bf, (0, len(steps))),
+            (VLM_BAT_PATH, "step down (stacked logits)", (VLM_SLOTS, 1, v),
+             bf, (len(steps), len(steps)))]
+
+
+def _patches(torch, cfg, rows: int, gen, device="cuda"):
+    """Seeded stand-ins for the vision frontend's output, 0.02 x normal in
+    the model's dtype, as the reference's launchers draw them."""
+    return (0.02 * torch.randn((rows, cfg.n_patches, cfg.vision_dim),
+                               generator=gen, device=device)).to(cfg.dtype)
+
+
+def vlm_phase(torch) -> dict:
+    """InternVL2-2B whole (24 layers, bf16, seeded weights) split at 4
+    over the physical int8 wire with the fused entry: batch 4, 256
+    patches and a 128-token prompt a request, 32 tokens.  Launches exact,
+    the wire bytes exactly (2,052 + 92,557 a token a row; the prefill
+    384 x 2,052 up and 92,557 down a row), the records the real prefill
+    and decode step bill == `prefill_cost` / `decode_cost`'s, physical ==
+    fake, monolithic (`LM.prefill` with the patches, then
+    `greedy_decode_scan`) == the split dense-wire session, bitwise.  Then
+    a `Batcher` of 4 slots serving 6 seeded tenants, each with its own
+    patches: bytes, tokens and launches exact, each first token its solo
+    B=1 stream's."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import param_count
+    from repro_torch.serve import (Batcher, ServePlan, ServeSession,
+                                   greedy_decode_scan)
+
+    cfg = _config(VLM_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = model.init(gen, "cuda")
+    n_params = param_count(params)
+    p, max_len = cfg.n_patches, vlm_max_len(cfg)
+    gen.manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen,
+                            device="cuda")
+    extra = {"patch_embeds": _patches(torch, cfg, B, gen)}
+    print(f"VLM serving: {cfg.name} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, SwiGLU {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"vision_proj {cfg.vision_dim} -> {cfg.d_model}, {n_params} "
+          f"parameters, {cfg.dtype}; cut {CUT}, batch {B}, {p} patches + "
+          f"prompt {PROMPT}, generate {GEN}, rings of {max_len}")
+
+    def session(wire, fused, slots=B):
+        return ServeSession(ServePlan(arch=cfg, cut=CUT, wire=wire,
+                                      max_batch=slots, max_len=max_len,
+                                      fused_entry=fused), params,
+                            device="cuda")
+
+    fused = session("quantize_int8:physical", True)
+    billed = []
+
+    def meter(fn):
+        def metered(wires, name, t, direction):
+            out = fn(wires, name, t, direction)
+            billed.append(wires[-1])
+            return out
+        return metered
+    # the warmup (a prefill and one decode step), its records kept
+    with patched({("repro_torch.serve.split_infer", "record"): meter}):
+        fused.generate(prompts, 2, extra)
+    torch.cuda.synchronize()
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tok0 = fused.prefill(prompts, extra)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rest = fused.decode(tok0, GEN - 1)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    toks = torch.cat([tok0, rest], dim=1)
+    step_ms = t_decode / (GEN - 1) * 1e3
+    print(f"  prefill {t_prefill:.4f} s; decode {GEN - 1} steps "
+          f"{t_decode:.4f} s = {step_ms:.3f} ms a step = "
+          f"{B * (GEN - 1) / t_decode:.1f} tok/s")
+    print(f"  launches: {launches}")
+    # as phase 3: rmsnorm 2 a layer and the final norm at prefill, the
+    # entry's norm folded into the scales at decode; flash once a layer
+    # at prefill, at the 384-row shape
+    hold_launches(launches, {
+        "wire_quant": 2 + 2 * (GEN - 1), "wire_dequant": 2 + 2 * (GEN - 1),
+        "splitcat_linear_q8": GEN - 1, "splitcat_linear": 0,
+        "rmsnorm": (2 * cfg.n_layers + 1) + (GEN - 1) * 2 * cfg.n_layers,
+        "rmsnorm_bwd": 0, "ssd_scan": 0, "flash_attention": cfg.n_layers})
+    if tuple(toks.shape) != (B, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        fail(f"{cfg.name}: tokens {tuple(toks.shape)} outside ({B}, {GEN}) "
+             f"x [0, {cfg.vocab})")
+    tok = rest[:, -1:]
+
+    def step():
+        nonlocal tok
+        tok = fused.decode_step(tok)
+    busy_ms = profile_device(torch, f"{cfg.name} decode step", step,
+                             step_ms / 1e3)
+
+    # the bytes: analytic, probed and billed by the real run
+    up, down = cfg.d_model + 4, cfg.vocab + 4
+    per_tok = fused.bytes_per_token()
+    dc = fused.decode_cost(batch=B)
+    pc = fused.prefill_cost(B, PROMPT, extra)
+    if per_tok != up + down or dc.bytes_up + dc.bytes_down != B * per_tok:
+        fail(f"{cfg.name}: {per_tok} wire B a token, not {up + down}")
+    if (pc.bytes_up, pc.bytes_down) != (B * (p + PROMPT) * up, B * down):
+        fail(f"{cfg.name}: prefill bills {pc.bytes_up} up, {pc.bytes_down} "
+             f"down, not {B * (p + PROMPT) * up} and {B * down}")
+
+    def recs(ws):
+        return [(w.name, tuple(w.shape), w.direction, w.bytes, w.physical)
+                for w in ws]
+    if recs(billed) != recs(pc.wires + dc.wires):
+        fail(f"{cfg.name}: the run billed {recs(billed)}, the probes "
+             f"{recs(pc.wires + dc.wires)}")
+    print(f"  wire: {per_tok} B a generated token a row (up {up}, down "
+          f"{down}); prefill {pc.bytes_up // B} B up ({p + PROMPT} rows) "
+          f"and {pc.bytes_down // B} B down a row; the real prefill and "
+          "decode step billed what prefill_cost and decode_cost price")
+
+    phys = session("quantize_int8:physical", False).generate(prompts, GEN,
+                                                             extra)
+    fake = session("quantize_int8", False).generate(prompts, GEN, extra)
+    if not torch.equal(phys, fake):
+        fail(f"{cfg.name}: physical-wire tokens {phys.tolist()} != fake-wire "
+             f"tokens {fake.tolist()}")
+    cache = model.init_cache(B, max_len, "cuda")
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": prompts, **extra},
+                                      cache)
+        first = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        mono_rest, _ = greedy_decode_scan(model, params, cache, first,
+                                          GEN - 1)
+    mono = torch.cat([first, mono_rest], dim=1)
+    split = session("", False).generate(prompts, GEN, extra)
+    if not torch.equal(mono, split):
+        fail(f"{cfg.name}: monolithic tokens {mono.tolist()} != split "
+             f"dense-wire tokens {split.tolist()}")
+    del cache, logits
+    print(f"  physical == fake wire tokens, and monolithic == split "
+          f"(dense wire, cut {CUT}) tokens, bitwise ({B}x{GEN}); the fused "
+          f"entry shares {int((phys == toks).sum())}/{B * GEN} tokens with "
+          "the unfused physical run")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {VLM_PATH: {
+        "launches": launches, "params": n_params, "prefill_s": t_prefill,
+        "decode_step_ms": step_ms,
+        "decode_tok_per_s": B * (GEN - 1) / t_decode, "busy_ms": busy_ms,
+        "busy_share": busy_ms / step_ms if busy_ms else None,
+        "peak_gib": peak, "wire_bytes_per_token": per_tok,
+        "prefill_bytes_up_per_row": pc.bytes_up // B,
+        "prefill_bytes_down_per_row": pc.bytes_down // B}}
+    print(f"  peak {peak:.2f} GiB allocated (weights, five sessions' "
+          "caches, the monolithic run's)")
+
+    # the Batcher: 6 tenants, each its own patches, through 4 slots
+    tenants = vlm_tenants()
+    budgets = [n for _, n in tenants]
+    tprompts = _bat_prompts(torch, tenants, cfg.vocab, seed=SEED + 6)
+    pgen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    extras = [{"patch_embeds": _patches(torch, cfg, 1, pgen)}
+              for _ in tenants]
+    print(f"  Batcher: {VLM_SLOTS} slots, {VLM_TENANTS} tenants "
+          f"(prompt, max_new) {tenants}, {p} patches each")
+    sess = session("quantize_int8:physical", True, VLM_SLOTS)
+    warm = Batcher(sess)                          # warmup
+    run_queue(torch, warm, tprompts[:2], [2, 2], extras=extras[:2])
+    torch.cuda.synchronize()
+    del warm
+    bat = Batcher(sess)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, steps = run_queue(torch, bat, tprompts, budgets, extras=extras)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b_launches = ops.launch_counts()
+    if steps != bat_schedule(tenants, VLM_SLOTS):
+        fail(f"VLM batcher steps {steps} != the schedule "
+             f"{bat_schedule(tenants, VLM_SLOTS)}")
+    hold_launches(b_launches, _bat_want_launches(tenants, steps, cfg, CUT))
+    lens = [len(t.tokens) for t in done]
+    want_bytes = sum((p + s) * up + down + (n - 1) * (up + down)
+                     for s, n in tenants)
+    if lens != budgets or bat.tokens_generated != sum(budgets) or \
+            bat.bytes_up + bat.bytes_down != want_bytes:
+        fail(f"VLM batcher: tokens {lens} (want {budgets}), counted "
+             f"{bat.tokens_generated}; bytes {bat.bytes_up} + "
+             f"{bat.bytes_down} != {want_bytes}")
+    solo = session("quantize_int8:physical", True, 1)
+    firsts = [int(solo.generate(pr[None], 1, ex)[0, 0])
+              for pr, ex in zip(tprompts, extras)]
+    if firsts != [t.tokens[0] for t in done]:
+        fail(f"VLM batcher first tokens {[t.tokens[0] for t in done]} != "
+             f"solo {firsts}")
+    print(f"  Batcher: {len(steps)} steps, live a step {steps}; launches "
+          f"exact {b_launches}; bytes exact: up {bat.bytes_up} + down "
+          f"{bat.bytes_down} = {want_bytes}, {bat.tokens_generated} tokens; "
+          f"first tokens == solo B=1; {wall:.3f} s wall = "
+          f"{bat.tokens_generated / wall:.1f} tok/s (joins included)")
+    out[VLM_BAT_PATH] = {"launches": b_launches, "steps": len(steps),
+                         "wall_s": wall,
+                         "tok_per_s": bat.tokens_generated / wall,
+                         "bytes": want_bytes,
+                         "tokens": bat.tokens_generated}
+    del fused, sess, solo, bat, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduced_vlm_against_cpu(torch):
+    """Reduced fp32 InternVL2 (8 patches of 64) served split on the card
+    and on the CPU from the same weights and patches, over the physical
+    wire through the fused entry: the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServePlan, ServeSession
+
+    cfg = get_config(VLM_ARCH).reduced(vocab=97)
+    gen = torch.Generator().manual_seed(0)
+    params = build_model(cfg).init(gen, "cpu")
+    prompts = torch.randint(0, cfg.vocab, (2, 7), generator=gen)
+    extra = {"patch_embeds": _patches(torch, cfg, 2, gen, "cpu")}
+    plan = ServePlan(arch=cfg, wire="quantize_int8:physical", max_batch=2,
+                     max_len=cfg.n_patches + 15, fused_entry=True)
+    on_cpu = ServeSession(plan, params, device="cpu").generate(prompts, 6,
+                                                               extra)
+    on_card = ServeSession(plan, params, device="cuda").generate(prompts, 6,
+                                                                 extra)
+    if not torch.equal(on_cpu, on_card.cpu()):
+        fail(f"reduced VLM: card tokens {on_card.tolist()} != CPU tokens "
+             f"{on_cpu.tolist()}")
+    print(f"reduced {cfg.name}, card == CPU plain path: {on_cpu.tolist()}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3r: encoder-decoder serving (Whisper-base), and both families in
+# the training CLI
+# ---------------------------------------------------------------------------
+
+ENC_ARCH = "whisper_base"
+ENC_PATH = "whisper_monolithic_serving"
+ENC_PROMPT = 64
+# a bf16 incremental logit's largest difference from the teacher-forced
+# one, as a share of the top logit (the bound phase 3o holds a batched row
+# to; a wrong cache or position differs by O(1)); in fp32 an absolute
+# 1e-4, the reference test's tolerance
+ENC_REL = 0.05
+ENC_ABS32 = 1e-4
+# the training runs: (path, arch, argv, steps), batch CLI_B, text FAM_SEQ
+FAM_SEQ = 64
+FAM_RUNS = [
+    ("whisper_base_cli_monolithic", ENC_ARCH, ["--mode", "monolithic"],
+     CLI_STEPS),
+    ("whisper_base_cli_fedavg", ENC_ARCH,
+     ["--mode", "fedavg", "--n-clients", "2"], CLI_SHORT),
+    ("whisper_base_cli_large_batch", ENC_ARCH,
+     ["--mode", "large_batch", "--n-clients", "2"], CLI_SHORT),
+    ("internvl2_2b_cli_monolithic", VLM_ARCH, ["--mode", "monolithic"],
+     CLI_STEPS)]
+# InternVL2 trains at the deepest depth whose bf16 AdamW state (about 22
+# bytes a stored parameter, phase 3k's count) and FAM_ACT_GIB of
+# activations and logits leave FAM_FREE_GIB of the card free
+FAM_FREE_GIB, FAM_ACT_GIB, FAM_BYTES_PER_PARAM = 8, 16, 22
+
+
+def _flash_by_mode(counts: dict):
+    """A wrapper of `ops.flash_attention` that counts its calls by `causal`
+    (the launch counter cannot tell the modes apart), but those on meta
+    tensors (a FLOP or wire probe), which launch nothing."""
+    def wrap(fn):
+        def counted(q, *args, causal=True, **kw):
+            if q.device.type != "meta":
+                counts[causal] = counts.get(causal, 0) + 1
+            return fn(q, *args, causal=causal, **kw)
+        return counted
+    return wrap
+
+
+def _forced_agree(torch, inc, tf, toks, tol: float, what: str) -> str:
+    """Incremental logits `inc` and teacher-forced ones `tf` (B, n, V) of
+    the generated tokens `toks` (B, n): every logit within `tol` (an
+    absolute bound), and each token tf's argmax wherever tf's top two
+    differ by more than twice the measured difference (where they differ
+    by less, either argmax is the model's)."""
+    diff = (inc.float() - tf.float()).abs().amax(dim=-1)        # (B, n)
+    if float(diff.max()) > tol:
+        fail(f"{what}: incremental logits differ from the teacher-forced "
+             f"ones by {float(diff.max()):.4g}, above {tol:.4g}")
+    top2 = tf.float().topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    same = torch.argmax(tf, dim=-1) == toks
+    decided = gap > 2 * diff
+    if bool((decided & ~same).any()):
+        fail(f"{what}: a generated token is not the teacher-forced argmax "
+             "though the logits' difference cannot move it")
+    return (f"logits within {float(diff.max()):.3g} (limit {tol:.3g}); "
+            f"{int(same.sum())}/{same.numel()} tokens the teacher-forced "
+            f"argmax, every one of the {int(decided.sum())} the difference "
+            "cannot move")
+
+
+def _whisper_inputs(torch, cfg, device="cuda", batch=B, prompt=ENC_PROMPT):
+    """The serve CLI's draws: weights from seed 0, then the prompt and the
+    frames from seed 1."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init(gen, device)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
+                           device=device)
+    audio = (0.02 * torch.randn((batch, cfg.n_audio_frames, cfg.d_model),
+                                generator=gen, device=device)).to(cfg.dtype)
+    return model, params, tokens, audio
+
+
+def _incremental(torch, model, params, tokens, audio, toks, max_len):
+    """The logits behind each generated token: the prefill's last, then a
+    decode step on each generated token but the last."""
+    with torch.no_grad():
+        cache = model.init_cache(params, audio, max_len)
+        logits, cache = model.prefill(params, tokens, cache)
+        out = [logits[:, -1:]]
+        for i in range(toks.shape[1] - 1):
+            lg, cache = model.decode_step(params, toks[:, i:i + 1], cache)
+            out.append(lg)
+    return torch.cat(out, dim=1)
+
+
+def _teacher_forced(torch, model, params, tokens, audio, toks):
+    """`decode_full` over the prompt and every generated token but the
+    last: the logits that pick each generated token."""
+    with torch.no_grad():
+        full = model.decode_full(params, torch.cat([tokens, toks[:, :-1]],
+                                                   1),
+                                 model.encode(params, audio))
+    return full[:, tokens.shape[1] - 1:]
+
+
+def whisper_serve(torch) -> dict:
+    """Whisper-base whole through the serve CLI (monolithic, bf16, batch 4,
+    prompt 64, 32 tokens, 1,500 frames): the JSON line; per prefill
+    exactly 6 non-causal and 6 causal flash launches (encoder, decoder
+    self-attention), no rmsnorm and no wire kernel; the generated tokens
+    against `decode_full` re-run teacher-forced over them (ENC_REL), and
+    at full size in fp32 the reference's prefill == decode-loop test
+    (last prompt logits within 1e-4) and the same teacher-forced check
+    within 1e-4."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.nn.module import param_count
+    from repro_torch.serve import greedy_decode_scan
+
+    cfg = _config(ENC_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", ENC_ARCH, "--batch", str(B), "--prompt-len",
+            str(ENC_PROMPT), "--gen", str(GEN)]
+    by_mode: dict = {}
+    ops.reset_launches()
+    with patched({("repro_torch.kernels.ops", "flash_attention"):
+                  _flash_by_mode(by_mode)}):
+        run, summary = _serve_cli(torch, argv, cfg)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the CLI's warmup and timed run: two prefills
+    hold_launches(launches, {
+        "flash_attention": 2 * (cfg.n_enc_layers + cfg.n_layers),
+        "rmsnorm": 0, "rmsnorm_bwd": 0, "wire_quant": 0, "wire_dequant": 0,
+        "splitcat_linear_q8": 0, "splitcat_linear": 0, "ssd_scan": 0})
+    if by_mode != {False: 2 * cfg.n_enc_layers, True: 2 * cfg.n_layers}:
+        fail(f"{cfg.name}: flash calls by causal {by_mode}, not "
+             f"{cfg.n_enc_layers} non-causal and {cfg.n_layers} causal a "
+             "prefill")
+    want = {"arch", "batch", "prompt_len", "generated", "device", "mode",
+            "prefill_s", "decode_s", "decode_tok_per_s", "sample_tokens"}
+    if set(summary) != want or summary["mode"] != "monolithic" or \
+            summary["device"] != torch.cuda.get_device_name(0):
+        fail(f"{cfg.name} serve CLI: summary {summary}")
+    toks = run.tokens
+    if tuple(toks.shape) != (B, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        fail(f"{cfg.name}: tokens {tuple(toks.shape)}")
+    step_ms = summary["decode_s"] / (GEN - 1) * 1e3
+    tok = toks[:, -1:]
+
+    def step():
+        nonlocal tok
+        tok = run.step(tok)
+    busy_ms = profile_device(torch, f"{cfg.name} monolithic decode step",
+                             step, step_ms / 1e3, steps=4)
+    print(f"  {cfg.name} monolithic: prefill {summary['prefill_s']:.4f} s "
+          f"(the encoder over {cfg.n_audio_frames} frames included), decode "
+          f"{step_ms:.3f} ms a step = {summary['decode_tok_per_s']:.1f} "
+          f"tok/s, peak {peak:.2f} GiB; launches {launches}, flash by "
+          f"causal {by_mode}")
+    del run
+    max_len = ENC_PROMPT + GEN + 1
+    model, params, tokens, audio = _whisper_inputs(torch, cfg)
+    n_params = param_count(params)
+    inc = _incremental(torch, model, params, tokens, audio, toks, max_len)
+    tf = _teacher_forced(torch, model, params, tokens, audio, toks)
+    top = float(tf.float().abs().max())
+    said = _forced_agree(torch, inc, tf, toks, ENC_REL * top,
+                         f"{cfg.name} bf16")
+    print(f"  bf16 CLI tokens against decode_full teacher-forced: {said}")
+    del params, inc, tf
+    # the reference's prefill == decode-loop test at full size, in fp32
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model, params, tokens, audio = _whisper_inputs(torch, cfg32)
+    with torch.no_grad():
+        cache_l = model.init_cache(params, audio, max_len)
+        for i in range(ENC_PROMPT):
+            loop, cache_l = model.decode_step(params, tokens[:, i:i + 1],
+                                              cache_l)
+        cache_p = model.init_cache(params, audio, max_len)
+        pre, cache_p = model.prefill(params, tokens, cache_p)
+        err = float((loop[:, -1] - pre[:, -1]).abs().max())
+        if err > ENC_ABS32:
+            fail(f"{cfg.name} fp32: prefill's last logits differ from the "
+                 f"decode loop's by {err:.3g}")
+        first = torch.argmax(pre[:, -1], -1)[:, None]
+        rest, _ = greedy_decode_scan(model, params, cache_p, first, GEN - 1)
+    toks32 = torch.cat([first, rest], 1)
+    said32 = _forced_agree(
+        torch, _incremental(torch, model, params, tokens, audio, toks32,
+                            max_len),
+        _teacher_forced(torch, model, params, tokens, audio, toks32),
+        toks32, ENC_ABS32, f"{cfg.name} fp32")
+    print(f"  fp32 at full size: prefill's last logits within {err:.3g} of "
+          f"a {ENC_PROMPT}-step decode loop's; greedy tokens against "
+          f"decode_full teacher-forced: {said32}")
+    del params, cache_l, cache_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "params": n_params,
+            "prefill_s": summary["prefill_s"], "decode_step_ms": step_ms,
+            "decode_tok_per_s": summary["decode_tok_per_s"],
+            "busy_ms": busy_ms, "peak_gib": peak}
+
+
+def reduced_whisper_against_cpu(torch):
+    """Reduced fp32 Whisper (16 frames) served monolithically on the card
+    and on the CPU from the same weights, frames and prompt: the same
+    tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn.module import tree_map
+    from repro_torch.serve import greedy_decode_scan
+
+    cfg = get_config(ENC_ARCH).reduced(vocab=97)
+    model, params, tokens, audio = _whisper_inputs(torch, cfg, "cpu", 2, 7)
+    out = {}
+    for device in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(device), params)
+        with torch.no_grad():
+            cache = model.init_cache(p, audio.to(device), 15)
+            logits, cache = model.prefill(p, tokens.to(device), cache)
+            first = torch.argmax(logits[:, -1], -1)[:, None]
+            rest, _ = greedy_decode_scan(model, p, cache, first, 5)
+        out[device] = torch.cat([first, rest], 1).cpu()
+    if not torch.equal(out["cpu"], out["cuda"]):
+        fail(f"reduced Whisper: card tokens {out['cuda'].tolist()} != CPU "
+             f"tokens {out['cpu'].tolist()}")
+    print(f"reduced {cfg.name}, card == CPU plain path: "
+          f"{out['cpu'].tolist()}")
+
+
+def fam_config(torch, arch):
+    """The config a training run of phase 3r takes: Whisper-base whole,
+    InternVL2-2B at full width and the deepest depth its bf16 AdamW
+    training leaves FAM_FREE_GIB free at (from the model on meta)."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import param_count
+
+    cfg = _config(arch)
+    if arch != VLM_ARCH:
+        return cfg
+
+    def size(n):
+        m = build_model(dataclasses.replace(cfg, n_layers=n))
+        return param_count(m.init(torch.Generator(), "meta"))
+    layer = size(2) - size(1)
+    base = size(1) - layer
+    total = torch.cuda.get_device_properties(0).total_memory
+    room = (total - (FAM_FREE_GIB + FAM_ACT_GIB) * 2 ** 30
+            - base * FAM_BYTES_PER_PARAM)
+    n = min(cfg.n_layers, int(room // (layer * FAM_BYTES_PER_PARAM)))
+    print(f"  {cfg.name} training: {layer} parameters a layer, {base} "
+          f"outside the layers; {n} of its {cfg.n_layers} layers leave "
+          f"{FAM_FREE_GIB} GiB free at {FAM_BYTES_PER_PARAM} B a parameter "
+          f"and {FAM_ACT_GIB} GiB of activations")
+    return dataclasses.replace(cfg, n_layers=n)
+
+
+def fam_cli_run(torch, path, arch, argv, steps) -> dict:
+    """One training CLI run of phase 3r, in-process, bf16, batch CLI_B,
+    text FAM_SEQ (a VLM's 256 patches in front), ids below
+    CLI_DATA_VOCAB: launches exact (flash once an attention layer a
+    forward, Whisper's encoder layers non-causal; rmsnorm 2L + 1 a VLM
+    forward and its backward kernels; no wire kernel), the loss falling
+    over CLI_STEPS steps, ms a step and the peak."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.nn.module import param_count
+
+    cfg = fam_config(torch, arch)
+    full = ["--arch", arch, "--batch", str(CLI_B), "--seq", str(FAM_SEQ),
+            "--steps", str(steps), "--log-every", "0"] + argv
+    a = train.parser().parse_args(full)
+    k = {"monolithic": 1, "large_batch": a.n_clients,
+         "fedavg": a.n_clients * a.local_steps}[a.mode]
+    fwd = steps * k + 1                   # the steps' forwards, the eval's
+    enc = cfg.n_enc_layers if cfg.encdec else 0
+    norms = 0 if cfg.norm == "layernorm" else 2 * cfg.n_layers + 1
+    want = {"flash_attention": fwd * (cfg.n_layers + enc),
+            "rmsnorm": fwd * norms,
+            "rmsnorm_bwd": RMS_BWD_KERNELS * norms * steps * k,
+            "wire_quant": 0, "wire_dequant": 0, "splitcat_linear_q8": 0,
+            "splitcat_linear": 0, "ssd_scan": 0}
+    extra = (f"{cfg.n_audio_frames} frames" if cfg.encdec
+             else f"{cfg.n_patches} patches")
+    print(f"{path.replace('_', ' ')} path: python -m repro_torch.launch.train "
+          f"{' '.join(full)} ({cfg.name}, {cfg.n_layers} layers"
+          + (f" + {enc} encoder layers" if enc else "")
+          + f", d_model {cfg.d_model}, {extra}, bf16; ids below "
+          f"{CLI_DATA_VOCAB})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    by_mode: dict = {}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with patched({("repro_torch.kernels.ops", "flash_attention"):
+                  _flash_by_mode(by_mode)}):
+        run, summary = _run_cli(torch, full, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hold_launches(launches, want)
+    if enc and by_mode != {False: fwd * enc, True: fwd * cfg.n_layers}:
+        fail(f"{path}: flash calls by causal {by_mode}")
+    ls = run.losses
+    if not all(map(math.isfinite, ls)) or (summary["first_loss"], summary[
+            "final_loss"]) != (ls[0], ls[-1]) or len(ls) != steps:
+        fail(f"{path}: losses {ls}, summary {summary}")
+    if steps == CLI_STEPS and not ls[-1] < ls[0]:
+        fail(f"{path}: final loss {ls[-1]} not below the first {ls[0]}")
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    if total - peak < FAM_FREE_GIB:
+        fail(f"{path}: peak {peak:.2f} GiB leaves less than {FAM_FREE_GIB} "
+             f"GiB of {total:.2f} free")
+    n_params = param_count(run.session.state["global"])
+    # ms a step past the run: 2 more rounds under CUDA events
+    bs = [run.session._prep(run.round_batches(steps + 2 + i))
+          for i in range(2)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b in bs:
+        run.session.run_round(b)
+    end.record()
+    end.synchronize()
+    round_ms = start.elapsed_time(end) / 2
+    print(f"  {n_params} parameters; {wall:.3f} s, peak {peak:.2f} GiB; "
+          f"launches exact {launches}"
+          + (f", flash by causal {by_mode}" if enc else "")
+          + f"; {round_ms:.3f} ms a step (CUDA events over 2); first loss "
+          f"{ls[0]:.4f}, final {ls[-1]:.4f}")
+    del run, bs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "layers": cfg.n_layers, "params": n_params,
+            "round_ms": round_ms, "peak_gib": peak, "wall_s": wall,
+            "first_loss": ls[0], "final_loss": ls[-1],
+            "eval_acc_per_client": summary["eval_acc_per_client"]}
+
+
+def encdec_phase(torch) -> dict:
+    """Phase 3r: Whisper-base served through the serve CLI, then the
+    training CLI over both families, and `--mode split` refused for
+    both with a message naming ROADMAP.md."""
+    from repro_torch.launch import train
+
+    out = {ENC_PATH: whisper_serve(torch)}
+    for run in FAM_RUNS:
+        out[run[0]] = fam_cli_run(torch, *run)
+    for arch in (ENC_ARCH, VLM_ARCH):
+        try:
+            train.main(["--arch", arch, "--reduced", "--mode", "split",
+                        "--steps", "1"])
+        except SystemExit as e:
+            if "ROADMAP.md" not in str(e):
+                fail(f"{arch} --mode split: {e}")
+            print(f"  {arch} --mode split exits: {e}")
+        else:
+            fail(f"{arch} --mode split trained")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4902,6 +5622,10 @@ def main():
     phase("3o reduced", reduced_batcher_against_cpu, torch)
     fig3 = phase("3p tables", paper_tables_path, torch)
     examples = phase("3p examples", examples_path, torch)
+    vlm = phase("3q", vlm_phase, torch)
+    phase("3q reduced", reduced_vlm_against_cpu, torch)
+    encdec = phase("3r", encdec_phase, torch)
+    phase("3r reduced", reduced_whisper_against_cpu, torch)
 
     # the wire launches per payload add up to what each path was held to
     paths = (("serving", run), ("training", train), ("ssm_serving", ssm),
@@ -4914,7 +5638,7 @@ def main():
              *cli.items(), ("resnet_vanilla_training", resnet),
              *((MOE_RUNS[arch].path, r) for arch, r in moe.items()),
              *mono.items(), (BAT_PATH, bat), (FIG3_PATH, fig3),
-             *examples.items())
+             *examples.items(), *vlm.items(), *encdec.items())
     for path, res in paths:
         for i, name in enumerate(("wire_quant", "wire_dequant")):
             want = sum(p[-1][i] for p in payloads if p[0] == path)
@@ -4927,6 +5651,7 @@ def main():
     kq = wire[((4, 1, 200064), torch.bfloat16)]
     fa = fa_t["RecurrentGemma-2B prefill"]
     fa_mla = fa_t["DeepSeek-V2 MLA prefill"]
+    fa_enc = fa_t[WHISPER_ENC]
     src = "src/repro_torch/kernels/csrc/"
     by_path = {name: {path: res["launches"][name] for path, res in paths}
                for name in run["launches"]}
@@ -4974,7 +5699,11 @@ def main():
          "mla_prefill": dict(zip(
              ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
               "max_abs_err"),
-             (*fa_mla[:3], *fa_mla[3], fa_mla[4])))},
+             (*fa_mla[:3], *fa_mla[3], fa_mla[4]))),
+         "non_causal_whisper_encoder": dict(zip(
+             ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "max_abs_err"),
+             (*fa_enc[:3], *fa_enc[3], fa_enc[4])))},
     ]
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
@@ -5001,7 +5730,9 @@ def main():
           "(4,512,24,64) bf16 scan from a zero state, flash_attention on "
           "the RecurrentGemma-2B prefill's q (4,4096,10,256), k/v "
           "(4,4096,1,256) bf16, window 2048 (mla_prefill: DeepSeek-V2's q/k "
-          "(4,128,128,192), v (4,128,128,128) bf16, causal); the backward "
+          "(4,128,128,192), v (4,128,128,128) bf16, causal; "
+          "non_causal_whisper_encoder: Whisper-base's encoder q/k/v "
+          "(4,1500,8,64) bf16, non-causal); the backward "
           "times of "
           "rmsnorm, ssd_scan and flash_attention at the LM training "
           "shapes (4,512,768), x (4,512,24,64) from a zero state and q "

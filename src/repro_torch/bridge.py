@@ -7,7 +7,12 @@ and the port's.
   (`params_from_jax` / `params_to_numpy`).  Each float leaf takes the
   dtype the port's own init gives it: the model's dtype, or float32 for
   Mamba2's `A_log`, `D` and `dt_bias` (`nn/ssm.py:mamba2_init`) and
-  RG-LRU's `lam` (`nn/rglru.py:rglru_init`).
+  RG-LRU's `lam` (`nn/rglru.py:rglru_init`).  A VLM's `vision_proj`
+  (`{"w": (vision_dim, d_model), "b"}`) crosses as it is.
+* Encoder-decoder params (`repro.models.encdec`): `enc_blocks` and
+  `dec_blocks` are each one tree stacked along a leading layer axis in
+  the reference and a list of per-layer trees in the port; `enc_norm`,
+  `embed` and `dec_norm` cross as they are (the same functions).
   A composite group (the hybrid pattern) stacks each of its specs
   `{"0", "1", "2"}` in the reference and is one such dict per repeat in
   the port.  A MoE layer's leaves are the reference's: the float32
@@ -31,8 +36,9 @@ and the port's.
   second axis; elsewhere its first.  Optimizer moments follow the params
   they track, and every leaf keeps its dtype.
   Both go through `lm_tree_to_ref` / `lm_tree_from_ref`, which restack
-  any LM tree of tensors (params, one side of the split, a
-  client-stacked subtree); the checkpoints write LM trees through them.
+  any LM or encoder-decoder tree of tensors (params, one side of the
+  split, a client-stacked subtree); the checkpoints write model trees
+  through them.
 * Everything else has the same layout in both packages, leaf for leaf:
   the CNN list-of-dict trees (HWIO conv and `(in, out)` dense weights,
   `{}` for a pool) and a whole engine state of any `Plan` mode — a split
@@ -78,6 +84,11 @@ def _array(t) -> np.ndarray:
     return t.numpy()
 
 
+# an encoder-decoder model's layer stacks: one stacked tree each in the
+# reference, a list of layers in the port
+_LAYER_STACKS = ("enc_blocks", "dec_blocks")
+
+
 def _unstack(group) -> list:
     """A stacked group tree -> one tree per repeat (leading axis)."""
     n = len(tree_leaves(group)[0])
@@ -98,20 +109,33 @@ def params_from_jax(np_tree: dict, cfg: ArchConfig, device="cpu") -> dict:
     def cast(tree, like_tree):
         return _map(lambda a, t: _tensor(a, t.dtype, device), tree,
                     like_tree)
-    out = {k: cast(v, like[k]) for k, v in np_tree.items() if k != "groups"}
-    out["groups"] = [[cast(rep, like_rep)
-                      for rep, like_rep in zip(_unstack(gp), like_gp,
-                                                 strict=True)]
-                     for gp, like_gp in zip(np_tree["groups"],
-                                            like["groups"], strict=True)]
+
+    def layers(stacked, like_layers):
+        return [cast(rep, like_rep) for rep, like_rep in
+                zip(_unstack(stacked), like_layers, strict=True)]
+    out = {}
+    for k, v in np_tree.items():
+        if k == "groups":
+            out[k] = [layers(gp, like_gp) for gp, like_gp in
+                      zip(v, like[k], strict=True)]
+        elif k in _LAYER_STACKS:
+            out[k] = layers(v, like[k])
+        else:
+            out[k] = cast(v, like[k])
     return out
 
 
 def params_to_numpy(params: dict) -> dict:
     """Inverse of `params_from_jax`: the reference's layout as numpy
     arrays (bf16 leaves come back as float32, which holds them exactly)."""
-    out = {k: _map(_array, v) for k, v in params.items() if k != "groups"}
-    out["groups"] = _stack(params["groups"])
+    out = {}
+    for k, v in params.items():
+        if k == "groups":
+            out[k] = _stack(v)
+        elif k in _LAYER_STACKS:
+            out[k] = _stack([v])[0]
+        else:
+            out[k] = _map(_array, v)
     return out
 
 
@@ -143,9 +167,12 @@ def _map_stack(reps: list):
 
 
 def _in_groups(tree, fn):
-    """`tree` with `fn` applied to the list under every "groups" key."""
+    """`tree` with `fn` applied to the list of groups under every "groups"
+    key, and to `[layers]` (a list of one group) under every key of
+    `_LAYER_STACKS`."""
     if isinstance(tree, dict):
-        return {k: fn(v) if k == "groups" else _in_groups(v, fn)
+        return {k: fn(v) if k == "groups" else fn([v])[0]
+                if k in _LAYER_STACKS else _in_groups(v, fn)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_in_groups(v, fn) for v in tree)
@@ -162,9 +189,10 @@ def _client_stacked(state: dict) -> set:
 
 
 def lm_tree_to_ref(tree, *, axis: int = 0):
-    """An LM tree of tensors with each "groups" list of repeats stacked
-    into the reference's layout along `axis` (1 under a client-stacked
-    subtree, whose leaves lead with the client axis; else 0)."""
+    """An LM tree of tensors with each "groups" list of repeats (an
+    encoder-decoder tree's layer lists) stacked into the reference's
+    layout along `axis` (1 under a client-stacked subtree, whose leaves
+    lead with the client axis; else 0)."""
     def stack(groups):
         return [_map(lambda *reps: torch.stack(reps, dim=axis), *g)
                 for g in groups]

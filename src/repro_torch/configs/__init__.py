@@ -1,2 +1,3 @@
-from repro_torch.configs.base import (PORTED_ARCH_IDS, ArchConfig,
+from repro_torch.configs.base import (INPUT_SHAPES, PORTED_ARCH_IDS,
+                                      ArchConfig, InputShape,
                                       get_config)  # noqa: F401

@@ -1,9 +1,9 @@
 """ArchConfig — the port's copy of `repro.configs.base.ArchConfig`, with
 torch dtypes, plus the config registry.
 
-The dense, MoE (with MLA), SSM and hybrid families build
-(`models.lm.make_groups`); the other fields are kept so a config reads
-the same in both packages.
+Every family of the reference builds: the dense, MoE (with MLA), SSM,
+hybrid and VLM families as an `models.lm.LM`, the encoder-decoder
+(audio) family as a `models.encdec.EncDec`.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ import torch
 # arch ids whose config module the port carries so far
 PORTED_ARCH_IDS = ["phi4_mini_3_8b", "mamba2_130m", "recurrentgemma_2b",
                    "qwen3_moe_30b_a3b", "deepseek_v2_236b", "chatglm3_6b",
-                   "qwen1_5_32b", "mistral_large_123b"]
+                   "qwen1_5_32b", "mistral_large_123b", "internvl2_2b",
+                   "whisper_base"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +117,22 @@ class ArchConfig:
             small.setdefault("window", min(self.window, 64))
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 def get_config(arch_id: str) -> ArchConfig:

@@ -1,4 +1,5 @@
-"""Causal / sliding-window attention: the CUDA kernel and its plain version.
+"""Causal / sliding-window / non-causal attention: the CUDA kernel and its
+plain version.
 
 `flash_attention(q, k, v, causal=True, window=None, scale=None)` attends
 q (B,S,H,DQK) over k (B,S,K,DQK) and v (B,S,K,DV), H % K == 0, query head
@@ -7,11 +8,15 @@ h reading KV head h // (H/K): key j is visible to query i when j <= i
 q's type.  It replaces `repro/kernels/flash_attention.py`'s
 `flash_attention_pallas` (source in `csrc/flash_attention.cu`) and runs
 every attention prefill of the served models (`nn/attention.py:
-gqa_prefill`, `mla_prefill`): phi4-mini's and Qwen3-MoE's causal GQA,
-RecurrentGemma's local attention and DeepSeek-V2's MLA, whose q and k
-are 192 wide (128 + 64 rope) and v 128.  The kernel is instantiated for
-the (DQK, DV) pairs in `HEAD_DIMS`.  Decode attends plainly, as the
-reference does.
+gqa_prefill`, `mla_prefill`): phi4-mini's, Qwen3-MoE's and InternVL2's
+causal GQA, RecurrentGemma's local attention, Whisper's decoder
+self-attention and DeepSeek-V2's MLA, whose q and k are 192 wide (128 +
+64 rope) and v 128.  With `causal=False` every key is visible (within
+`window` when set): Whisper's encoder attends its 1,500 frames so, a
+length that leaves 28 of the last 64-row KV tile's rows real, which only
+the bound check `j < S` masks.  The kernel is instantiated for the
+(DQK, DV) pairs in `HEAD_DIMS`.  Decode and cross-attention (q over
+another length than k and v) attend plainly, as the reference does.
 
 A CUDA tensor launches the kernel (or raises); a CPU or meta tensor takes
 the plain version, `kernels.ref.flash_attention_ref`.  `launches` counts

@@ -16,7 +16,16 @@ Runs on the GPU unless `--device cpu`.  Every phase runs once for
 warmup; timings are fenced by `torch.cuda.synchronize()`.  The last
 stdout line is a JSON summary with the reference's keys plus `device`
 (`decode_tok_per_s` counts the tokens the decode phase made,
-`batch * (gen - 1)`).  Encoder-decoder archs are not ported yet.
+`batch * (gen - 1)`).
+
+An encoder-decoder model (Whisper) serves monolithically, as in the
+reference: seeded `0.02 * normal` frames (B, n_audio_frames, d_model)
+stand in for the stub frontend's output, `init_cache` runs the encoder
+once, then the decoder prefills and decodes; `--split` refuses it (it
+has no decoder layer cut).  The CLI builds no patch input, so a VLM
+(InternVL2) exits with a message: serve it from Python through
+`ServeSession(...).generate(prompts, max_new, extra={"patch_embeds":
+...})`.
 
 Example:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4_mini_3_8b
@@ -37,6 +46,8 @@ Example:
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek_v2_236b --reduced --split \\
         --wire quantize_int8:physical --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_base \\
+        --prompt-len 64
 """
 from __future__ import annotations
 
@@ -50,7 +61,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import build_model
+from repro_torch.models import build_model, supports_split_serving
 from repro_torch.serve import (ServePlan, ServeSession, greedy_decode_scan,
                                resolve_device)
 
@@ -72,16 +83,22 @@ class ServeRun:
 
 @torch.no_grad()
 def serve_monolithic(model, params, prompt, gen: int, max_len: int, *,
-                     loop: bool = False):
-    """One teacher-forced prefill (cache init included) and greedy decode
-    of the whole model, every phase warmed up and fenced.  Returns (the
-    summary, the (B, gen) tokens, a one-token decode step on the live
-    caches).  `loop` only names the mode (see the module docstring)."""
+                     audio=None, loop: bool = False):
+    """One teacher-forced prefill (cache init included: an
+    encoder-decoder model's runs the encoder over `audio`) and greedy
+    decode of the whole model, every phase warmed up and fenced.  Returns
+    (the summary, the (B, gen) tokens, a one-token decode step on the
+    live caches).  `loop` only names the mode (see the module
+    docstring)."""
     device = prompt.device
 
     def prefill():
-        cache = model.init_cache(prompt.shape[0], max_len, device)
-        logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+        if audio is not None:
+            cache = model.init_cache(params, audio, max_len)
+            logits, cache = model.prefill(params, prompt, cache)
+        else:
+            cache = model.init_cache(prompt.shape[0], max_len, device)
+            logits, cache = model.prefill(params, {"tokens": prompt}, cache)
         return torch.argmax(logits[:, -1], dim=-1)[:, None], cache
 
     tok0, cache = prefill()                     # warmup (and kernel build)
@@ -179,10 +196,18 @@ def main(argv=None, *, cfg: ArchConfig | None = None) -> ServeRun:
             # falls on the boundary between them
             cfg = cfg.reduced(vocab=256, **({"n_layers": 2 * len(cfg.pattern)}
                                             if cfg.pattern else {}))
+    if cfg.family == "vlm":
+        raise SystemExit(
+            f"{cfg.name}: the serve CLI has no patch input; a VLM is served "
+            "through ServeSession(...).generate(prompts, max_new, "
+            "extra={'patch_embeds': ...})")
     B = args.batch
     max_len = args.prompt_len + args.gen + 1
     gen = torch.Generator(device=device)
     if args.split:
+        ok, why = supports_split_serving(cfg)
+        if not ok:
+            raise SystemExit(f"--split: {cfg.name}: {why}")
         plan = ServePlan(arch=cfg, cut=args.cut if args.cut >= 0 else None,
                          wire=args.wire, max_batch=B, max_len=max_len,
                          fused_entry=args.fused_entry)
@@ -196,18 +221,18 @@ def main(argv=None, *, cfg: ArchConfig | None = None) -> ServeRun:
         summary, tokens = serve_split(sess, prompt, args.gen)
         step = sess.decode_step
     else:
-        if cfg.encdec:
-            raise SystemExit(f"{cfg.name}: encoder-decoder models are not "
-                             "ported yet")
         model = build_model(cfg)
         gen.manual_seed(0)          # the weights ServeSession(plan, 0) draws
         params = model.init(gen, device)
         gen.manual_seed(1)
         prompt = torch.randint(0, cfg.vocab, (B, args.prompt_len),
                                generator=gen, device=device)
+        audio = (0.02 * torch.randn((B, cfg.n_audio_frames, cfg.d_model),
+                                    generator=gen, device=device)
+                 ).to(cfg.dtype) if cfg.encdec else None
         summary, tokens, step = serve_monolithic(model, params, prompt,
                                                  args.gen, max_len,
-                                                 loop=args.loop)
+                                                 audio=audio, loop=args.loop)
     summary = {"arch": cfg.name, "batch": B, "prompt_len": args.prompt_len,
                "generated": args.gen,
                "device": (torch.cuda.get_device_name(device)

@@ -16,10 +16,16 @@ Every mode compiles through the one Plan/Session path:
 dp_noise:0.05`.  The flags, modes and the JSON summary (the last stdout
 line, after an `eval acc/client` line) are the reference's, plus
 --device: the run is on the GPU unless `--device cpu`.  A fleet, a
-topology other than vanilla and an architecture the port lacks exit
-with a message naming ROADMAP.md.  The batch of round r, client i comes
-from a generator seeded from (0, r, i); the held-out batch from
-(0, steps + 1).
+topology other than vanilla, an architecture the port lacks and
+`--mode split` of a VLM or an encoder-decoder model exit with a message
+naming ROADMAP.md (the reference's split path crashes on both: it
+never drops a VLM's patch positions from the logits, and its EncDec has
+no `split_params`).  The batch of round r, client i comes from a
+generator seeded from (0, r, i); the held-out batch from (0, steps +
+1).  A VLM's batches carry `patch_embeds` (B, n_patches, vision_dim)
+and an encoder-decoder model's `audio_feats` (B, n_audio_frames,
+d_model), each `0.02 * normal` in the model's dtype from the batch's
+generator, as the reference's do; Whisper's text is at most 448 tokens.
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -28,6 +34,9 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch phi4_mini_3_8b --reduced --steps 20 --mode split \\
         --n-clients 4 --wire quantize_int8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch whisper_base --reduced --steps 3 --mode fedavg \\
+        --n-clients 2 --device cpu
 """
 from __future__ import annotations
 
@@ -47,7 +56,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import synthetic as syn
 from repro_torch.device import resolve_device
 from repro_torch.engine import tree_at
-from repro_torch.models import build_model
+from repro_torch.models import build_model, text_len
 from repro_torch.nn.module import mix_seed
 
 @dataclasses.dataclass
@@ -83,6 +92,12 @@ def build_plan(model, args) -> Plan:
                     n_clients=args.n_clients, optimizer=opt,
                     schedule=schedule, microbatches=args.microbatches,
                     local_steps=args.local_steps)
+    cfg = model.cfg
+    if cfg.family == "vlm" or cfg.encdec:
+        raise SystemExit(
+            f"--mode split: {cfg.name} ({cfg.family}) trains through the "
+            "monolithic and baseline modes; its split path is not ported "
+            "(the reference's crashes); see ROADMAP.md")
     if args.topology != "vanilla":
         raise SystemExit(
             f"--topology {args.topology}: the LM launch path exposes the "
@@ -188,9 +203,21 @@ def main(argv=None, *, cfg=None, data_vocab=None) -> TrainRun:
         args.cut = min(cfg.default_cut, max(1, cfg.n_layers // 2))
     model = build_model(cfg)
 
+    # an encoder-decoder model's text is capped (`text_len`); a VLM's
+    # patches come on top of its --seq text tokens, as in the reference
+    seq = text_len(cfg, args.seq) if cfg.encdec else args.seq
+
     def batch_fn(gen):
-        return syn.lm_batch(gen, args.batch, args.seq,
-                            data_vocab or cfg.vocab)
+        b = syn.lm_batch(gen, args.batch, seq, data_vocab or cfg.vocab)
+        if cfg.family == "vlm":
+            b["patch_embeds"] = (0.02 * torch.randn(
+                (args.batch, cfg.n_patches, cfg.vision_dim), generator=gen,
+                device=gen.device)).to(cfg.dtype)
+        if cfg.encdec:
+            b["audio_feats"] = (0.02 * torch.randn(
+                (args.batch, cfg.n_audio_frames, cfg.d_model), generator=gen,
+                device=gen.device)).to(cfg.dtype)
+        return b
 
     def round_batches(r):
         return [batch_fn(_generator(device, 0, r, i))

@@ -1,2 +1,3 @@
-from repro_torch.models.registry import (build_model,
-                                         supports_split_serving)  # noqa: F401
+from repro_torch.models.registry import (build_model, input_specs,
+                                         supports_split_serving,
+                                         text_len)  # noqa: F401

@@ -3,7 +3,7 @@
 
 Model params:
     {"embed": {"table"}, "groups": [g0, ...], "final_norm": {"scale"},
-     ["head"]: {"w"}}
+     ["head"]: {"w"}, ["vision_proj"]: {"w", "b"}}
 
 A group is a homogeneous run of layers (`GroupSpec`).  Where the
 reference stacks a group's layer params along a leading axis and scans,
@@ -19,8 +19,14 @@ decodes the whole model (`init_cache`, `prefill`, `decode_step`), split
 serving each half against its own caches.  Either way only the cut
 activation crosses.  The port builds the dense family, the MoE family (Qwen3-MoE's
 GQA + MoE blocks; DeepSeek-V2's MLA blocks, a dense first group, then
-MoE with shared experts), the SSM family (Mamba2) and the hybrid family
-(RecurrentGemma's composite super-blocks).  Each block's returned cache
+MoE with shared experts), the SSM family (Mamba2), the hybrid family
+(RecurrentGemma's composite super-blocks) and the VLM family
+(InternVL2: the dense trunk behind `vision_proj`, a `vision_dim ->
+d_model` dense with bias over the stub frontend's `patch_embeds`,
+whose rows go in front of the text's; the client owns it, the logits
+cover the text positions only, every cache and rope position counts
+the patches first, and decode is text-only).  The encoder-decoder
+family is `models.encdec`.  Each block's returned cache
 is written back into its slot of the group's cache list: the attention
 rings are updated in place anyway, but the Mamba2 and RG-LRU conv
 windows and states are new tensors.
@@ -114,11 +120,11 @@ def make_groups(cfg: ArchConfig) -> list[GroupSpec]:
     blocks; a cut falls on a super-block boundary (`split_params`)."""
     if cfg.family == "ssm":
         return [GroupSpec((_block_spec(cfg, "mamba2"),), cfg.n_layers)]
-    if cfg.family not in ("dense", "moe", "hybrid") or cfg.encdec:
+    if cfg.family not in ("dense", "moe", "hybrid", "vlm") or cfg.encdec:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port builds the dense, MoE, "
-            "SSM and hybrid families so far; VLM and audio models come "
-            "with later slices")
+            f"{cfg.name} ({cfg.family}): an LM is of the dense, MoE, SSM, "
+            "hybrid or VLM family; an encoder-decoder model is "
+            "models.encdec.EncDec")
     if cfg.pattern:
         n_full, rem = divmod(cfg.n_layers, len(cfg.pattern))
         specs = tuple(_block_spec(cfg, k, window=cfg.window
@@ -227,11 +233,27 @@ class LM:
              "final_norm": L.rmsnorm_init(c.d_model, **kw)}
         if not c.tie_embeddings:
             p["head"] = L.dense_init(gen, c.d_model, c.vocab, **kw)
+        if c.family == "vlm":
+            p["vision_proj"] = L.dense_init(gen, c.vision_dim, c.d_model,
+                                            bias=True, **kw)
         return p
 
     # ---- embedding / head / no-cache forward (train) ----
     def embed(self, params, batch):
-        return L.embedding_apply(params["embed"], batch["tokens"])
+        """Token embeddings (B, S, D); a VLM's projected patches
+        (B, n_patches, D) go in front of them."""
+        x = L.embedding_apply(params["embed"], batch["tokens"])
+        if self.cfg.family == "vlm":
+            vis = L.dense_apply(params["vision_proj"],
+                                batch["patch_embeds"].to(self.cfg.dtype))
+            x = torch.cat([vis, x], dim=1)
+        return x
+
+    def _text(self, logits):
+        """A VLM's logits at the text positions only."""
+        if self.cfg.family == "vlm":
+            return logits[:, self.cfg.n_patches:]
+        return logits
 
     def head(self, params, x):
         x = L.rmsnorm_apply(params["final_norm"], x)
@@ -240,11 +262,12 @@ class LM:
         return L.dense_apply(params["head"], x)
 
     def forward(self, params, batch):
-        """{"tokens": (B, S)} -> logits (B, S, V)."""
+        """{"tokens": (B, S)} (a VLM's also "patch_embeds") -> logits
+        (B, S, V)."""
         x = self.embed(params, batch)
         for g, gp in zip(self.groups, params["groups"]):
             x = group_apply(gp, g, x)
-        return self.head(params, x)
+        return self._text(self.head(params, x))
 
     def loss(self, params, batch):
         """Mean next-token cross-entropy in float32 over `labels`, over the
@@ -268,7 +291,7 @@ class LM:
         x = self.embed(params, batch)
         for g, gp, c in zip(self.groups, params["groups"], caches):
             x, _ = group_prefill(gp, g, x, c)
-        return self.head(params, x), caches
+        return self._text(self.head(params, x)), caches
 
     def decode_step(self, params, tokens, caches):
         """tokens (B, 1) -> (logits (B, 1, V), caches)."""
@@ -281,13 +304,16 @@ class LM:
         return sum(g.n_layers for g in self.groups)
 
     def split_params(self, params, cut: int):
-        """Client: embed + layers [0, cut).  Server: layers [cut, L) +
-        final norm + head.  With tied embeddings the server's head is the
-        client's embedding table, SHARED at the split (the same tensor,
+        """Client: embed (a VLM's vision_proj too) + layers [0, cut).
+        Server: layers [cut, L) + final norm + head.  With tied
+        embeddings the server's head is the client's embedding table,
+        SHARED at the split (the same tensor,
         not a copy); a training engine stacks the client's copy, so from
         then on `embed` and `tied_head` are two leaves that train apart,
         as the reference's two trees do."""
         client = {"embed": params["embed"]}
+        if "vision_proj" in params:
+            client["vision_proj"] = params["vision_proj"]
         server = {"final_norm": params["final_norm"]}
         if "head" in params:
             server["head"] = params["head"]
@@ -383,10 +409,11 @@ class LM:
         for g, gp, c in zip(self._groups_for_range(cut, "server"),
                             server_params["groups"], caches):
             x, _ = group_prefill(gp, g, x, c)
-        return self.server_head(server_params, x), caches
+        return self._text(self.server_head(server_params, x)), caches
 
     def decode_step_client(self, client_params, tokens, cut: int, caches):
-        """tokens (B, 1) -> (cut activation (B, 1, D), caches)."""
+        """tokens (B, 1) -> (cut activation (B, 1, D), caches).  Token
+        embedding only: a VLM's patches entered at prefill."""
         x = L.embedding_apply(client_params["embed"], tokens)
         for g, gp, c in zip(self._groups_for_range(cut, "client"),
                             client_params["groups"], caches):

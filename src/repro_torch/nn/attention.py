@@ -1,6 +1,8 @@
-"""Attention: grouped-query attention and DeepSeek-V2's multi-head latent
-attention (MLA), with RoPE and decode caches (port of
-`repro/nn/attention.py`, the GQA and MLA parts).
+"""Attention: grouped-query attention, DeepSeek-V2's multi-head latent
+attention (MLA), Whisper's bidirectional encoder attention and its
+decoder's cross-attention, with RoPE and decode caches (port of
+`repro/nn/attention.py`, all but the int8 KV cache and the sharded
+decode).
 
 Shapes: x is (B, S, D); heads are (B, S, H, head_dim).  A GQA cache is
 {"k", "v": (B, cache_len, K, head_dim), "pos": int}; an MLA cache keeps
@@ -10,7 +12,13 @@ the compressed rows, {"c_kv": (B, cache_len, kv_lora_rank), "k_pe":
 Training (`gqa_apply`, `mla_apply`) and prefill attend through
 `ops.flash_attention` (the flash kernel on a CUDA tensor, the plain
 grouped einsum on a CPU or meta one); MLA's prefill attends with q/k of
-qk_nope + qk_rope and v of v_head_dim (192 and 128 in DeepSeek-V2).
+qk_nope + qk_rope and v of v_head_dim (192 and 128 in DeepSeek-V2).  A
+`kind="bidir"` config (Whisper's encoder) takes no rope and attends
+every key, through the flash kernel's non-causal mode.  Cross-attention
+(`cross_attn_kv`, `cross_attn_apply`) reads K/V computed once from the
+encoder's output, over its own length, and attends plainly with
+`grouped_attention`, as the reference does: the TPU kernel, and so its
+port, takes one length for q and kv.
 Decode attends plainly, as the reference does: GQA with
 `grouped_attention` over the ring, MLA with the absorbed weights against
 the compressed cache in float32.  Unlike the reference, which returns
@@ -22,8 +30,7 @@ at their own positions in one stacked cache); either way decode never
 reads a device value back.  A sliding-window ring holds
 `min(max_len, window)` rows, indexed `pos % cache_len` (per row, so
 each row's ring wraps on its own).  Native-dtype caches only: the int8
-KV cache, cross-attention and the sequence-sharded decode wait for
-later slices.
+KV cache and the sequence-sharded decode wait for later slices.
 """
 from __future__ import annotations
 
@@ -50,7 +57,7 @@ class AttnConfig:
     rope_fraction: float = 1.0
     rope_theta: float = 10000.0
     window: int | None = None
-    kind: str = "gqa"                 # "gqa" | "mla"
+    kind: str = "gqa"                 # "gqa" | "mla" | "bidir" | "cross"
     # --- MLA (deepseek-v2) ---
     q_lora_rank: int = 0              # 0 = full-rank q projection
     kv_lora_rank: int = 512
@@ -193,17 +200,21 @@ def gqa_decode(params, cfg: AttnConfig, x, cache, *, qkv=None):
 
 
 def _attend(params, cfg: AttnConfig, x, positions, mask):
-    """The full-sequence attention: q/k/v with rope, attention and the
-    output projection.  Returns (y, k, v), k and v after rope."""
+    """The full-sequence attention: q/k/v with rope (none for "bidir"),
+    attention and the output projection.  Returns (y, k, v), k and v
+    after rope."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, cfg, x)
-    q = apply_rope(q, positions, theta=cfg.rope_theta,
-                   fraction=cfg.rope_fraction)
-    k = apply_rope(k, positions, theta=cfg.rope_theta,
-                   fraction=cfg.rope_fraction)
+    bidir = cfg.kind == "bidir"
+    if not bidir:
+        q = apply_rope(q, positions, theta=cfg.rope_theta,
+                       fraction=cfg.rope_fraction)
+        k = apply_rope(k, positions, theta=cfg.rope_theta,
+                       fraction=cfg.rope_fraction)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     if mask is None:
-        out = ops.flash_attention(q, k, v, causal=True, window=cfg.window,
+        out = ops.flash_attention(q, k, v, causal=not bidir,
+                                  window=None if bidir else cfg.window,
                                   scale=scale)
     else:
         out = grouped_attention(q, k, v, mask, scale=scale)
@@ -212,9 +223,9 @@ def _attend(params, cfg: AttnConfig, x, positions, mask):
 
 def gqa_apply(params, cfg: AttnConfig, x, *, positions=None, mask=None):
     """Full-sequence forward (train).  With `mask=None` it is causal,
-    within `cfg.window` when set, through `ops.flash_attention`; an
-    explicit (S, T) or (B, S, T) `mask` takes the plain
-    `grouped_attention`."""
+    within `cfg.window` when set (for `kind="bidir"`: every key, no
+    rope), through `ops.flash_attention`; an explicit (S, T) or
+    (B, S, T) `mask` takes the plain `grouped_attention`."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     return _attend(params, cfg, x, positions, mask)[0]
@@ -378,3 +389,31 @@ def mla_prefill(params, cfg: AttnConfig, x, cache):
     cache["k_pe"][:, slots] = k_pe[:, S - keep:]
     cache["pos"] = S
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (Whisper's decoder over the encoder's states)
+# ---------------------------------------------------------------------------
+
+def cross_attn_kv(params, cfg: AttnConfig, enc_out):
+    """K and V of the encoder's output (B, T, D), each (B, T, K, hd):
+    computed once a request and kept for every decode step."""
+    B, T, _ = enc_out.shape
+    k = L.dense_apply(params["wk"], enc_out).reshape(B, T, cfg.n_kv_heads,
+                                                     cfg.head_dim)
+    v = L.dense_apply(params["wv"], enc_out).reshape(B, T, cfg.n_kv_heads,
+                                                     cfg.head_dim)
+    return {"k": k, "v": v}
+
+
+def cross_attn_apply(params, cfg: AttnConfig, x, enc_kv):
+    """x (B, S, D) attends every row of `enc_kv` (from `cross_attn_kv`),
+    no rope and no mask."""
+    B, S, _ = x.shape
+    q = L.dense_apply(params["wq"], x).reshape(B, S, cfg.n_heads,
+                                               cfg.head_dim)
+    T = enc_kv["k"].shape[1]
+    mask = torch.ones((S, T), dtype=torch.bool, device=x.device)
+    out = grouped_attention(q, enc_kv["k"], enc_kv["v"], mask,
+                            scale=1.0 / math.sqrt(cfg.head_dim))
+    return L.dense_apply(params["wo"], out.reshape(B, S, -1))

@@ -1,4 +1,4 @@
-"""Primitive layers (port of `repro/nn/layers.py:14-66, 87-135, 141-167`).
+"""Primitive layers (port of `repro/nn/layers.py:14-80, 87-135, 141-167`).
 
 Parameters are plain dicts of tensors in the reference's layouts: a
 dense weight is `(in, out)` and applied as `x @ w`; a 2-D conv weight is
@@ -68,6 +68,24 @@ def rmsnorm_apply(params, x, *, eps: float = 1e-6):
     on a CUDA tensor, its plain version (`kernels.ref.rmsnorm_ref`, the
     reference's arithmetic) on a CPU or meta one."""
     return ops.rmsnorm(x, params["scale"], eps)
+
+
+def layernorm_init(dim: int, *, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm_apply(params, x, *, eps: float = 1e-5):
+    """(x - mean) * rsqrt(var + eps) * scale + bias over the last axis,
+    the biased variance, all in float32 and cast back to x's dtype.  The
+    reference has no kernel for it (Whisper's norm), so neither has the
+    port."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()
+            + params["bias"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

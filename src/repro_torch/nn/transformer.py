@@ -4,8 +4,10 @@ A `BlockSpec` describes one residual block: a temporal mixer and a
 channel mixer.  The port builds the attention and MLA blocks (with
 SwiGLU, the tanh-gelu MLP, the MoE MLP or no MLP), the Mamba2 block (no
 channel mixer) and the RG-LRU block (with the gelu MLP), all with
-rmsnorm.  Where the reference scans stacked layer params, the port keeps
-one param dict per layer and loops in Python (`models.lm`).
+rmsnorm, and the attention block with layernorm and the gelu MLP
+(Whisper's encoder, bidirectional, its MLP with biases).  Where the
+reference scans stacked layer params, the port keeps one param dict per
+layer and loops in Python (`models.lm`, `models.encdec`).
 """
 from __future__ import annotations
 
@@ -40,15 +42,27 @@ def _check(spec: BlockSpec):
     attn_mlps = ("swiglu", "gelu", "moe", "none")
     ok = {"attn": attn_mlps, "mla": attn_mlps, "mamba2": ("none",),
           "rglru": ("gelu",)}
-    if spec.mlp not in ok.get(spec.mixer, ()) or spec.norm != "rmsnorm":
+    layernorm = (spec.norm == "layernorm" and spec.mixer == "attn"
+                 and spec.mlp == "gelu")
+    if spec.mlp not in ok.get(spec.mixer, ()) or not (
+            spec.norm == "rmsnorm" or layernorm):
         raise NotImplementedError(
             f"block {spec.mixer}/{spec.mlp}/{spec.norm}: the port builds "
             "attn and mla (+ swiglu, gelu or moe), mamba2 and rglru + gelu "
-            "blocks with rmsnorm; other blocks come with later slices")
+            "blocks with rmsnorm, and attn + gelu with layernorm")
+
+
+def _norm_init(spec: BlockSpec, device=None):
+    kw = dict(dtype=spec.dtype, device=device)
+    if spec.norm == "rmsnorm":
+        return L.rmsnorm_init(spec.d_model, **kw)
+    return L.layernorm_init(spec.d_model, **kw)
 
 
 def _norm_apply(params, spec: BlockSpec, x):
-    return L.rmsnorm_apply(params, x)
+    if spec.norm == "rmsnorm":
+        return L.rmsnorm_apply(params, x)
+    return L.layernorm_apply(params, x)
 
 
 def _mlp_apply(params, spec: BlockSpec, x):
@@ -70,9 +84,9 @@ def block_init(gen, spec: BlockSpec, device=None):
         mixer = A.mla_init(gen, spec.attn, device)
     else:
         mixer = A.gqa_init(gen, spec.attn, device)
-    p = {"norm1": L.rmsnorm_init(spec.d_model, **kw), "mixer": mixer}
+    p = {"norm1": _norm_init(spec, device), "mixer": mixer}
     if spec.mlp != "none":
-        p["norm2"] = L.rmsnorm_init(spec.d_model, **kw)
+        p["norm2"] = _norm_init(spec, device)
     if spec.mlp == "gelu":
         p["mlp"] = L.gelu_mlp_init(gen, spec.d_model, spec.d_ff,
                                    bias=spec.mlp_bias, **kw)

@@ -30,8 +30,9 @@ expert drops depends on the other slots.  A MoE model under the
 solo stream.
 
 Wire bytes are billed per active tenant from the session's meta-tensor
-cost probes: `prefill_cost(1, S)` for each join and `decode_cost(batch=
-1)` for each decode step.  Vacant-slot padding would not cross a real
+cost probes: `prefill_cost(1, S, extra)` for each join (a VLM's
+patches cross with its prompt) and `decode_cost(batch=1)` for each
+decode step.  Vacant-slot padding would not cross a real
 wire and is not billed.
 
 The port's caches are lists of per-layer dicts of (B, ...) tensors (the
@@ -106,23 +107,24 @@ class Batcher:
         return [b for b in range(self.max_batch) if b not in self.tenants]
 
     @torch.no_grad()
-    def join(self, prompt, max_new: int) -> int:
+    def join(self, prompt, max_new: int, extra: dict | None = None) -> int:
         """Prefill one tenant at B=1 (one teacher-forced forward per half)
-        and seat it in the first free slot.  prompt: (S,) or (1, S)."""
+        and seat it in the first free slot.  prompt: (S,) or (1, S);
+        `extra`: its modality inputs at B=1 (a VLM's
+        {"patch_embeds": (1, n_patches, vision_dim)})."""
         free = self.free_slots()
         if not free:
             raise RuntimeError("batch full: no free slot")
         b = free[0]
         sess = self.session
-        tokens = torch.as_tensor(prompt, dtype=torch.long,
-                                 device=sess.device)
-        if tokens.ndim == 1:
-            tokens = tokens[None]
+        batch = sess.batch(prompt, extra)
+        if batch["tokens"].ndim == 1:
+            batch["tokens"] = batch["tokens"][None]
         tok0, cc, sc1 = sess._prefill_fn(sess.client_params,
-                                         sess.server_params, tokens,
+                                         sess.server_params, batch,
                                          WireTape(sess.stack))
         _scatter(self._sc, sc1, b)
-        pc = sess.prefill_cost(1, tokens.shape[1])
+        pc = sess.prefill_cost(1, batch["tokens"].shape[1], extra)
         self.bytes_up += pc.bytes_up
         self.bytes_down += pc.bytes_down
         self.tokens_generated += 1

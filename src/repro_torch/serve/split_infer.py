@@ -29,9 +29,12 @@ holds the last `window` rows and wraps), the Mamba2 and RG-LRU caches
 writing each block's new cache back into its slot.  The fused entry
 needs a GQA block at the server's entry (its MLP may be MoE), so an
 MLA, SSM or hybrid model raises with `fused_entry=True`, as in the
-reference.  `decode_cost` runs one step on meta tensors, which launches
-no kernel, spends no FLOP and leaves the session's caches alone, and
-prices every `WireRecord`.
+reference.  The VLM family (InternVL2) serves like the dense one, its
+patches entering at prefill through `extra` (`prefill`, `generate`,
+`prefill_cost`): the client projects them, and they cross the cut in
+front of the prompt's rows.  `decode_cost` runs one step on meta
+tensors, which launches no kernel, spends no FLOP and leaves the
+session's caches alone, and prices every `WireRecord`.
 """
 from __future__ import annotations
 
@@ -215,12 +218,14 @@ class ServeSession:
 
     # ---- core step / prefill (wire tape threaded through) ------------------
 
-    def _prefill_fn(self, cp, sp, tokens, wires):
-        B = tokens.shape[0]
-        cc, sc = self.model.init_cache_split(B, self.plan.max_len, self.cut,
+    def _prefill_fn(self, cp, sp, batch, wires):
+        """`batch`: {"tokens": (B, S)} and any modality inputs (a VLM's
+        "patch_embeds"), all on one device."""
+        tokens = batch["tokens"]
+        cc, sc = self.model.init_cache_split(tokens.shape[0],
+                                             self.plan.max_len, self.cut,
                                              tokens.device)
-        act, cc = self.model.prefill_client(cp, {"tokens": tokens}, self.cut,
-                                            cc)
+        act, cc = self.model.prefill_client(cp, batch, self.cut, cc)
         act = record(wires, "prefill_act", act, "up")
         logits, sc = self.model.prefill_server(sp, as_dense(act), self.cut,
                                                sc)
@@ -249,18 +254,35 @@ class ServeSession:
                 (self.client_params, self.server_params, self._fused))
         return self._meta
 
+    def batch(self, prompts, extra: dict | None = None,
+              device=None) -> dict:
+        """The client's prefill batch on `device` (the session's by
+        default): {"tokens": prompts} merged with `extra`, the modality
+        inputs (e.g. {"patch_embeds": (B, n_patches, vision_dim)} for a
+        VLM).  On meta only the shapes and types are kept."""
+        device = self.device if device is None else torch.device(device)
+
+        def put(t, dtype=None):
+            t = torch.as_tensor(t, dtype=dtype)
+            if device.type == "meta":
+                return torch.empty(t.shape, dtype=t.dtype, device="meta")
+            return t.to(device)
+        out = {"tokens": put(prompts, torch.long)}
+        out.update({k: put(v) for k, v in (extra or {}).items()})
+        return out
+
     # ---- stateful serving API ----------------------------------------------
 
     @torch.no_grad()
-    def prefill(self, prompts):
+    def prefill(self, prompts, extra: dict | None = None):
         """One teacher-forced forward per half.  prompts: (B, prompt_len)
-        int tokens.  Returns the first sampled token (B, 1) and arms the
-        session's caches."""
-        tokens = torch.as_tensor(prompts, dtype=torch.long,
-                                 device=self.device)
+        int tokens; `extra` carries modality inputs (a VLM's
+        {"patch_embeds": ...}, whose rows take the front of every cache:
+        `plan.max_len` must count them).  Returns the first sampled
+        token (B, 1) and arms the session's caches."""
         tok0, self._cc, self._sc = self._prefill_fn(
-            self.client_params, self.server_params, tokens,
-            WireTape(self.stack))
+            self.client_params, self.server_params,
+            self.batch(prompts, extra), WireTape(self.stack))
         return tok0
 
     @torch.no_grad()
@@ -280,9 +302,9 @@ class ServeSession:
             toks.append(tok)
         return torch.cat(toks, dim=1)
 
-    def generate(self, prompts, max_new: int):
+    def generate(self, prompts, max_new: int, extra: dict | None = None):
         """prefill + decode -> (B, max_new) generated tokens."""
-        tok0 = self.prefill(prompts)
+        tok0 = self.prefill(prompts, extra)
         if max_new <= 1:
             return tok0[:, :max_new]
         return torch.cat([tok0, self.decode(tok0, max_new - 1)], dim=1)
@@ -305,12 +327,16 @@ class ServeSession:
         return TurnCost(wires=tuple(wires), flops=0.0, sync_bytes=0)
 
     @torch.no_grad()
-    def prefill_cost(self, batch: int, prompt_len: int) -> TurnCost:
+    def prefill_cost(self, batch: int, prompt_len: int,
+                     extra: dict | None = None) -> TurnCost:
+        """Wire cost of one prefill of `batch` prompts `prompt_len` long
+        with the modality inputs `extra` (only their shapes count), from
+        a prefill run on meta tensors."""
         cp, sp, _ = self._meta_weights()
-        tokens = torch.zeros((batch, prompt_len), dtype=torch.long,
-                             device="meta")
+        b = self.batch(torch.empty((batch, prompt_len), dtype=torch.long,
+                                   device="meta"), extra, "meta")
         wires = WireTape(self.stack)
-        self._prefill_fn(cp, sp, tokens, wires)
+        self._prefill_fn(cp, sp, b, wires)
         return TurnCost(wires=tuple(wires), flops=0.0, sync_bytes=0)
 
     def bytes_per_token(self) -> int:

@@ -9,8 +9,9 @@ CPU, at reduced size in fp32.
   --wire quantize_int8:physical`, 2 steps): the same JSON keys in the same
   order, and `wire_report` and `client_gb` BITWISE (the losses differ:
   each package draws its own batches and weights from its own generator).
-* The refusals: `--fleet`, a non-vanilla `--topology` and an unported
-  `--arch` exit with a message naming ROADMAP.md.
+* The refusals: `--fleet`, a non-vanilla `--topology` and `--mode split`
+  of a VLM or an encoder-decoder model exit with a message naming
+  ROADMAP.md.
 * Every mode under every schedule the reference accepts runs, and prints
   the reference's keys.
 * Checkpoints: a checkpoint the port writes restores through the
@@ -114,7 +115,8 @@ def test_cli_refusals():
     for argv in (["--mode", "split", "--fleet"],
                  ["--mode", "monolithic", "--fleet"],
                  ["--mode", "split", "--topology", "u_shaped"],
-                 ["--arch", "internvl2_2b"]):
+                 ["--arch", "internvl2_2b", "--mode", "split"],
+                 ["--arch", "whisper_base", "--mode", "split"]):
         full = ["--arch", ARCH, "--reduced", "--steps", "1", "--device",
                 "cpu"] + argv
         with pytest.raises(SystemExit, match="ROADMAP.md"):
