@@ -292,6 +292,19 @@ Phases, each of which ends the run with a nonzero exit on any error:
    each, InternVL2-2B (256 patches) monolithic 30 steps at the deepest
    depth leaving 8 GiB free (all 24 layers on an 80 GB card): launches
    exact, the loss falling, the peak; `--mode split` refused for both.
+3s. The fleet (`Plan(fleet=FleetSpec(n_devices=1))`: the clients
+   sharded over the ranks of a process group, here an NCCL group of one
+   rank on the card, destroyed at the end of the phase): Table 1's
+   setup of 3e-3h (VGG-16, 4 clients of 128 rows, the physical wire,
+   AdamW 1e-4) for 3 rounds each of vanilla round-robin with the p2p
+   handoff, vanilla parallel, fedavg and large_batch, each bitwise the
+   single-device `Session` from the same seed and data under
+   deterministic cuDNN (losses, the gathered state, the meter, the wire
+   report, every client's accuracy), launches exact (68, 24, 180, 180
+   of each wire kernel), ms a round of both (CUDA events) and the NCCL
+   collective calls a round; then the training CLI's Mamba2-130M split
+   over 2 clients, parallel, bf16, 3 steps with `--fleet`, its JSON line
+   equal to the run's without it under deterministic algorithms.
    Each phase's wall seconds are printed on a line of its own.
 4. A `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
@@ -477,6 +490,8 @@ def wire_payloads(torch) -> list:
     out += bat_payloads(torch)
     # phase 3q: the VLM's split session and Batcher
     out += vlm_payloads(torch)
+    # phase 3s: the fleet's VGG-16 rounds and its CLI run
+    out += fleet_payloads(torch)
     out += [(None, "no path", (4, 1, 3072), torch.float32, (0, 0)),
             (None, "no path", (4, 128, 3072), torch.float32, (0, 0))]
     return out
@@ -488,22 +503,25 @@ def path_name(mode: str, schedule: str | None = None) -> str:
     return f"{mode}_{schedule}_training" if schedule else f"{mode}_training"
 
 
-def _turn_payloads(torch, mode: str, schedule: str | None = None) -> list:
-    """A turn kind's wire payloads a run: every crossing of its turn once
-    a microbatch (M under the pipelined schedule, of rows / M), and
-    unless the schedule is parallel the client's leaves at every handoff
-    taken (every turn but the first)."""
+def _turn_payloads(torch, mode: str, schedule: str | None = None, *,
+                   rounds: int | None = None, path: str | None = None) -> list:
+    """A turn kind's wire payloads over `rounds` rounds: every crossing of
+    its turn once a microbatch (M under the pipelined schedule, of rows /
+    M), and unless the schedule is parallel the client's leaves at every
+    handoff taken (every turn but the first).  `path` names a path other
+    than the mode's own (phase 3s's fleet)."""
     spec, m = TURN_KINDS[mode], MICROBATCHES.get(schedule, 1)
-    turns, f32 = V_CLIENTS * V_ROUNDS, torch.float32
+    turns, f32 = V_CLIENTS * (rounds or V_ROUNDS), torch.float32
+    path = path or path_name(mode, schedule)
     by_shape: dict = {}
     for name, direction, shape, _, _ in spec["report"]:
         by_shape.setdefault((shape[0] // m,) + shape[1:], []).append(
             f"{name} {direction}")
-    out = [(path_name(mode, schedule), " / ".join(names), shape, f32,
+    out = [(path, " / ".join(names), shape, f32,
             (len(names) * m * turns,) * 2)
            for shape, names in by_shape.items()]
     if schedule != "parallel":
-        out += [(path_name(mode, schedule), f"handoff {leaf}", shape, f32,
+        out += [(path, f"handoff {leaf}", shape, f32,
                  (k * (turns - 1),) * 2)
                 for leaf, shape, k in spec["handoff_leaves"]]
     return out
@@ -519,16 +537,17 @@ def _branch_payloads(torch, mode: str,
              (len(BRANCH_RECORDS[mode]) * m * ROUNDS,) * 2)]
 
 
-def _baseline_payloads(torch, mode: str,
-                       schedule: str | None = None) -> list:
+def _baseline_payloads(torch, mode: str, schedule: str | None = None, *,
+                       rounds: int | None = None,
+                       path: str | None = None) -> list:
     """Every VGG-16 leaf pulled, and pushed stacked over the clients, once
     a round: the microbatches do not cross the wire."""
-    f32, out = torch.float32, []
+    f32, out, rounds = torch.float32, [], rounds or V_ROUNDS
+    path = path or path_name(mode, schedule)
     for shape, k in _vgg16_leaf_shapes().items():
-        out += [(path_name(mode, schedule), "model pull", shape, f32,
-                 (k * V_ROUNDS,) * 2),
-                (path_name(mode, schedule), "model push",
-                 (V_CLIENTS,) + shape, f32, (k * V_ROUNDS,) * 2)]
+        out += [(path, "model pull", shape, f32, (k * rounds,) * 2),
+                (path, "model push", (V_CLIENTS,) + shape, f32,
+                 (k * rounds,) * 2)]
     return out
 
 
@@ -5529,6 +5548,203 @@ def encdec_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3s: the fleet (clients sharded over ranks), one rank on the card
+# ---------------------------------------------------------------------------
+
+# the Table 1 setup of phases 3e-3h over `Plan(fleet=FleetSpec(n_devices=
+# 1))`, an NCCL group of one rank, each path against the single-device
+# `Session` from the same seed and data
+FLEET_ROUNDS = 3
+FLEET_RUNS = (("vanilla", None), ("vanilla", "parallel"), ("fedavg", None),
+              ("large_batch", None))
+FLEET_CLI = ("mamba2_130m_cli_split_parallel_fleet", "mamba2_130m",
+             ["--mode", "split", "--n-clients", "2", "--wire", CLI_WIRE,
+              "--schedule", "parallel", "--fleet"], CLI_SHORT)
+
+
+def fleet_path_name(mode: str, schedule: str | None = None) -> str:
+    return path_name(mode, schedule).replace("_training", "_fleet_training")
+
+
+def _fleet_vgg_payloads(torch, mode: str, schedule: str | None) -> list:
+    """A VGG-16 path's payloads over FLEET_ROUNDS rounds: a one-rank fleet
+    sends what one device does."""
+    kw = dict(rounds=FLEET_ROUNDS, path=fleet_path_name(mode, schedule))
+    return (_turn_payloads(torch, mode, schedule, **kw)
+            if mode in TURN_KINDS else
+            _baseline_payloads(torch, mode, schedule, **kw))
+
+
+def fleet_payloads(torch) -> list:
+    """Phase 3s's wire payloads: each VGG-16 path's and the CLI run's."""
+    return [p for mode, schedule in FLEET_RUNS
+            for p in _fleet_vgg_payloads(torch, mode, schedule)] + _cli_plan(
+                torch, *FLEET_CLI)["payloads"]
+
+
+def fleet_path(torch, mode: str, schedule: str | None = None) -> dict:
+    """One VGG-16 path (Table 1's setup: 4 clients of 128 rows, the
+    physical wire, AdamW 1e-4) for FLEET_ROUNDS rounds on one device and
+    as a one-rank fleet, from one seed and the same data under
+    deterministic cuDNN: losses, the (gathered) state, the meter, the
+    wire report and every client's accuracy bitwise; launches exact and
+    equal; ms a round from CUDA events; the collectives a round."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.api import FleetSpec, leakage_probe, quantize_int8
+    from repro_torch.configs.vgg_cifar10 import CONFIG
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.kernels import ops
+    from repro_torch.nn.module import tree_leaves
+
+    path = fleet_path_name(mode, schedule)
+    phys = [quantize_int8(physical=True), leakage_probe()]
+    plan = (_turn_plan(CONFIG, mode, phys, V_CLIENTS,
+                       TURN_KINDS[mode]["cuts"], schedule)
+            if mode in TURN_KINDS else
+            _baseline_plan(CONFIG, mode, phys, V_CLIENTS))
+    print(f"{path.replace('_', ' ')} path: {CONFIG.name} {mode}"
+          + (f" ({schedule})" if schedule else "")
+          + f", {V_CLIENTS} clients of {VB} rows, {FLEET_ROUNDS} rounds, "
+          f"AdamW({LR}), physical int8 wire: Plan(fleet=FleetSpec("
+          f"n_devices=1)) against the single-device Session")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    batches = _client_batches(gen, FLEET_ROUNDS, V_CLIENTS, VB, N_CLASSES)
+    ev = image_batch(gen, EVAL_B, N_CLASSES)
+    ev = {"x": ev["images"], "labels": ev["labels"]}
+    payloads = _fleet_vgg_payloads(torch, mode, schedule)
+    want = {"wire_quant": sum(p[-1][0] for p in payloads),
+            "wire_dequant": sum(p[-1][1] for p in payloads),
+            **NO_OTHER_KERNEL}
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for label, p in (("single device", plan), ("fleet", dataclasses.replace(
+                plan, fleet=FleetSpec(n_devices=1)))):
+            sess = p.compile()
+            sess.init(seed=SEED)
+            mesh = getattr(sess.engine, "mesh", None)
+            if mesh is not None:
+                if dist.get_backend() != "nccl" or mesh.device.type != "cuda":
+                    fail(f"{path}: the fleet's group is "
+                         f"{dist.get_backend()} on {mesh.device}")
+                mesh.counts.clear()
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            marks = [torch.cuda.Event(enable_timing=True)
+                     for _ in range(FLEET_ROUNDS + 1)]
+            marks[0].record()
+            losses = []
+            for r in range(FLEET_ROUNDS):
+                losses.append(sess.run_round(batches[r]))
+                marks[r + 1].record()
+            marks[-1].synchronize()
+            launches = ops.launch_counts()
+            counts = dict(mesh.counts) if mesh is not None else {}
+            ms = [marks[i].elapsed_time(marks[i + 1])
+                  for i in range(FLEET_ROUNDS)]
+            hold_launches(launches, want)
+            runs[label] = {
+                "losses": torch.cat(losses),
+                "state": tree_leaves(sess.gather_state()),
+                "meter": sess.meter(), "report": sess.wire_report(batches[0]),
+                "accs": sess.evaluate_all(ev), "ms": ms,
+                "launches": launches, "counts": counts}
+            del sess
+    finally:
+        torch.backends.cudnn.deterministic = False
+    a, b = runs["single device"], runs["fleet"]
+    same = len(a["state"]) == len(b["state"]) and all(
+        torch.equal(x, y) for x, y in zip(a["state"], b["state"]))
+    if not (torch.equal(a["losses"], b["losses"]) and same
+            and a["meter"] == b["meter"] and a["report"] == b["report"]
+            and torch.equal(a["accs"], b["accs"])):
+        fail(f"{path}: the one-rank fleet is not bitwise the single device "
+             f"(losses {a['losses'].tolist()} vs {b['losses'].tolist()}, "
+             f"states equal {same}, meters {a['meter']} / {b['meter']}, "
+             f"accuracies {a['accs'].tolist()} / {b['accs'].tolist()})")
+    per_round = {k: v / FLEET_ROUNDS for k, v in b["counts"].items()}
+    ms_a = statistics.mean(a["ms"][1:])
+    ms_b = statistics.mean(b["ms"][1:])
+    print(f"  bitwise the single device over {FLEET_ROUNDS} rounds: losses "
+          f"{b['losses'].tolist()}, {len(b['state'])} state leaves, meter, "
+          f"wire report, accuracies {b['accs'].tolist()}; launches "
+          f"{b['launches']}")
+    print(f"  ms a round (CUDA events, rounds 2-{FLEET_ROUNDS}): fleet "
+          f"{ms_b:.3f}, single device {ms_a:.3f} ({ms_b / ms_a:.3f}x); "
+          f"round 1 {b['ms'][0]:.3f} / {a['ms'][0]:.3f}; NCCL collective "
+          f"calls a round (one a dtype of the tree): {per_round}")
+    return {"launches": b["launches"], "round_ms": ms_b,
+            "single_device_round_ms": ms_a, "collectives_a_round": per_round,
+            "first_loss": float(b["losses"][0]),
+            "last_loss": float(b["losses"][-1]),
+            "eval_accuracy": b["accs"].tolist()}
+
+
+def fleet_cli(torch) -> dict:
+    """The training CLI with `--fleet` (Mamba2-130M whole, bf16, split
+    over 2 clients, the parallel schedule, CLI_SHORT steps) against the
+    same run without it, under deterministic algorithms: the JSON lines
+    equal but for their wall seconds; launches exact."""
+    from repro_torch.engine import FleetRoundEngine
+    from repro_torch.kernels import ops
+
+    path, arch, argv, steps = FLEET_CLI
+    spec = _cli_plan(torch, *FLEET_CLI)
+    full = _cli_argv(path, arch, argv, steps)
+    print(f"{path.replace('_', ' ')} path: python -m repro_torch.launch.train "
+          f"{' '.join(full)}, against the run without --fleet")
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        run, summary = _run_cli(torch, full, spec["cfg"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        engine = type(run.session.engine).__name__
+        del run
+        _, plain = _run_cli(torch, [a for a in full if a != "--fleet"],
+                            spec["cfg"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    hold_launches(launches, spec["launches"])
+    if engine != FleetRoundEngine.__name__:
+        fail(f"{path}: the CLI ran {engine}, not the fleet engine")
+    walls = summary.pop("wall_s"), plain.pop("wall_s")
+    if summary != plain:
+        fail(f"{path}: the --fleet JSON line {summary} != {plain}")
+    print(f"  the --fleet JSON line equals the run's without it (wall s "
+          f"{walls[0]} / {walls[1]}): {summary}; launches {launches}")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_s": wall,
+            "first_loss": summary["first_loss"],
+            "final_loss": summary["final_loss"],
+            "client_gb": summary["client_gb"]}
+
+
+def fleet_phase(torch) -> dict:
+    """Phase 3s: the one-rank fleet on the card (an NCCL group of one,
+    destroyed at the end of the phase, failed or not)."""
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        for mode, schedule in FLEET_RUNS:
+            out[fleet_path_name(mode, schedule)] = fleet_path(torch, mode,
+                                                              schedule)
+        out[FLEET_CLI[0]] = fleet_cli(torch)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -5626,6 +5842,7 @@ def main():
     phase("3q reduced", reduced_vlm_against_cpu, torch)
     encdec = phase("3r", encdec_phase, torch)
     phase("3r reduced", reduced_whisper_against_cpu, torch)
+    fleet = phase("3s", fleet_phase, torch)
 
     # the wire launches per payload add up to what each path was held to
     paths = (("serving", run), ("training", train), ("ssm_serving", ssm),
@@ -5638,7 +5855,8 @@ def main():
              *cli.items(), ("resnet_vanilla_training", resnet),
              *((MOE_RUNS[arch].path, r) for arch, r in moe.items()),
              *mono.items(), (BAT_PATH, bat), (FIG3_PATH, fig3),
-             *examples.items(), *vlm.items(), *encdec.items())
+             *examples.items(), *vlm.items(), *encdec.items(),
+             *fleet.items())
     for path, res in paths:
         for i, name in enumerate(("wire_quant", "wire_dequant")):
             want = sum(p[-1][i] for p in payloads if p[0] == path)

@@ -17,8 +17,16 @@ optimizer slice, as `run_serial` does.  Under `Plan(schedule=
 microbatches of its batch (`program.microbatch_mean`); the pull and push
 are unchanged.  Both meter per round
 analytically (model pull and push bytes, 3 x forward FLOPs per batch),
-as the reference does.  The mesh-sharded `Fleet*` variants come with the
-fleet (ROADMAP).
+as the reference does.
+
+  FleetFedAvgEngine / FleetLargeBatchEngine — the same rounds with the
+      clients sharded over a fleet's ranks (`repro_torch.engine.fleet`):
+      each rank fits or differentiates its own clients, and the model or
+      gradient mean is one `tree_psum` of the rank's pushed sum, divided
+      by the whole client count (`program.tree_mean0`), so one rank is
+      bitwise the single-device engine.  The pull and push cross the same
+      int8 wire; the meters stay analytic over all N clients on every
+      rank.
 """
 from __future__ import annotations
 
@@ -33,14 +41,12 @@ from repro_torch.core.accounting import (Meter, bytes_of_tree, flops_of_fn,
 from repro_torch.core.split import _grads, _leaf_params
 from repro_torch.core.wire_compress import (as_dense, pack_int8,
                                             payload_nbytes)
-from repro_torch.engine.program import microbatch_mean, stack_trees, tree_at
+from repro_torch.engine.fleet import FleetMeshMixin, FleetSpec
+from repro_torch.engine.program import (microbatch_mean, stack_trees,
+                                        tree_at, tree_mean0)
 from repro_torch.engine.topology import lower_baseline
 from repro_torch.nn.module import tree_leaves, tree_map
 from repro_torch.optim import apply_updates
-
-
-def _tree_mean0(tree):
-    return tree_map(lambda a: a.mean(0), tree)
 
 
 class _WireModelMixin:
@@ -79,8 +85,16 @@ class _WireModelMixin:
 
 
 class _BaselineEngine(_WireModelMixin):
-    """What the two baselines share: the probe, one client's gradient and
-    the global model's evaluation."""
+    """What the two baselines share: the probe, one client's gradient, the
+    mean over the clients and the global model's evaluation."""
+
+    _allreduce = None           # a fleet rank's sum over the ranks
+
+    def _client_mean(self, stacked):
+        """The mean of the pushed trees stacked over the clients this
+        engine holds: all of them, or a fleet rank's share."""
+        return tree_mean0(stacked, n=self.n_clients,
+                          allreduce=self._allreduce)
 
     def _probe(self, state, batches):
         """FLOPs of one client's batch (3 x the forward) and the model
@@ -155,7 +169,7 @@ class FedAvgEngine(_BaselineEngine):
         # one pull through the wire, shared by every client
         pulled = self._wire_tree(state["global"], pull.name, pull.direction)
         locals_, opts, losses = [], [], []
-        for ci in range(self.n_clients):
+        for ci in range(len(next(iter(batches.values())))):
             batch = {k: v[ci] for k, v in batches.items()}
             p, o = pulled, tree_at(state["opt"], ci)
             for _ in range(self.local_steps):     # the same batch each step
@@ -169,8 +183,8 @@ class FedAvgEngine(_BaselineEngine):
         # last-axis row, so per client
         pushed = self._wire_tree(stack_trees(locals_), push.name,
                                  push.direction)
-        return ({"global": _tree_mean0(pushed), "opt": stack_trees(opts)},
-                torch.stack(losses))
+        return ({"global": self._client_mean(pushed),
+                 "opt": stack_trees(opts)}, torch.stack(losses))
 
     def run_round(self, state, batches):
         """batches: dict of (N, ...) stacked per-client tensors.  Returns
@@ -213,11 +227,11 @@ class LargeBatchEngine(_BaselineEngine):
         pull, push = self.program.handoff_steps()
         pulled = self._wire_tree(state["global"], pull.name, pull.direction)
         outs = [self._grad(pulled, {k: v[ci] for k, v in batches.items()})
-                for ci in range(self.n_clients)]
+                for ci in range(len(next(iter(batches.values()))))]
         pushed = self._wire_tree(stack_trees([g for _, g in outs]),
                                  push.name, push.direction)
-        ups, opt = self.optimizer.update(_tree_mean0(pushed), state["opt"],
-                                         state["global"])
+        ups, opt = self.optimizer.update(self._client_mean(pushed),
+                                         state["opt"], state["global"])
         return ({"global": apply_updates(state["global"], ups), "opt": opt},
                 torch.stack([loss for loss, _ in outs]))
 
@@ -229,3 +243,55 @@ class LargeBatchEngine(_BaselineEngine):
             self.meter.bytes_up[ci] += self._wire_bytes     # gradient push
             self.meter.bytes_down[ci] += self._wire_bytes   # model pull
         return out
+
+
+# ---------------------------------------------------------------------------
+# the baselines over a fleet (Plan(fleet=FleetSpec(...)))
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FleetFedAvgEngine(FleetMeshMixin, FedAvgEngine):
+    """FedAvg with the clients sharded over the fleet's ranks: each rank
+    runs its clients' `local_steps` and holds their optimizer states; the
+    model average is one `tree_psum` of the rank's pushed sum."""
+    fleet: FleetSpec | None = None
+    mesh: Any = None
+    device: Any = None
+
+    def __post_init__(self):
+        self._fleet_setup()
+        super().__post_init__()
+
+    def init(self, gen):
+        return self.shard_state(super().init(gen))
+
+    def shard_state(self, state: dict) -> dict:
+        """The rank's slice of the clients' optimizer states; the global
+        model is whole on every rank.  Idempotent."""
+        return {"global": state["global"], "opt": self._local(state["opt"])}
+
+    def gather_state(self, state: dict) -> dict:
+        return {"global": state["global"], "opt": self._gather(state["opt"])}
+
+    def _round(self, state, batches):
+        state, losses = super()._round(state, self._local(batches))
+        return state, self._gather(losses)
+
+
+@dataclasses.dataclass
+class FleetLargeBatchEngine(FleetMeshMixin, LargeBatchEngine):
+    """Sync-SGD with the clients' gradients sharded over the fleet's ranks:
+    the gradient mean is one `tree_psum`, and the update replays on every
+    rank, whose state is whole."""
+    fleet: FleetSpec | None = None
+    mesh: Any = None
+    device: Any = None
+
+    def __post_init__(self):
+        self._fleet_setup()
+        super().__post_init__()
+
+    def _step(self, state, batches):
+        state, losses = super()._step(state, self._local(batches))
+        return state, self._gather(losses)

@@ -32,9 +32,11 @@ microbatches=M` (each client batch streamed through the cut as M
 microbatches).  The branch kinds run their joint round, streamed as M
 microbatches under the pipelined schedule; so are the baselines'
 gradients.  The LM family trains vanilla over `lm_split_fns(model, cut)`
-and in the baselines over `FullFns(model.init, model.forward)`; fleets
-raise, naming ROADMAP.md.  `compile()` runs on the GPU unless given
-`device="cpu"`, and raises without one.
+and in the baselines over `FullFns(model.init, model.forward)`.
+`fleet=FleetSpec(...)` shards the clients over the ranks of a process
+group (`repro_torch.engine.fleet`; every rank compiles the same Plan), in
+every mode but under the pipelined schedule.  `compile()` runs on the
+GPU unless given `device="cpu"`, and raises without one.
 """
 from __future__ import annotations
 
@@ -45,11 +47,12 @@ import torch
 
 from repro_torch import optim
 from repro_torch.api import session as _session
-from repro_torch.api.baseline import FedAvgEngine, LargeBatchEngine
+from repro_torch.api.baseline import (FedAvgEngine, FleetFedAvgEngine,
+                                      FleetLargeBatchEngine, LargeBatchEngine)
 from repro_torch.api.wire import WireStack, WireTransform, with_wire
 from repro_torch.core import split as sp
 from repro_torch.device import resolve_device
-from repro_torch.engine import RoundEngine
+from repro_torch.engine import FleetRoundEngine, RoundEngine
 from repro_torch.engine import topology as topo
 
 MODES = ("vanilla", "u_shaped", "vertical", "multihop", "multitask",
@@ -138,7 +141,7 @@ class Plan:
     wire: Sequence[WireTransform] = ()
     local_steps: int = 1                  # fedavg
     clip_norm: float | None = None
-    fleet: Any = None                     # not ported (ROADMAP)
+    fleet: Any = None                     # FleetSpec: clients over ranks
 
     def _require(self, cond, msg):
         if not cond:
@@ -201,19 +204,21 @@ class Plan:
         return topo.extended_vanilla(self.branch, self.n_clients,
                                      *self.mid, *self.trunk)
 
-    def _baseline_engine(self, stack: WireStack, opt):
+    def _baseline_engine(self, stack: WireStack, opt, fleet_kw: dict):
         fns = _full_fns(self.model)
         kw = dict(init_fn=fns.init, apply_fn=fns.apply, loss_fn=self.loss_fn,
                   optimizer=opt, n_clients=self.n_clients,
                   microbatches=self.microbatches,
-                  wire_stack=stack if stack else None)
+                  wire_stack=stack if stack else None, **fleet_kw)
         if self.mode == "fedavg":
-            return FedAvgEngine(local_steps=self.local_steps, **kw)
-        return LargeBatchEngine(**kw)
+            cls = FleetFedAvgEngine if fleet_kw else FedAvgEngine
+            return cls(local_steps=self.local_steps, **kw)
+        return (FleetLargeBatchEngine if fleet_kw else LargeBatchEngine)(**kw)
 
     def compile(self, device=None) -> "_session.Session":
         """Lower this plan onto one engine and wrap it in a `Session`
-        whose state lives on `device` (default the GPU)."""
+        whose state lives on `device` (default the GPU; under a fleet, the
+        rank's GPU)."""
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, "
                              f"got {self.mode!r}")
@@ -223,23 +228,24 @@ class Plan:
                       "microbatches > 1 requires schedule='pipelined'")
         if self.effective_schedule == "pipelined":
             self._require(self.fleet is None,
-                          "the pipelined schedule is single-mesh only for "
-                          "now (ROADMAP: double-buffer the cut across the "
-                          "ring)")
-        if self.fleet is not None:
-            raise NotImplementedError(
-                "a fleet (clients sharded over several devices) is not "
-                "ported yet; see ROADMAP.md")
+                          "the pipelined schedule is single-mesh only, as "
+                          "in the reference (no double-buffered cut across "
+                          "the ring)")
         dev = resolve_device(device)
         stack = WireStack(self.wire)
         opt_c, opt_s = self._optimizers()
+        fleet_kw = ({} if self.fleet is None
+                    else {"fleet": self.fleet, "device": dev})
         if self.mode in BASELINE_MODES:
-            return _session.Session(self, self._baseline_engine(stack, opt_c),
-                                    stack, dev)
-        engine = RoundEngine(
-            topology=with_wire(self._topology(), stack), loss_fn=self.loss_fn,
-            optimizer_client=opt_c, optimizer_server=opt_s,
-            n_clients=self.n_clients, schedule=self.effective_schedule,
-            sync=self.sync, microbatches=self.microbatches,
-            wire_stack=stack if stack else None)
+            engine = self._baseline_engine(stack, opt_c, fleet_kw)
+        else:
+            engine = (FleetRoundEngine if fleet_kw else RoundEngine)(
+                topology=with_wire(self._topology(), stack),
+                loss_fn=self.loss_fn, optimizer_client=opt_c,
+                optimizer_server=opt_s, n_clients=self.n_clients,
+                schedule=self.effective_schedule, sync=self.sync,
+                microbatches=self.microbatches,
+                wire_stack=stack if stack else None, **fleet_kw)
+        if fleet_kw:
+            dev = engine.mesh.device
         return _session.Session(self, engine, stack, dev)

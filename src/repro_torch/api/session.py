@@ -17,14 +17,18 @@ from typing import Iterable
 import torch
 
 from repro_torch.core import privacy
-from repro_torch.engine import RoundEngine, stack_batches, tree_at
+from repro_torch.engine import RoundEngine, stack_batches
 from repro_torch.nn.module import tree_map
 
 
 class Session:
     """Stateful handle over one engine.  `self.state` is the engine's
     tree of tensors (`repro_torch.bridge` converts it to and from the
-    reference's layout)."""
+    reference's layout).  Under `Plan(fleet=...)` every rank holds a
+    Session over the fleet engine: `init`, `fit`, `evaluate`,
+    `evaluate_all` and `meter` go through it, `self.state` holds the
+    rank's slice of the clients, and `gather_state` / `load_state` read
+    and set the whole fleet's."""
 
     def __init__(self, plan, engine, wire_stack, device):
         self.plan = plan
@@ -35,6 +39,13 @@ class Session:
         self._probe_state_cache = None
 
     # ---- lifecycle ---------------------------------------------------------
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in a fleet (`Plan(fleet=...)`), else 0:
+        rank 0 prints and writes checkpoints."""
+        mesh = getattr(self.engine, "mesh", None)
+        return 0 if mesh is None else mesh.rank
 
     @property
     def is_split(self) -> bool:
@@ -140,6 +151,20 @@ class Session:
         """Cumulative per-client resource totals (TFLOPs / GB)."""
         return self.engine.meter.totals()
 
+    def gather_state(self):
+        """The whole state: under a fleet, where `self.state` is the rank's
+        slice of the clients, the whole fleet on every rank (a collective:
+        every rank calls it); otherwise `self.state`."""
+        gather = getattr(self.engine, "gather_state", None)
+        return self.state if gather is None else gather(self.state)
+
+    def load_state(self, state):
+        """Adopt a whole state (a checkpoint's, or a bridged one): under a
+        fleet the rank keeps its slice (`engine.shard_state`)."""
+        shard = getattr(self.engine, "shard_state", None)
+        self.state = state if shard is None else shard(state)
+        self._probe_state_cache = None
+
     def wire_report(self, batches) -> list[dict]:
         """Everything that crosses the boundary in ONE turn (a branch
         mode's joint round) for this batch shape, priced through the wire
@@ -186,7 +211,7 @@ class Session:
         state = self._state_for_probe()
         first = next(iter(batch))          # the caller's order: _prep sorts
         batch = self._prep(batch)
-        pc = tree_at(state["clients"], client)
+        pc = self.engine.client_params(state, client)
         if topology.parallel_only:
             x_raw = batch["x"][client]
             probe = {**batch, "x": batch["x"][client:client + 1]}

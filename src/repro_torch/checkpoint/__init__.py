@@ -1,2 +1,3 @@
 from repro_torch.checkpoint.checkpoint import (load_manifest,  # noqa: F401
-                                               restore, save)
+                                               restore, restore_state, save,
+                                               save_state)

@@ -9,7 +9,10 @@ its own, so a bf16 leaf is stored as its raw 16-bit pattern (numpy's
 2-byte void, `<V2`), which is what the reference's npz holds for one, with
 "bfloat16" in the manifest.  Trees are the port's (dicts, lists and
 tuples of tensors); an LM tree is written in the reference's layout
-through `bridge.lm_tree_to_ref` first.
+through `bridge.lm_tree_to_ref` first.  `save_state` / `restore_state`
+keep a `Session`'s whole state: under a fleet (`Plan(fleet=...)`) it is
+gathered over the ranks and written by rank 0, and each rank restores its
+slice.
 """
 from __future__ import annotations
 
@@ -96,3 +99,23 @@ def restore(path: str, template):
 def load_manifest(path: str) -> dict:
     with open(path.removesuffix(".npz") + ".json") as f:
         return json.load(f)
+
+
+def save_state(path: str, sess, step: int | None = None,
+               extra: dict | None = None):
+    """A `Session`'s whole state to `path`.  Under a fleet it is gathered
+    over the ranks (a collective: every rank calls this) and written by
+    rank 0 alone."""
+    state = sess.gather_state()
+    if sess.rank == 0:
+        save(path, state, step=step, extra=extra)
+
+
+def restore_state(path: str, sess):
+    """The state `save_state` wrote, into `sess` (its own state, or a fresh
+    init, is the template); a fleet rank keeps its slice.  Under a fleet,
+    every rank calls this after rank 0's write has finished."""
+    if sess.state is None:
+        sess.init()
+    sess.load_state(restore(path, sess.gather_state()))
+    return sess.state

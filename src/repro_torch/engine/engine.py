@@ -123,16 +123,19 @@ class RoundEngine:
         meters the round."""
         first = int(state["last_trained"]) < 0
         self.turn_cost(state, batches)          # probe once per shape
-        prog, ctx = self.program, self._ctx
-        if prog.round_type != "branch":
-            state, losses = EXECUTORS[self.schedule](prog, ctx, state,
-                                                     batches)
-        elif self.schedule == "pipelined" and self.microbatches > 1:
-            state, losses = run_branch_pipelined(prog, ctx, state, batches)
-        else:
-            state, losses = run_branch(prog, ctx, state, batches)
+        state, losses = self._round(state, batches)
         self._account_round(state, batches, first_round=first)
         return state, losses
+
+    def _round(self, state, batches):
+        """The round's executor over the program (the fleet engine runs
+        it over its ranks instead)."""
+        prog, ctx = self.program, self._ctx
+        if prog.round_type != "branch":
+            return EXECUTORS[self.schedule](prog, ctx, state, batches)
+        if self.schedule == "pipelined" and self.microbatches > 1:
+            return run_branch_pipelined(prog, ctx, state, batches)
+        return run_branch(prog, ctx, state, batches)
 
     # ---- resource accounting ---------------------------------------------
 
@@ -157,8 +160,7 @@ class RoundEngine:
             # stack's handoff transforms (int8 + row scales under
             # quantize_int8) instead of the dense parameter bytes
             sync_bytes = (self.wire_stack.handoff_bytes(pc)
-                          if self._wire_handoff else
-                          bytes_of_tree(state["clients"]) // self.n_clients)
+                          if self._wire_handoff else bytes_of_tree(pc))
             self._turn_costs[key] = TurnCost(
                 wires=tuple(wires), flops=flops, sync_bytes=sync_bytes)
         return self._turn_costs[key]
@@ -185,6 +187,10 @@ class RoundEngine:
                 self.meter.sync_bytes[ci] += cost.sync_bytes
 
     # ---- eval --------------------------------------------------------------
+
+    def client_params(self, state, client: int):
+        """Client `client`'s parameters (views of the stacked state)."""
+        return tree_at(state["clients"], client)
 
     @torch.no_grad()
     def evaluate(self, state, batch, *, client: int = 0):

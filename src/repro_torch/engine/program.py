@@ -67,6 +67,11 @@ def tree_at(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _n_stacked(tree) -> int:
+    """The length of a stacked tree's leading (client) axis."""
+    return tree_leaves(tree)[0].shape[0]
+
+
 def tree_index(tree, i):
     """The reference's traced-index slice, `tree_at` with `i` an int or a
     0-d tensor: eager torch has no traced index to tell apart."""
@@ -232,9 +237,11 @@ class StepProgram:
 
 @dataclasses.dataclass(frozen=True)
 class ExecContext:
-    """Everything an executor needs beyond the program: party count,
-    sync policy, loss, optimizers, the wire stack and the microbatch
-    count of the pipelined schedule."""
+    """Everything an executor needs beyond the program: party count (the
+    whole fleet's), sync policy, loss, optimizers, the wire stack, the
+    microbatch count of the pipelined schedule and, on a fleet rank whose
+    state holds its share of the clients, the sum over the ranks that
+    `run_parallel`'s server mean reduces through."""
     n_clients: int
     sync: str
     loss_fn: Callable
@@ -243,6 +250,7 @@ class ExecContext:
     wire_stack: Any = None         # api.wire.WireStack | None
     wire_handoff: bool = False     # the stack squeezes the p2p handoff
     microbatches: int = 1
+    allreduce: Callable | None = None  # a fleet rank's sum over the ranks
 
 
 # ---------------------------------------------------------------------------
@@ -286,10 +294,32 @@ def _microbatches(mbs: dict, m: int) -> list:
     return [{k: v[j] for k, v in mbs.items()} for j in range(m)]
 
 
-def _tree_mean(trees: list):
-    """The leafwise mean of a list of trees, as a mean over a stacked
-    leading axis."""
-    return tree_map(lambda *xs: torch.stack(xs).mean(0), *trees)
+_HALF = (torch.float16, torch.bfloat16)
+
+
+def tree_mean0(stacked, *, n: int | None = None,
+               allreduce: Callable | None = None):
+    """The leafwise mean over the leading axis of a stacked tree, computed
+    as the CPU's `torch.mean` computes it: the sum (in float32 for half
+    types), divided by the count, cast back.  A fleet rank passes its
+    share of the axis, `allreduce` (the sum over the ranks,
+    `nn.dist.tree_psum`) and the whole count `n`, so one rank's mean is
+    bitwise the single-device one on any device; over several ranks only
+    the order of the sum differs."""
+    sums = tree_map(lambda a: a.sum(0, dtype=torch.float32
+                                    if a.dtype in _HALF else a.dtype),
+                    stacked)
+    if allreduce is not None:
+        sums = allreduce(sums)
+    if n is None:
+        n = tree_leaves(stacked)[0].shape[0]
+    return tree_map(lambda s, a: (s / n).to(a.dtype), sums, stacked)
+
+
+def _tree_mean(trees: list, **kw):
+    """The leafwise mean of a list of trees (`tree_mean0` of their
+    stack)."""
+    return tree_mean0(stack_trees(trees), **kw)
 
 
 def microbatch_mean(fn: Callable, batch: dict, m: int,
@@ -320,30 +350,40 @@ def run_serial(program: StepProgram, ctx: ExecContext, state, batches):
     return _round_robin(program.topology.turn_grads, ctx, state, batches)
 
 
-def _round_robin(turn, ctx: ExecContext, state, batches):
+def _round_robin(turn, ctx: ExecContext, state, batches, *, offset: int = 0,
+                 arrived=None):
     """The turn loop `run_serial` and `run_pipelined` share; `turn(pc, ps,
-    batch, loss_fn) -> (loss, g_c, g_s)`."""
+    batch, loss_fn) -> (loss, g_c, g_s)`.  A fleet rank runs it over its
+    share of the clients (`repro_torch.engine.fleet`): `state` and
+    `batches` hold clients `offset` onward, `last_trained` is a whole-fleet
+    index, and `arrived` is the handoff that came over the ring when the
+    last trained client lives on another rank."""
     n = ctx.n_clients
     clients, opt_c = state["clients"], state["opt_c"]
     server, opt_s = state["server"], state["opt_s"]
     last = int(state["last_trained"])
+    n_here = _n_stacked(clients)
     losses = []
-    for ci in range(n):
-        batch = {k: v[ci] for k, v in batches.items()}
-        pc = tree_at(clients, ci)
+    for li in range(n_here):
+        ci = offset + li
+        batch = {k: v[li] for k, v in batches.items()}
+        pc = tree_at(clients, li)
         # the reference squeezes the last client's weights on every turn
         # and keeps them where `take` holds (a select under jit); here the
         # handoff runs only where it is taken, every turn but the very
         # first of the first round, with the same values, so the wire
         # kernels launch once per leaf per handoff taken
         if ctx.sync == "p2p" and n > 1 and last >= 0 and last != ci:
-            pc = tree_at(clients, last)
-            if ctx.wire_handoff:
-                pc = ctx.wire_stack.handoff_recv(pc)
+            if offset <= last < offset + n_here:
+                pc = tree_at(clients, last - offset)
+                if ctx.wire_handoff:
+                    pc = ctx.wire_stack.handoff_recv(pc)
+            else:
+                pc = arrived
         loss, g_c, g_s = turn(pc, server, batch, ctx.loss_fn)
-        ups_c, oc = ctx.optimizer_client.update(g_c, tree_at(opt_c, ci), pc)
-        clients = tree_update(clients, ci, apply_updates(pc, ups_c))
-        opt_c = tree_update(opt_c, ci, oc)
+        ups_c, oc = ctx.optimizer_client.update(g_c, tree_at(opt_c, li), pc)
+        clients = tree_update(clients, li, apply_updates(pc, ups_c))
+        opt_c = tree_update(opt_c, li, oc)
         ups_s, opt_s = ctx.optimizer_server.update(g_s, opt_s, server)
         server = apply_updates(server, ups_s)
         losses.append(loss)
@@ -364,10 +404,12 @@ def run_parallel(program: StepProgram, ctx: ExecContext, state, batches):
     outs = [topo.turn_grads(tree_at(state["clients"], ci), state["server"],
                             {k: v[ci] for k, v in batches.items()},
                             ctx.loss_fn)
-            for ci in range(ctx.n_clients)]
+            for ci in range(_n_stacked(state["clients"]))]
     losses, g_c, g_s = zip(*outs)
     return _branch_step(ctx, state, torch.stack(losses),
-                        stack_trees(list(g_c)), _tree_mean(list(g_s)))
+                        stack_trees(list(g_c)),
+                        _tree_mean(list(g_s), n=ctx.n_clients,
+                                   allreduce=ctx.allreduce))
 
 
 def run_branch(program: StepProgram, ctx: ExecContext, state, batches):
@@ -396,8 +438,9 @@ def _branch_step(ctx, state, losses, g_c, g_s):
     """Each client steps on its own slice (the reference vmaps `update`
     over the client axis, so per-client rules such as decaying only
     matrices see one client's shapes); the server steps once.  Shared by
-    the branch rounds and `run_parallel`."""
-    n = ctx.n_clients
+    the branch rounds and `run_parallel` (over a fleet rank's share of the
+    clients)."""
+    n = _n_stacked(state["clients"])
     outs = [ctx.optimizer_client.update(tree_at(g_c, i),
                                         tree_at(state["opt_c"], i),
                                         tree_at(state["clients"], i))

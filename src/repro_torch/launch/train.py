@@ -15,10 +15,15 @@ Every mode compiles through the one Plan/Session path:
 --wire stacks cut middleware, e.g. `--wire quantize_int8:physical,
 dp_noise:0.05`.  The flags, modes and the JSON summary (the last stdout
 line, after an `eval acc/client` line) are the reference's, plus
---device: the run is on the GPU unless `--device cpu`.  A fleet, a
-topology other than vanilla, an architecture the port lacks and
-`--mode split` of a VLM or an encoder-decoder model exit with a message
-naming ROADMAP.md (the reference's split path crashes on both: it
+--device: the run is on the GPU unless `--device cpu`.  `--fleet` shards
+the clients over the ranks of a process group (`--fleet-devices`, default
+the world size): every rank runs this script, as under `torchrun
+--nproc-per-node D`, and rank 0 prints and writes the checkpoints; a run
+of one process is a fleet of one rank.  `--fleet` with `--mode
+monolithic` exits, as the reference's does.  A topology other than
+vanilla, an architecture the port lacks and `--mode split` of a VLM or an
+encoder-decoder model exit with a message naming ROADMAP.md (the
+reference's split path crashes on both: it
 never drops a VLM's patch positions from the logits, and its EncDec has
 no `split_params`).  The batch of round r, client i comes from a
 generator seeded from (0, r, i); the held-out batch from (0, steps +
@@ -37,6 +42,9 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch whisper_base --reduced --steps 3 --mode fedavg \\
         --n-clients 2 --device cpu
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch mamba2_130m --reduced --steps 3 --mode split \\
+        --n-clients 2 --schedule parallel --fleet --device cpu
 """
 from __future__ import annotations
 
@@ -51,7 +59,8 @@ import torch
 from repro_torch import bridge
 from repro_torch import checkpoint as ckpt
 from repro_torch import optim
-from repro_torch.api import FullFns, Plan, Session, lm_split_fns, parse_wire
+from repro_torch.api import (FleetSpec, FullFns, Plan, Session,
+                             lm_split_fns, parse_wire)
 from repro_torch.configs import get_config
 from repro_torch.data import synthetic as syn
 from repro_torch.device import resolve_device
@@ -75,11 +84,14 @@ def _generator(device, *words: int) -> torch.Generator:
 
 def build_plan(model, args) -> Plan:
     opt = optim.adamw(args.lr, weight_decay=0.01)
-    if args.fleet:
-        raise SystemExit("--fleet: a fleet (clients sharded over several "
-                         "devices) is not ported yet; see ROADMAP.md")
+    fleet = (FleetSpec(n_devices=args.fleet_devices or None)
+             if args.fleet else None)
     schedule = args.schedule if args.schedule == "pipelined" else None
     if args.mode == "monolithic":
+        if fleet is not None:
+            raise SystemExit("--fleet: monolithic training has no client "
+                             "axis to shard (n_clients=1); use --mode "
+                             "split/fedavg/large_batch with --n-clients")
         return Plan(mode="large_batch",
                     model=FullFns(init=model.init, apply=model.forward),
                     n_clients=1, optimizer=opt, clip_norm=1.0,
@@ -91,7 +103,7 @@ def build_plan(model, args) -> Plan:
                     model=FullFns(init=model.init, apply=model.forward),
                     n_clients=args.n_clients, optimizer=opt,
                     schedule=schedule, microbatches=args.microbatches,
-                    local_steps=args.local_steps)
+                    local_steps=args.local_steps, fleet=fleet)
     cfg = model.cfg
     if cfg.family == "vlm" or cfg.encdec:
         raise SystemExit(
@@ -111,7 +123,7 @@ def build_plan(model, args) -> Plan:
     return Plan(mode="vanilla", model=lm_split_fns(model, args.cut),
                 cut=args.cut, n_clients=args.n_clients,
                 schedule=args.schedule, microbatches=args.microbatches,
-                optimizer=opt, wire=wire,
+                optimizer=opt, wire=wire, fleet=fleet,
                 clip_norm=1.0 if args.n_clients == 1 else None)
 
 
@@ -142,8 +154,11 @@ def parser() -> argparse.ArgumentParser:
                          "dp_noise:SIGMA,leakage_probe")
     ap.add_argument("--local-steps", type=int, default=1)
     ap.add_argument("--fleet", action="store_true",
-                    help="shard the client axis over devices (not ported)")
-    ap.add_argument("--fleet-devices", type=int, default=0)
+                    help="shard the client axis over the ranks of a process "
+                         "group (repro_torch.engine.fleet): launch one "
+                         "process a rank, e.g. torchrun --nproc-per-node D")
+    ap.add_argument("--fleet-devices", type=int, default=0,
+                    help="client-axis size (0 = the group's world size)")
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
@@ -168,22 +183,24 @@ def arch_config(args):
 def _save_checkpoints(sess: Session, args):
     """The reference's files: a split run's clients (all stacked, or the
     one client) and server, else the global model, each LM tree in the
-    reference's layout."""
+    reference's layout.  A fleet's state is gathered over the ranks (every
+    rank calls this) and rank 0 writes."""
+    state = sess.gather_state()
+    if sess.rank != 0:
+        return
     if sess.plan.mode == "vanilla":
         if args.n_clients > 1:
             ckpt.save(args.ckpt + ".clients",
-                      bridge.lm_tree_to_ref(sess.state["clients"], axis=1),
+                      bridge.lm_tree_to_ref(state["clients"], axis=1),
                       step=args.steps)
         else:
             ckpt.save(args.ckpt + ".client",
-                      bridge.lm_tree_to_ref(tree_at(sess.state["clients"],
-                                                    0)),
+                      bridge.lm_tree_to_ref(tree_at(state["clients"], 0)),
                       step=args.steps)
         ckpt.save(args.ckpt + ".server",
-                  bridge.lm_tree_to_ref(sess.state["server"]),
-                  step=args.steps)
+                  bridge.lm_tree_to_ref(state["server"]), step=args.steps)
     else:
-        ckpt.save(args.ckpt, bridge.lm_tree_to_ref(sess.state["global"]),
+        ckpt.save(args.ckpt, bridge.lm_tree_to_ref(state["global"]),
                   step=args.steps)
 
 
@@ -226,17 +243,19 @@ def main(argv=None, *, cfg=None, data_vocab=None) -> TrainRun:
     sess = build_plan(model, args).compile(device=device)
     sess.init(torch.Generator(device=device).manual_seed(0))
 
+    talk = sess.rank == 0
     t0 = time.time()
     losses = sess.fit(round_batches, rounds=args.steps,
-                      log_every=args.log_every)
+                      log_every=args.log_every if talk else 0)
     dt = time.time() - t0
 
     # eval over the whole client fleet: one client hides the spread once
     # clients diverge
     eval_batch = batch_fn(_generator(device, 0, args.steps + 1))
     eval_accs = [round(float(a), 4) for a in sess.evaluate_all(eval_batch)]
-    print(f"eval acc/client: {eval_accs} (mean "
-          f"{sum(eval_accs) / len(eval_accs):.4f})", flush=True)
+    if talk:
+        print(f"eval acc/client: {eval_accs} (mean "
+              f"{sum(eval_accs) / len(eval_accs):.4f})", flush=True)
 
     extra: dict = {}
     if sess.plan.mode == "vanilla":
@@ -256,7 +275,8 @@ def main(argv=None, *, cfg=None, data_vocab=None) -> TrainRun:
                "first_loss": losses[0], "final_loss": losses[-1],
                "eval_acc_per_client": eval_accs}
     summary.update(extra)
-    print(json.dumps(summary), flush=True)
+    if talk:
+        print(json.dumps(summary), flush=True)
     return TrainRun(summary, sess, losses, round_batches)
 
 

@@ -48,9 +48,10 @@ from repro.core import wire_compress as jwc
 from repro.engine import topology as jtopo
 from repro.nn import convnets as JC
 from repro_torch import bridge, optim
-from repro_torch.api import (FullFns, Plan, SplitFns, WireAccountingError,
-                             WireStack, leakage_probe, quantize_int8,
-                             softmax_xent)
+from repro_torch.api import (FleetFedAvgEngine, FleetLargeBatchEngine,
+                             FleetSpec, FullFns, Plan, SplitFns,
+                             WireAccountingError, WireStack, leakage_probe,
+                             quantize_int8, softmax_xent)
 from repro_torch.configs import vgg_cifar10 as tvgg_cfg
 from repro_torch.core import accounting as acc
 from repro_torch.core import split as sp
@@ -432,8 +433,11 @@ def test_full_fns_and_unported_baseline_options():
         eng = Plan(mode=mode, model=tm, schedule="pipelined",
                    microbatches=2).compile(device="cpu").engine
         assert eng.microbatches == 2
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Plan(mode=mode, model=tm, fleet=object()).compile(device="cpu")
+        # a fleet routes to the mode's fleet engine (tests/test_torch_fleet.py)
+        eng = Plan(mode=mode, model=tm, fleet=FleetSpec(n_devices=1)
+                   ).compile(device="cpu").engine
+        assert type(eng) is {"fedavg": FleetFedAvgEngine,
+                             "large_batch": FleetLargeBatchEngine}[mode]
         with pytest.raises(TypeError, match="cannot run a baseline"):
             Plan(mode=mode, model=object()).compile(device="cpu")
 

@@ -50,8 +50,9 @@ from repro.core import split as jsp
 from repro.engine import topology as jtopo
 from repro.nn import convnets as JC
 from repro_torch import bridge, optim
-from repro_torch.api import (Plan, SplitFns, WireStack, WireTape,
-                             leakage_probe, quantize_int8, softmax_xent)
+from repro_torch.api import (FleetRoundEngine, FleetSpec, Plan, SplitFns,
+                             WireStack, WireTape, leakage_probe,
+                             quantize_int8, softmax_xent)
 from repro_torch.configs import vgg_cifar10 as tvgg_cfg
 from repro_torch.core import split as sp
 from repro_torch.engine import copy_tree
@@ -607,9 +608,10 @@ def test_unported_schedules_and_models_raise():
                            match="requires schedule='pipelined'"):
             Plan(mode=kind, model=tm, cuts=CUTS[kind],
                  microbatches=2).compile(device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Plan(mode=kind, model=tm, cuts=CUTS[kind],
-                 fleet=object()).compile(device="cpu")
+        # a fleet routes to the fleet engine (tests/test_torch_fleet.py)
+        eng = Plan(mode=kind, model=tm, cuts=CUTS[kind],
+                   fleet=FleetSpec(n_devices=1)).compile(device="cpu").engine
+        assert type(eng) is FleetRoundEngine
         # SplitFns trains vanilla only, as in the reference
         fns = SplitFns(init=None, split=None, client_apply=None,
                        server_apply=None)

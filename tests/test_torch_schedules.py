@@ -57,8 +57,9 @@ from repro.api.wire import with_wire as jwith_wire
 from repro.engine import program as jprog
 from repro.engine import topology as jtopo
 from repro_torch import bridge, optim
-from repro_torch.api import (Plan, WireStack, WireTape, lm_split_fns,
-                             softmax_xent, with_wire)
+from repro_torch.api import (FleetFedAvgEngine, FleetLargeBatchEngine,
+                             FleetRoundEngine, FleetSpec, Plan, WireStack,
+                             WireTape, lm_split_fns, softmax_xent, with_wire)
 from repro_torch.configs import get_config
 from repro_torch.core import wire_compress as twc
 from repro_torch.engine import copy_tree
@@ -419,8 +420,8 @@ def test_pipelined_one_microbatch_is_round_robin_bitwise(kind):
 
 
 def test_plan_validates_the_schedules():
-    """The reference's checks and messages; what stays unported raises
-    naming ROADMAP.md."""
+    """The reference's checks and messages; a fleet routes every mode to
+    its fleet engine, but not under the pipelined schedule."""
     for mode in MODES:
         for plan in _plans(mode, microbatches=2):
             with pytest.raises(ValueError,
@@ -434,8 +435,11 @@ def test_plan_validates_the_schedules():
                           fleet=object())
         with pytest.raises(ValueError, match="single-mesh"):
             tplan.compile(device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _plans(mode, fleet=object())[1].compile(device="cpu")
+        eng = _plans(mode, fleet=FleetSpec(n_devices=1))[1].compile(
+            device="cpu").engine
+        assert type(eng) is {"fedavg": FleetFedAvgEngine,
+                             "large_batch": FleetLargeBatchEngine}.get(
+                                 mode, FleetRoundEngine)
     with pytest.raises(ValueError, match="single-mesh"):
         _plans("vanilla", schedule="pipelined", microbatches=2,
                fleet=JFleetSpec(n_devices=1))[0].compile()

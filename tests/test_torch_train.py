@@ -45,9 +45,10 @@ from repro.core import split as jsp
 from repro.engine import topology as jtopo
 from repro.nn import convnets as JC
 from repro_torch import bridge, optim
-from repro_torch.api import (MODES, PORTED_MODES, Plan, WireStack,
-                             WireTape, leakage_probe, parse_wire,
-                             quantize_int8, softmax_xent)
+from repro_torch.api import (MODES, PORTED_MODES, FleetRoundEngine,
+                             FleetSpec, Plan, WireStack, WireTape,
+                             leakage_probe, parse_wire, quantize_int8,
+                             softmax_xent)
 from repro_torch.configs import vgg_cifar10 as tvgg_cfg
 from repro_torch.core import privacy
 from repro_torch.core import split as sp
@@ -494,16 +495,16 @@ def test_unported_modes_and_devices_raise():
     _, tb, _, tt, _, _ = _mlp_branches()
     assert PORTED_MODES == MODES
     # every mode and schedule is ported; microbatches need the pipelined
-    # schedule, and a fleet is not ported
+    # schedule, and a fleet routes to the fleet engine
     eng = Plan(mode="vertical", branch=tb, trunk=tt, schedule="pipelined",
                microbatches=2).compile(device="cpu").engine
     assert (eng.schedule, eng.microbatches) == ("pipelined", 2)
     with pytest.raises(ValueError, match="requires schedule='pipelined'"):
         Plan(mode="vertical", branch=tb, trunk=tt,
              microbatches=2).compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Plan(mode="vertical", branch=tb, trunk=tt,
-             fleet=object()).compile(device="cpu")
+    eng = Plan(mode="vertical", branch=tb, trunk=tt,
+               fleet=FleetSpec(n_devices=1)).compile(device="cpu").engine
+    assert type(eng) is FleetRoundEngine
     assert [t.name for t in parse_wire("quantize_int8:physical,"
                                        "dp_noise:0.1,leakage_probe")] == [
         "quantize_int8", "dp_noise", "leakage_probe"]

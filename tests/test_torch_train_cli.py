@@ -9,9 +9,10 @@ CPU, at reduced size in fp32.
   --wire quantize_int8:physical`, 2 steps): the same JSON keys in the same
   order, and `wire_report` and `client_gb` BITWISE (the losses differ:
   each package draws its own batches and weights from its own generator).
-* The refusals: `--fleet`, a non-vanilla `--topology` and `--mode split`
-  of a VLM or an encoder-decoder model exit with a message naming
-  ROADMAP.md.
+* The refusals: a non-vanilla `--topology` and `--mode split` of a VLM
+  or an encoder-decoder model exit with a message naming ROADMAP.md, and
+  `--fleet` with `--mode monolithic` with the reference's message
+  (`--fleet` itself runs: tests/test_torch_fleet.py).
 * Every mode under every schedule the reference accepts runs, and prints
   the reference's keys.
 * Checkpoints: a checkpoint the port writes restores through the
@@ -112,15 +113,17 @@ def test_cli_run_matches_reference(monkeypatch, capsys):
 
 
 def test_cli_refusals():
-    for argv in (["--mode", "split", "--fleet"],
-                 ["--mode", "monolithic", "--fleet"],
-                 ["--mode", "split", "--topology", "u_shaped"],
+    for argv in (["--mode", "split", "--topology", "u_shaped"],
                  ["--arch", "internvl2_2b", "--mode", "split"],
                  ["--arch", "whisper_base", "--mode", "split"]):
         full = ["--arch", ARCH, "--reduced", "--steps", "1", "--device",
                 "cpu"] + argv
         with pytest.raises(SystemExit, match="ROADMAP.md"):
             train.main(full)
+    with pytest.raises(SystemExit, match="monolithic training has no "
+                                         "client axis"):
+        train.main(["--arch", ARCH, "--reduced", "--steps", "1", "--device",
+                    "cpu", "--mode", "monolithic", "--fleet"])
     with pytest.raises(SystemExit, match="quantize_int8:slow"):
         train.main(["--arch", ARCH, "--reduced", "--mode", "split",
                     "--wire", "quantize_int8:slow", "--device", "cpu"])

@@ -51,8 +51,9 @@ from repro.core import wire_compress as jwc
 from repro.engine import topology as jtopo
 from repro.nn import convnets as JC
 from repro_torch import bridge, optim
-from repro_torch.api import (Plan, SplitFns, WireStack, WireTape,
-                             leakage_probe, quantize_int8, softmax_xent)
+from repro_torch.api import (FleetRoundEngine, FleetSpec, Plan, SplitFns,
+                             WireStack, WireTape, leakage_probe,
+                             quantize_int8, softmax_xent)
 from repro_torch.configs import vgg_cifar10 as tvgg_cfg
 from repro_torch.core import split as sp
 from repro_torch.core import wire_compress as twc
@@ -513,9 +514,10 @@ def test_identical_clients_and_unported_schedules_raise():
     with pytest.raises(ValueError, match="requires schedule='pipelined'"):
         Plan(mode="vanilla", model=tm, cut=CUT,
              microbatches=2).compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Plan(mode="vanilla", model=tm, cut=CUT,
-             fleet=object()).compile(device="cpu")
+    # a fleet routes to the fleet engine (tests/test_torch_fleet.py)
+    eng = Plan(mode="vanilla", model=tm, cut=CUT,
+               fleet=FleetSpec(n_devices=1)).compile(device="cpu").engine
+    assert type(eng) is FleetRoundEngine
     # an LM's SplitFns lowers to the same vanilla program
     fns = SplitFns(init=None, split=None, client_apply=None,
                    server_apply=None)
