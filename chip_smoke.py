@@ -305,6 +305,28 @@ Phases, each of which ends the run with a nonzero exit on any error:
    collective calls a round; then the training CLI's Mamba2-130M split
    over 2 clients, parallel, bf16, 3 steps with `--fleet`, its JSON line
    equal to the run's without it under deterministic algorithms.
+3t. The sharded serving paths at one rank, over a one-rank NCCL mesh
+   (`make_mesh_compat((1, 1), ("data", "model"))`, destroyed at the end
+   of the phase): (a) Qwen3-30B-A3B served whole as phase 3l serves it,
+   with `ep_axis="model"` on its 48 MoE layers, in turns with the
+   single-device path from the same weights: tokens and wire bytes
+   bitwise, launches exactly phase 3l's, 48 all_reduces a forward, decode
+   ms a step of both; (b) one of its MoE layers at full width, fp32, T =
+   8 x 512: the output and every gradient of the EP path bitwise the
+   single-device path's under deterministic algorithms; (c) split-KV
+   decode at qwen1_5_32b's attention (d 5,120, MHA 40/40 of 128, qkv
+   bias), fp32, batch 4, a 32,768-row ring of seeded rows from pos
+   32,760 for 16 steps across the wrap: each step within 1e-5 of the
+   native decode's largest output; (d) the int8 KV cache at the same
+   layer in bf16: its bytes exactly 2·B·L·K·(hd + 4), each step within 5%
+   of the native output's largest value, every decoded row's q and scale
+   bitwise the CPU's; ms a step of each beside native.  Then (e)
+   Qwen3-30B-A3B (3 layers, 1 client), DeepSeek-V2 (1, 1) and
+   ChatGLM3-6B (5, 2) trained by the CLI in-process (bf16, AdamW 1e-3,
+   batch 8 x seq 512, split, the physical wire, 30 steps), each the
+   deepest depth leaving 8 GiB free, over 2 clients where one layer does:
+   the JSON line's wire_report and client_gb exact, launches exact, the
+   loss falling, ms a step and the peak.
    Each phase's wall seconds are printed on a line of its own.
 4. A `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
@@ -456,7 +478,8 @@ def wire_payloads(torch) -> list:
             ("ssm_serving", "mamba2_130m", SB, SPROMPT, SGEN),
             ("hybrid_serving", "recurrentgemma_2b", HB, HPROMPT, HGEN),
             *((run.path, arch, B, PROMPT, GEN)
-              for arch, run in MOE_RUNS.items())):
+              for arch, run in MOE_RUNS.items()),
+            (EP_PATH, EP_ARCH, B, PROMPT, GEN)):
         if arch is None:
             out.append((path, "up (features) / down (gradients)", (TB, 512),
                         torch.float32, (4 * ROUNDS,) * 2))
@@ -492,6 +515,9 @@ def wire_payloads(torch) -> list:
     out += vlm_payloads(torch)
     # phase 3s: the fleet's VGG-16 rounds and its CLI run
     out += fleet_payloads(torch)
+    # phase 3t: EP serving (above, as phase 3l's) and the CLI's MoE and
+    # dense training runs
+    out += t_payloads(torch)
     out += [(None, "no path", (4, 1, 3072), torch.float32, (0, 0)),
             (None, "no path", (4, 128, 3072), torch.float32, (0, 0))]
     return out
@@ -3388,32 +3414,38 @@ def _cli_leaves(torch, cfg, cut=None) -> list:
     return [(tuple(t.shape), t.dtype) for t in tree_leaves(params)]
 
 
-def _cli_plan(torch, path, arch, argv, steps) -> dict:
-    """What a CLI run must show, worked out from its flags and shapes: the
-    mode, clients, microbatches and turns; the wire's payloads with their
-    launches a run and its bytes; every kernel's launches."""
+def _cli_plan(torch, path, arch, argv, steps, cfg=None) -> dict:
+    """What a CLI run must show, worked out from its flags and shapes (of
+    `cfg`, by default `cli_config`'s): the mode, clients, microbatches and
+    turns; the wire's payloads with their launches a run and its bytes;
+    every kernel's launches."""
     from collections import Counter
 
-    cfg = cli_config(torch, arch)
+    cfg = cli_config(torch, arch) if cfg is None else cfg
     a = _cli_args(torch, _cli_argv(path, arch, argv, steps), cfg)
     n, split = a.n_clients, a.mode == "split"
     m = a.microbatches if a.schedule == "pipelined" else 1
     noise = "dp_noise" in a.wire
     kinds = ([cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
-             if cfg.pattern else ["ssm" if cfg.family == "ssm" else "attn"]
+             if cfg.pattern else ["ssm" if cfg.family == "ssm" else "mla"
+                                  if cfg.attn_kind == "mla" else "attn"]
              * cfg.n_layers)
+    # rmsnorm calls a layer: the block's two, and an MLA layer's kv_norm
+    # and, with a q LoRA, its q_norm
+    norms_of = {"mla": 3 + int(cfg.q_lora_rank > 0)}
 
     def fwd(lo, hi, final, k=1, differentiated=True):
         """k forwards of layers [lo, hi) (+ the final norm); a
         differentiated one's backward launches RMS_BWD_KERNELS kernels an
         rmsnorm (x and scale both need a gradient)."""
         ks = kinds[lo:hi]
-        norms = k * (2 * len(ks) + final)
+        norms = k * (sum(norms_of.get(x, 2) for x in ks) + final)
         return Counter({"rmsnorm": norms,
                         "rmsnorm_bwd": RMS_BWD_KERNELS * norms
                         * differentiated,
                         "ssd_scan": k * ks.count("ssm"),
-                        "flash_attention": k * ks.count("attn")})
+                        "flash_attention": k * sum(x in ("attn", "mla")
+                                                   for x in ks)})
     L = cfg.n_layers
     if split:
         # a pipelined turn's staged client forwards keep no graph: only
@@ -3555,14 +3587,15 @@ def _cli_runs_equal(torch, arch, cfg, argv_of):
     torch.cuda.empty_cache()
 
 
-def cli_path(torch, path, arch, argv, steps) -> dict:
+def cli_path(torch, path, arch, argv, steps, cfg=None) -> dict:
     """One run of the training CLI on the card, in-process through
-    `main(argv)`: the JSON line, launches, bytes, the falling loss, ms a
-    round, the busy share and the peak."""
+    `main(argv)` (with `cfg`, by default `cli_config`'s): the JSON line,
+    launches, bytes, the falling loss, ms a round, the busy share and the
+    peak."""
     from repro_torch.kernels import ops
     from repro_torch.nn.module import param_count
 
-    spec = _cli_plan(torch, path, arch, argv, steps)
+    spec = _cli_plan(torch, path, arch, argv, steps, cfg)
     cfg, a = spec["cfg"], spec["args"]
     full = _cli_argv(path, arch, argv, steps)
     print(f"{path.replace('_', ' ')} path: python -m repro_torch.launch.train "
@@ -5745,6 +5778,429 @@ def fleet_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3t: the sharded serving paths at one rank (expert-parallel MoE,
+# split-KV decode), the int8 KV cache, and MoE training through the CLI
+# ---------------------------------------------------------------------------
+
+EP_ARCH = "qwen3_moe_30b_a3b"
+EP_PATH = "qwen3_moe_ep_serving"
+# the split-KV and int8 layers: qwen1_5_32b's attention (d 5,120, MHA
+# 40/40 of 128, qkv bias), batch 4, the reference's decode_32k ring
+# (configs/base.py:121) filled with seeded rows, 16 steps from 32,760
+# across the wrap
+KV_ARCH, KV_B, KV_RING, KV_POS, KV_STEPS = "qwen1_5_32b", 4, 32768, 32760, 16
+# split-KV against the native decode, of the native output's largest
+# value; the int8 cache against it (tests/test_perf_paths.py:146's bound)
+KV_REL, INT8_REL = 1e-5, 0.05
+# MoE and the new dense configs in the training CLI: bf16, AdamW 1e-3,
+# batch CLI_B x seq CLI_S, split on the physical wire, CLI_STEPS steps,
+# each at the deepest depth whose run leaves FAM_FREE_GIB of the card
+# free, over 2 clients where one layer does.  Measured on an H100 80GB
+# (79.18 GiB; PERF.md): the engine's round-robin turn replaces the
+# stacked client state functionally (`engine/program.py:tree_update`
+# clones the stack), so each client's copy of a client side takes about
+# 34 B a parameter, and a server parameter about 26.  Qwen3-30B-A3B over
+# 2 clients peaks at 71.13 GiB at one layer here (8.05 GiB free, its
+# 311M-row embedding stored twice), over 1 client at 69.68 GiB at 3
+# layers alone (a 4th adds 15 GiB); DeepSeek-V2 over 2 clients peaks at
+# 71.46 GiB at one layer here (7.72 free) and one of its MoE layers
+# (3.8B parameters) does not fit at all; ChatGLM3-6B over 2 clients
+# peaks at 69.17 GiB at 5 layers and runs out of memory at 6.  These
+# runs allocate through expandable segments: with fixed segments
+# Qwen3-30B-A3B's one layer over 2 clients left 10 GiB reserved but
+# unallocated and ran out of memory.  arch -> (layers, clients)
+T_RUNS = {"qwen3_moe_30b_a3b": (3, 1), "deepseek_v2_236b": (1, 1),
+          "chatglm3_6b": (5, 2)}
+
+
+def t_argv(clients: int) -> list:
+    return ["--mode", "split", "--n-clients", str(clients), "--wire",
+            "quantize_int8:physical"]
+
+
+def t_path(arch: str) -> str:
+    return f"{arch}_cli_split"
+
+
+def t_config(arch):
+    """A phase 3t training run's (config, clients, cut): full width at
+    `T_RUNS`'s depth, the CLI's default cut."""
+    from repro_torch.configs import get_config
+
+    n, clients = T_RUNS[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=n)
+    return cfg, clients, min(cfg.default_cut, max(1, n // 2))
+
+
+def t_payloads(torch) -> list:
+    out = []
+    for arch in T_RUNS:
+        cfg, clients, _ = t_config(arch)
+        out += _cli_plan(torch, t_path(arch), arch, t_argv(clients),
+                         CLI_STEPS, cfg)["payloads"]
+    return out
+
+
+def ep_serving(torch, mesh, gspmd_launches: dict) -> dict:
+    """Phase 3t (a): Qwen3-30B-A3B whole, served split as phase 3l serves
+    it, with `ep_axis="model"` on every MoE layer over the one-rank
+    mesh, in turns with the single-device (GSPMD) path from the same
+    weights (GSPMD, EP, GSPMD): tokens and wire bytes bitwise,
+    launches exactly phase 3l's, one all_reduce a MoE layer a forward,
+    decode ms a step of both."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import replace_specs
+    from repro_torch.serve import ServePlan, ServeSession
+
+    cfg = get_config(EP_ARCH)
+    base = build_model(cfg)
+    models = {"gspmd": base,
+              "ep": replace_specs(base, moe={"ep_axis": "model"})}
+    n_moe = sum(g.n_layers for g in models["ep"].groups
+                if g.specs[0].moe is not None)
+    print(f"{EP_PATH.replace('_', ' ')} path: {cfg.name} whole ({cfg.n_layers}"
+          f" layers, {n_moe} MoE with ep_axis='model' on a {mesh.shape} "
+          f"mesh, NCCL group of one), batch {B}, prompt {PROMPT}, generate "
+          f"{GEN}, fused entry, physical wire, bf16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = base.init(gen, "cuda")
+    gen.manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen,
+                            device="cuda")
+    plan = ServePlan(arch=cfg, wire="quantize_int8:physical", max_batch=B,
+                     max_len=PROMPT + GEN + 1, fused_entry=True)
+    runs: dict = {}
+    for name in ("gspmd", "ep", "gspmd"):
+        sess = ServeSession(plan, params, device="cuda", model=models[name])
+        sess.generate(prompts, 2)                # warmup
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        mesh.counts.clear()
+        t0 = time.perf_counter()
+        tok0 = sess.prefill(prompts)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        at_prefill = dict(mesh.counts)
+        t0 = time.perf_counter()
+        rest = sess.decode(tok0, GEN - 1)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / (GEN - 1) * 1e3
+        launches = ops.launch_counts()
+        counts = dict(mesh.counts)
+        hold_launches(launches, gspmd_launches)
+        reduces = n_moe if name == "ep" else 0
+        if at_prefill != ({"all_reduce": reduces} if reduces else {}) or \
+                counts != ({"all_reduce": reduces * GEN} if reduces else {}):
+            fail(f"{name}: collective calls {at_prefill} at prefill, "
+                 f"{counts} over the run; expected {reduces} all_reduce a "
+                 "forward")
+        runs.setdefault(name, []).append(
+            (torch.cat([tok0, rest], dim=1), sess.bytes_per_token(),
+             t_prefill, step_ms, launches))
+        del sess
+    toks, per_tok = runs["gspmd"][0][:2]
+    for name, rs in runs.items():
+        for r in rs:
+            if not torch.equal(r[0], toks) or r[1] != per_tok:
+                fail(f"{name}: tokens or bytes per token ({r[1]}) differ "
+                     f"from the GSPMD path's ({per_tok})")
+    wire_bytes = (cfg.d_model + 4) + (cfg.vocab + 4)
+    if per_tok != wire_bytes:
+        fail(f"EP serving: {per_tok} wire bytes a token, not {wire_bytes}")
+    ms = {name: [r[3] for r in rs] for name, rs in runs.items()}
+    print(f"  tokens ({B}x{GEN}) and wire bytes ({per_tok} a token) bitwise "
+          f"the GSPMD path's; launches exactly phase 3l's {gspmd_launches}; "
+          f"all_reduce {n_moe} a forward ({n_moe * GEN} a run)")
+    print(f"  decode ms a step (GSPMD, EP, GSPMD order): GSPMD "
+          f"{ms['gspmd']}, EP {ms['ep']}; prefill s GSPMD "
+          f"{[r[2] for r in runs['gspmd']]}, EP {[r[2] for r in runs['ep']]}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": runs["ep"][0][4], "wire_bytes_per_token": per_tok,
+            "decode_step_ms": ms["ep"], "gspmd_decode_step_ms": ms["gspmd"],
+            "prefill_s": [r[2] for r in runs["ep"]],
+            "all_reduce_per_decode_step": n_moe}
+
+
+def ep_grad(torch) -> dict:
+    """Phase 3t (b): one Qwen3-30B-A3B MoE layer at full width (128
+    experts of 768, top-8, d 2,048), fp32, T = CLI_B x CLI_S: the output
+    and the gradient of x and of every parameter of the EP path over the
+    one-rank mesh bitwise the single-device path's, both under
+    deterministic algorithms (the dispatch's index backward accumulates
+    without atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn import moe as M
+    from repro_torch.nn.module import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(EP_ARCH), dtype=torch.float32)
+    mcfg = build_model(cfg).groups[-1].specs[0].moe
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    params = M.moe_init(gen, mcfg, "cuda")
+    x = torch.randn((CLI_B, CLI_S, cfg.d_model), generator=gen,
+                    device="cuda")
+    ct = torch.randn(x.shape, generator=gen, device="cuda")
+    drops = float(M.moe_apply(params, mcfg, x,
+                              return_aux=True)[1]["drop_fraction"])
+    out, ms = {}, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, c in (("gspmd", mcfg),
+                        ("ep", dataclasses.replace(mcfg, ep_axis="model"))):
+            for _ in range(2):                   # the second call timed
+                p = tree_map(lambda t: t.detach().clone().requires_grad_(),
+                             params)
+                xx = x.clone().requires_grad_()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = M.moe_apply(p, c, xx)
+                (y * ct).sum().backward()
+                torch.cuda.synchronize()
+                ms[name] = (time.perf_counter() - t0) * 1e3
+            out[name] = [y.detach(), xx.grad] + [t.grad for t in
+                                                 tree_leaves(p)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bad = [i for i, (a, b) in enumerate(zip(out["gspmd"], out["ep"]))
+           if not torch.equal(a, b)]
+    if bad or len(out["ep"]) != len(out["gspmd"]):
+        fail(f"EP gradient at D=1: tensors {bad} of (y, dx, the "
+             "parameters' gradients) differ from the single-device path's")
+    print(f"EP gradient at D=1: {cfg.name} MoE layer ({mcfg.n_experts} "
+          f"experts of {mcfg.d_ff}, top-{mcfg.top_k}), fp32, x "
+          f"{tuple(x.shape)}, drop_fraction {drops:.4f}: y, dx and the "
+          f"{len(out['ep']) - 2} parameter gradients bitwise the "
+          f"single-device path's; forward + backward {ms['gspmd']:.3f} ms "
+          f"(single device), {ms['ep']:.3f} ms (EP), deterministic")
+    del out, params
+    torch.cuda.empty_cache()
+    return {"ms": ms["ep"], "gspmd_ms": ms["gspmd"], "drop_fraction": drops}
+
+
+def _kv_layer(torch, dtype):
+    """qwen1_5_32b's attention in `dtype` with seeded weights and biases,
+    and one seeded generator for the rows and inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn import attention as A
+
+    attn = dataclasses.replace(
+        build_model(get_config(KV_ARCH)).groups[0].specs[0].attn, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    params = A.gqa_init(gen, attn, "cuda")
+    for name in ("wq", "wk", "wv"):
+        b = params[name]["b"]
+        b.copy_(torch.randn(b.shape, generator=gen, device="cuda"))
+    return attn, params, gen
+
+
+def _kv_steps(torch, attn, params, gen, caches: dict, check) -> dict:
+    """KV_STEPS decode steps of every cache in `caches` (name -> (config,
+    cache)) on the same seeded inputs; `check(step, outputs)` holds each
+    step's outputs.  Returns each cache's ms a step (host clock around
+    the synchronized step, median)."""
+    from repro_torch.nn import attention as A
+
+    times = {name: [] for name in caches}
+    with torch.no_grad():
+        for step in range(KV_STEPS):
+            x = torch.randn((KV_B, 1, attn.d_model), generator=gen,
+                            device="cuda").to(attn.dtype)
+            ys = {}
+            for name, (c, cache) in caches.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ys[name], _ = A.gqa_decode(params, c, x, cache)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+            check(step, ys)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _rel_err(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def split_kv(torch) -> dict:
+    """Phase 3t (c): the split-KV decode over the one-rank mesh against the
+    native `gqa_decode` at qwen1_5_32b's width, fp32, batch KV_B, a
+    KV_RING ring of seeded rows from KV_POS for KV_STEPS steps (the ring
+    wraps): each step within KV_REL of the native output's largest
+    value."""
+    from repro_torch.nn import attention as A
+
+    attn, params, gen = _kv_layer(torch, torch.float32)
+    sharded = dataclasses.replace(attn, decode_kv_shard="model")
+    native = A.gqa_init_cache(attn, KV_B, KV_RING, "cuda")
+    split = A.gqa_init_cache(sharded, KV_B, KV_RING)
+    for name in ("k", "v"):
+        native[name].normal_(generator=gen)
+        split[name].copy_(native[name])
+    native["pos"] = split["pos"] = KV_POS
+    errs = []
+
+    def check(step, ys):
+        errs.append(_rel_err(torch, ys["split"], ys["native"]))
+        if errs[-1] > KV_REL:
+            fail(f"split-KV step {step}: {errs[-1]:.3g} of the native "
+                 f"output's largest value, above {KV_REL}")
+    ms = _kv_steps(torch, attn, params, gen, {"native": (attn, native),
+                                              "split": (sharded, split)},
+                   check)
+    ring_err = max(_rel_err(torch, split[n], native[n]) for n in "kv")
+    if ring_err > KV_REL or not native["pos"] == split["pos"] == \
+            KV_POS + KV_STEPS:
+        fail(f"split-KV: the ring ({ring_err:.3g} of its largest value) or "
+             f"pos ({split['pos']}) differs from the native cache's")
+    print(f"split-KV at D=1: {KV_ARCH} attention (d {attn.d_model}, "
+          f"{attn.n_heads}/{attn.n_kv_heads} heads of {attn.head_dim}, "
+          f"qkv bias), fp32, batch {KV_B}, ring {KV_RING} from pos {KV_POS},"
+          f" {KV_STEPS} steps across the wrap: each step within "
+          f"{max(errs):.3g} of the native output's largest value (limit "
+          f"{KV_REL}); the rings within {ring_err:.3g}; ms a step native {ms['native']:.3f},"
+          f" split-KV {ms['split']:.3f}")
+    del native, split
+    torch.cuda.empty_cache()
+    return {"ms": ms["split"], "native_ms": ms["native"],
+            "max_rel_err": max(errs)}
+
+
+def int8_kv(torch) -> dict:
+    """Phase 3t (d): the int8 KV cache against the native one, the same
+    layer in bf16 and the same ring and steps: its bytes exactly
+    2·B·L·K·(hd + 4) (native 2·B·L·K·hd·2), each step within INT8_REL of
+    the native output's largest value, and every row the step quantized
+    (q and scale) bitwise `_quant_kv` of the same row on the CPU and in
+    the ring at its slot."""
+    from repro_torch.nn import attention as A
+
+    attn, params, gen = _kv_layer(torch, torch.bfloat16)
+    q8 = dataclasses.replace(attn, kv_cache_dtype="int8")
+    native = A.gqa_init_cache(attn, KV_B, KV_RING, "cuda")
+    quant = A.gqa_init_cache(q8, KV_B, KV_RING, "cuda")
+    K, hd = attn.n_kv_heads, attn.head_dim
+
+    def nbytes(c):
+        return sum(t.numel() * t.element_size() for t in c.values()
+                   if isinstance(t, torch.Tensor))
+    want = (2 * KV_B * KV_RING * K * (hd + 4), 2 * KV_B * KV_RING * K * hd * 2)
+    if (nbytes(quant), nbytes(native)) != want:
+        fail(f"int8 cache {nbytes(quant)} B, native {nbytes(native)} B; "
+             f"expected {want}")
+    for name in ("k", "v"):
+        rows = torch.randn(native[name].shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        native[name].copy_(rows)
+        q, scale = A._quant_kv(rows)
+        quant[name].copy_(q)
+        quant[name + "_scale"].copy_(scale)
+        del rows, q, scale
+    native["pos"] = quant["pos"] = KV_POS
+    quantized, errs = [], []
+
+    def capture(fn):
+        def kept(t):
+            q, scale = fn(t)
+            if t.shape[1] == 1:                  # a decode step's row
+                quantized.append((t, q, scale))
+            return q, scale
+        return kept
+
+    def check(step, ys):
+        errs.append(_rel_err(torch, ys["int8"], ys["native"]))
+        if errs[-1] > INT8_REL:
+            fail(f"int8 KV step {step}: {errs[-1]:.3g} of the native "
+                 f"output's largest value, above {INT8_REL}")
+        slot = (KV_POS + step) % KV_RING
+        for name, (t, q, scale) in zip(("k", "v"), quantized):
+            q_cpu, s_cpu = A._quant_kv(t.cpu())
+            if not (torch.equal(q.cpu(), q_cpu)
+                    and torch.equal(scale.cpu(), s_cpu)
+                    and torch.equal(quant[name][:, slot], q[:, 0])
+                    and torch.equal(quant[name + "_scale"][:, slot],
+                                    scale[:, 0])):
+                fail(f"int8 KV step {step}: the {name} row's q or scale "
+                     "differs from the CPU's quantization or the ring's")
+        quantized.clear()
+    with patched({("repro_torch.nn.attention", "_quant_kv"): capture}):
+        ms = _kv_steps(torch, attn, params, gen,
+                       {"native": (attn, native), "int8": (q8, quant)},
+                       check)
+    print(f"int8 KV cache: {KV_ARCH} attention, bf16, batch {KV_B}, ring "
+          f"{KV_RING} from pos {KV_POS}, {KV_STEPS} steps: {want[0]} B "
+          f"against native {want[1]} B; each step within {max(errs):.4f} "
+          f"of the native output's largest value (limit {INT8_REL}); "
+          f"every decoded row's q and scale bitwise the CPU's and the "
+          f"ring's; ms a step native {ms['native']:.3f}, int8 "
+          f"{ms['int8']:.3f}")
+    del native, quant
+    torch.cuda.empty_cache()
+    return {"ms": ms["int8"], "native_ms": ms["native"],
+            "max_rel_err": max(errs), "cache_bytes": want[0],
+            "native_cache_bytes": want[1]}
+
+
+def t_cli(torch, arch) -> dict:
+    """Phase 3t (e): one training CLI run (`cli_path`) at `T_RUNS`'s
+    depth, through expandable segments, the peak leaving FAM_FREE_GIB
+    free."""
+    cfg, clients, cut = t_config(arch)
+    print(f"{cfg.name} training: {cfg.n_layers} layers (cut {cut}), "
+          f"{clients} client{'s' * (clients > 1)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        res = cli_path(torch, t_path(arch), arch, t_argv(clients),
+                       CLI_STEPS, cfg)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    if total - res["peak_gib"] < FAM_FREE_GIB:
+        fail(f"{t_path(arch)}: peak {res['peak_gib']:.2f} GiB leaves less "
+             f"than {FAM_FREE_GIB} GiB of {total:.2f} free")
+    print(f"  {cfg.name}: depth {cfg.n_layers}, {res['round_ms']:.3f} ms a "
+          f"step, peak {res['peak_gib']:.2f} GiB of {total:.2f}")
+    return {**res, "layers": cfg.n_layers, "cut": cut, "clients": clients}
+
+
+def sharded_phase(torch, gspmd_launches: dict) -> dict:
+    """Phase 3t: (a) EP serving, (b) the EP gradient, (c) split-KV and (d)
+    the int8 KV cache over a one-rank NCCL mesh
+    (`make_mesh_compat((1, 1), ("data", "model"))`, destroyed at the end
+    of the phase, failed or not), then (e) the MoE and new dense configs
+    trained by the CLI.  Returns the kernel paths, (a) and (e)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.nn import dist as tdist
+
+    out = {}
+    try:
+        mesh = make_mesh_compat((1, 1), ("data", "model"))
+        tdist.set_mesh(mesh)
+        out[EP_PATH] = ep_serving(torch, mesh, gspmd_launches)
+        ep_grad(torch)
+        split_kv(torch)
+        int8_kv(torch)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for arch in T_RUNS:
+        out[t_path(arch)] = t_cli(torch, arch)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -5843,6 +6299,8 @@ def main():
     encdec = phase("3r", encdec_phase, torch)
     phase("3r reduced", reduced_whisper_against_cpu, torch)
     fleet = phase("3s", fleet_phase, torch)
+    sharded = phase("3t", sharded_phase, torch,
+                    moe[EP_ARCH]["launches"])
 
     # the wire launches per payload add up to what each path was held to
     paths = (("serving", run), ("training", train), ("ssm_serving", ssm),
@@ -5856,7 +6314,7 @@ def main():
              *((MOE_RUNS[arch].path, r) for arch, r in moe.items()),
              *mono.items(), (BAT_PATH, bat), (FIG3_PATH, fig3),
              *examples.items(), *vlm.items(), *encdec.items(),
-             *fleet.items())
+             *fleet.items(), *sharded.items())
     for path, res in paths:
         for i, name in enumerate(("wire_quant", "wire_dequant")):
             want = sum(p[-1][i] for p in payloads if p[0] == path)

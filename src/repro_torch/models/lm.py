@@ -429,5 +429,26 @@ class LM:
         return self.server_head(server_params, x), caches
 
 
+def replace_specs(model: LM, *, attn: dict | None = None,
+                  moe: dict | None = None) -> LM:
+    """`model` with fields of its blocks' configs replaced
+    (`dataclasses.replace` on the group specs): `moe` on every MoE
+    layer's, `attn` on every GQA layer's.  The sharded and quantized
+    paths are switched on so, e.g. `replace_specs(model,
+    moe={"ep_axis": "model"})`, `attn={"decode_kv_shard": "model"}` or
+    `attn={"kv_cache_dtype": "int8"}` (the sharded ones over the mesh
+    `nn.dist.set_mesh` registers); no config field or flag sets them."""
+    def spec(s: T.BlockSpec) -> T.BlockSpec:
+        if moe and s.moe is not None:
+            s = dataclasses.replace(s, moe=dataclasses.replace(s.moe, **moe))
+        if attn and s.attn is not None and s.attn.kind == "gqa":
+            s = dataclasses.replace(s, attn=dataclasses.replace(s.attn,
+                                                                **attn))
+        return s
+    return dataclasses.replace(model, groups=tuple(
+        dataclasses.replace(g, specs=tuple(map(spec, g.specs)))
+        for g in model.groups))
+
+
 def build_lm(cfg: ArchConfig) -> LM:
     return LM(cfg=cfg, groups=tuple(make_groups(cfg)))

@@ -1,8 +1,7 @@
 """Attention: grouped-query attention, DeepSeek-V2's multi-head latent
 attention (MLA), Whisper's bidirectional encoder attention and its
 decoder's cross-attention, with RoPE and decode caches (port of
-`repro/nn/attention.py`, all but the int8 KV cache and the sharded
-decode).
+`repro/nn/attention.py`).
 
 Shapes: x is (B, S, D); heads are (B, S, H, head_dim).  A GQA cache is
 {"k", "v": (B, cache_len, K, head_dim), "pos": int}; an MLA cache keeps
@@ -29,8 +28,12 @@ per row (`models.lm.per_slot_pos`: the serving `Batcher` keeps tenants
 at their own positions in one stacked cache); either way decode never
 reads a device value back.  A sliding-window ring holds
 `min(max_len, window)` rows, indexed `pos % cache_len` (per row, so
-each row's ring wraps on its own).  Native-dtype caches only: the int8
-KV cache and the sequence-sharded decode wait for later slices.
+each row's ring wraps on its own).  A GQA cache stores native rows or,
+with `kv_cache_dtype="int8"`, int8 rows with a float32 scale a (slot,
+head) (`_quant_kv`; decode dequantizes the ring, the reference's
+arithmetic).  With `decode_kv_shard` the ring is sharded by length over
+a mesh axis (`gqa_decode_sharded`, split-KV with an online-softmax
+combine over the ranks).
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from repro_torch.kernels import ops
 # the plain attention, which decode runs over the KV ring on every device
 from repro_torch.kernels.ref import causal_mask  # noqa: F401
 from repro_torch.kernels.ref import NEG_INF, grouped_attention
+from repro_torch.nn import dist
 from repro_torch.nn import layers as L
 
 
@@ -64,7 +68,29 @@ class AttnConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+    # split-KV decode: the mesh axis the ring is sharded over by length
+    # (None = the single-device path).  See gqa_decode_sharded.
+    decode_kv_shard: str | None = None
+    # KV cache storage: "native" | "int8" (int8 rows with an fp32 scale a
+    # (slot, head))
+    kv_cache_dtype: str = "native"
     dtype: Any = torch.float32
+
+    def __post_init__(self):
+        if self.kv_cache_dtype not in ("native", "int8"):
+            raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}: "
+                             "'native' or 'int8'")
+        if self.decode_kv_shard is None:
+            return
+        if self.kind != "gqa":
+            raise ValueError(
+                f"decode_kv_shard with kind={self.kind!r}: the split-KV "
+                "decode is GQA only, as the reference's")
+        if self.kv_cache_dtype != "native":
+            raise ValueError(
+                "decode_kv_shard with kv_cache_dtype='int8': the split-KV "
+                "decode keeps native rows (the reference's sharded body "
+                "has no int8 branch)")
 
 
 # ---------------------------------------------------------------------------
@@ -121,13 +147,72 @@ def _qkv(params, cfg: AttnConfig, x):
     return q, k, v
 
 
+def _kv_shard(cfg: AttnConfig):
+    """(mesh, ranks, this rank's index) of the split-KV axis."""
+    mesh = dist.get_mesh()
+    ax = cfg.decode_kv_shard
+    return mesh, mesh.shape[ax], mesh.coords[ax]
+
+
 def gqa_init_cache(cfg: AttnConfig, batch: int, max_len: int, device=None):
+    """Zero rings of `min(max_len, window)` rows: native k/v, or int8 k/v
+    (B, L, K, hd) with float32 `k_scale`/`v_scale` (B, L, K, 1).  Under
+    `decode_kv_shard` this rank's length chunk, L/n rows, on the mesh's
+    device unless `device` is given."""
     K, hd = cfg.n_kv_heads, cfg.head_dim
     cache_len = min(max_len, cfg.window) if cfg.window else max_len
+    if cfg.decode_kv_shard is not None:
+        mesh, n, _ = _kv_shard(cfg)
+        if cache_len % n:
+            raise ValueError(f"a ring of {cache_len} rows does not divide "
+                             f"over the {n} ranks of {cfg.decode_kv_shard!r}")
+        cache_len //= n
+        device = mesh.device if device is None else device
+    shape = (batch, cache_len, K, hd)
+    if cfg.kv_cache_dtype == "int8":
+        kw = dict(dtype=torch.float32, device=device)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1] + (1,), **kw),
+                "v_scale": torch.zeros(shape[:-1] + (1,), **kw),
+                "pos": 0}
     kw = dict(dtype=cfg.dtype, device=device)
-    return {"k": torch.zeros((batch, cache_len, K, hd), **kw),
-            "v": torch.zeros((batch, cache_len, K, hd), **kw),
+    return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw),
             "pos": 0}
+
+
+def _quant_kv(t):
+    """(..., hd) -> int8 rows and a float32 scale a row (..., 1): scale =
+    absmax / 127 (at least 1e-12), q = round-half-even(t / scale) clipped
+    to +-127, all in float32 (IEEE division)."""
+    tf = t.float()
+    amax = tf.abs().amax(dim=-1, keepdim=True)
+    # a tensor divisor: CUDA divides by a Python scalar as a product with
+    # its reciprocal, which is not IEEE division
+    scale = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-12)
+    q = torch.clamp(torch.round(tf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequant_kv(q, scale, dtype):
+    return (q.float() * scale).to(dtype)
+
+
+def _kv_rows(cfg: AttnConfig, k, v) -> dict:
+    """The cache entries of the rows k, v: themselves, or for an int8
+    cache their int8 rows and scales."""
+    if cfg.kv_cache_dtype != "int8":
+        return {"k": k, "v": v}
+    (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
+    return {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs}
+
+
+def _cache_kv(cfg: AttnConfig, cache, dtype):
+    """The whole ring's k and v in `dtype` (an int8 ring dequantized)."""
+    if cfg.kv_cache_dtype == "int8":
+        return (_dequant_kv(cache["k"], cache["k_scale"], dtype),
+                _dequant_kv(cache["v"], cache["v_scale"], dtype))
+    return cache["k"], cache["v"]
 
 
 def _per_row(pos) -> bool:
@@ -170,8 +255,12 @@ def gqa_decode(params, cfg: AttnConfig, x, cache, *, qkv=None):
     or a (B,) tensor, each row at its own position.  `qkv` optionally
     supplies the flat pre-rope (q, k, v) projections, shapes
     (B, 1, H*hd) / (B, 1, K*hd): the serving engine's fused entry
-    computes them from the int8 wire payload.  Updates `cache` in place
-    and returns (y, cache)."""
+    computes them from the int8 wire payload.  An int8 cache quantizes
+    the new rows, writes them in place and attends over the whole ring
+    dequantized.  Updates `cache` in place and returns (y, cache).  A
+    config with `decode_kv_shard` takes `gqa_decode_sharded`."""
+    if cfg.decode_kv_shard is not None:
+        return gqa_decode_sharded(params, cfg, x, cache, qkv=qkv)
     B = x.shape[0]
     if qkv is None:
         q, k, v = _qkv(params, cfg, x)
@@ -187,12 +276,12 @@ def gqa_decode(params, cfg: AttnConfig, x, cache, *, qkv=None):
     k = apply_rope(k, positions, theta=cfg.rope_theta,
                    fraction=cfg.rope_fraction)
     cache_len = cache["k"].shape[1]
-    slot = pos % cache_len
-    _ring_put(cache["k"], k, slot)
-    _ring_put(cache["v"], v, slot)
+    for name, t in _kv_rows(cfg, k, v).items():
+        _ring_put(cache[name], t, pos % cache_len)
+    kc, vc = _cache_kv(cfg, cache, k.dtype)
     # ring order is irrelevant to softmax: rope encoded absolute positions
     mask = _valid_mask(pos, cache_len, B, x.device)
-    out = grouped_attention(q, cache["k"], cache["v"], mask,
+    out = grouped_attention(q, kc, vc, mask,
                             scale=1.0 / math.sqrt(cfg.head_dim))
     y = L.dense_apply(params["wo"], out.reshape(B, 1, -1))
     cache["pos"] = pos + 1
@@ -234,16 +323,114 @@ def gqa_apply(params, cfg: AttnConfig, x, *, positions=None, mask=None):
 def gqa_prefill(params, cfg: AttnConfig, x, cache):
     """Teacher-forced full-sequence forward that fills a fresh cache
     (pos == 0) and leaves pos = S.  For S beyond a sliding-window ring
-    only the last `cache_len` rows are kept."""
+    only the last `cache_len` rows are kept (an int8 cache quantized).
+    Under `decode_kv_shard` every rank computes the whole prefill, as the
+    reference's replicated prefill does, and writes the kept rows whose
+    ring slots fall in its chunk."""
     S = x.shape[1]
     y, k, v = _attend(params, cfg, x, torch.arange(S, device=x.device),
                       None)
-    cache_len = cache["k"].shape[1]
-    keep = min(S, cache_len)
-    slots = torch.arange(S - keep, S, device=x.device) % cache_len
-    cache["k"][:, slots] = k[:, S - keep:]
-    cache["v"][:, slots] = v[:, S - keep:]
+    L_l = cache["k"].shape[1]                # this rank's rows
+    n, lo = 1, 0
+    if cfg.decode_kv_shard is not None:
+        _, n, s = _kv_shard(cfg)
+        lo = s * L_l
+    cache_len = L_l * n
+    rows = [p for p in range(max(0, S - cache_len), S)
+            if lo <= p % cache_len < lo + L_l]
+    if rows:
+        src = torch.tensor(rows, device=x.device)
+        slots = torch.tensor([p % cache_len - lo for p in rows],
+                             device=x.device)
+        for name, t in _kv_rows(cfg, k[:, src], v[:, src]).items():
+            cache[name][:, slots] = t
     cache["pos"] = S
+    return y, cache
+
+
+def gqa_decode_sharded(params, cfg: AttnConfig, x, cache, *, qkv=None):
+    """One-token decode with the ring sharded by length over the mesh axis
+    `cfg.decode_kv_shard` (split-KV / flash-decode; port of
+    `repro/nn/attention.py:497-595`).  `cache` holds this rank's chunk,
+    rows [s*L_l, (s+1)*L_l) of the ring; `pos` is the global cursor, one
+    host int.
+
+    Each rank projects its column slice of wq/wk/wv (and their biases),
+    one `all_gather` of the flat features gives every rank the whole q, k
+    and v (no head divisibility needed), rope at `pos`, and only the rank
+    that owns the slot writes it, in place.  Each rank takes the scores
+    over its chunk, masked by the global index; an `all_reduce` MAX gives
+    the running max, one `all_reduce` sums the normalizers and the
+    weighted values, and o / l is the attention.  Each rank's slice of
+    heads times its rows of wo, summed by an `all_reduce`, is the output:
+    B*H*hd floats cross the ranks, not the ring.
+
+    Refused, as the reference cannot do them: a per-row `pos` (the
+    reference broadcasts one scalar) and `qkv=` (it projects its own)."""
+    pos = cache["pos"]
+    if _per_row(pos):
+        raise ValueError("the split-KV decode takes one cursor for the "
+                         "batch (the reference broadcasts a scalar pos), "
+                         "not a per-row (B,) pos")
+    if qkv is not None:
+        raise ValueError("the split-KV decode projects its own q/k/v: the "
+                         "fused entry's qkv= is refused (the reference's "
+                         "sharded body ignores it)")
+    mesh, n, s = _kv_shard(cfg)
+    ax = cfg.decode_kv_shard
+    B = x.shape[0]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if (H * hd) % n or (K * hd) % n:
+        raise ValueError(f"q/k/v widths {H * hd}/{K * hd} do not divide "
+                         f"over the {n} ranks of {ax!r}")
+
+    def cols(p, width):                      # this rank's column slice
+        sl = slice(s * width // n, (s + 1) * width // n)
+        y = x @ p["w"][:, sl]
+        return y + p["b"][sl] if "b" in p else y
+    local = torch.cat([cols(params["wq"], H * hd), cols(params["wk"], K * hd),
+                       cols(params["wv"], K * hd)], dim=-1)
+    full = dist.all_gather(local, ax, dim=-1, mesh=mesh).reshape(B, 1, n, -1)
+    wq, wk = H * hd // n, K * hd // n
+    q = full[..., :wq].reshape(B, 1, H, hd)
+    k = full[..., wq:wq + wk].reshape(B, 1, K, hd)
+    v = full[..., wq + wk:].reshape(B, 1, K, hd)
+    positions = _positions(pos, B, x.device)
+    q = apply_rope(q, positions, theta=cfg.rope_theta,
+                   fraction=cfg.rope_fraction)
+    k = apply_rope(k, positions, theta=cfg.rope_theta,
+                   fraction=cfg.rope_fraction)
+
+    L_l = cache["k"].shape[1]
+    cache_len = L_l * n
+    slot = pos % cache_len
+    if slot // L_l == s:                     # the owner writes the slot
+        _ring_put(cache["k"], k, slot - s * L_l)
+        _ring_put(cache["v"], v, slot - s * L_l)
+
+    # this chunk's partial online softmax, in float32
+    ct = torch.promote_types(x.dtype, torch.float32)
+    qg = q.reshape(B, 1, K, H // K, hd).to(ct)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, cache["k"].to(ct)) \
+        * (1.0 / math.sqrt(hd))
+    gidx = s * L_l + torch.arange(L_l, device=x.device)
+    valid = gidx < min(pos + 1, cache_len)
+    scores = torch.where(valid, scores, NEG_INF)
+    m = dist.all_reduce(scores.amax(dim=-1, keepdim=True), ax, "max",
+                        mesh=mesh)                       # (B,K,G,1,1)
+    p = torch.exp(scores - m)
+    o_l = torch.einsum("bkgst,btkd->bskgd", p, cache["v"].to(ct))
+    l_l = p.sum(dim=-1)                                  # (B,K,G,1)
+    lo = dist.all_reduce(torch.cat([l_l.reshape(-1), o_l.reshape(-1)]), ax,
+                         mesh=mesh)
+    lsum = lo[:l_l.numel()].reshape(B, 1, K, H // K, 1)
+    out = lo[l_l.numel():].reshape(o_l.shape) / torch.clamp_min(lsum, 1e-30)
+    out = out.reshape(B, 1, H * hd).to(x.dtype)
+
+    # row-parallel output projection: my heads' slice x my rows of wo
+    sl = slice(s * H * hd // n, (s + 1) * H * hd // n)
+    y = dist.all_reduce(out[..., sl] @ params["wo"]["w"][sl], ax, mesh=mesh)
+    cache["pos"] = pos + 1
     return y, cache
 
 

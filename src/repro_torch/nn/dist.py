@@ -28,8 +28,25 @@ Each raises ValueError when a leaf does not lie on the mesh's device, the
 one device its group's backend carries (cuda under nccl, the CPU under
 gloo): nothing is staged through the host.
 
-`set_mesh`/`get_mesh` keep the process's mesh for code that is handed
-none (the sharded serving paths).
+The sharded serving paths (`nn.moe.moe_apply_ep`,
+`nn.attention.gqa_decode_sharded`) run over one axis of a named mesh
+(`launch.mesh.make_mesh_compat`: its `groups[axis]` and `counts`), which
+`set_mesh`/`get_mesh` keep for the process.  Two autograd functions give
+them what the transpose of `shard_map` gives the reference for free:
+
+  copy_to(x, axis)      forward the identity, backward an `all_reduce`
+                        (sum) of the gradient over the axis: a value
+                        replicated over the axis that each rank uses for
+                        its own partial result;
+  reduce_from(x, axis)  forward an `all_reduce` (sum), backward the
+                        identity: the partial results summed.
+
+(`torch.distributed.nn.functional.all_reduce` all-reduces the gradient
+again in backward, so a replicated cotangent would come back multiplied
+by the axis size.)  `all_reduce(x, axis, op)` and `all_gather(x, axis,
+dim)` are the plain forward collectives of the split-KV decode.  On meta
+tensors (`ServeSession.decode_cost`'s probe) every one returns the
+shape and type it would and calls, and counts, nothing.
 """
 from __future__ import annotations
 
@@ -171,6 +188,80 @@ def tree_all_gather(tree, mesh):
         for k, i in enumerate(idx):
             out[i] = torch.cat([r[k] for r in ranks])
     return _rebuild(tree, out)
+
+
+def batch_axes(mesh) -> tuple:
+    """The mesh's batch axes ("pod", "data"), those it has."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _axis_group(mesh, axis: str):
+    if axis not in mesh.groups:
+        raise ValueError(f"mesh axes {mesh.axis_names} have no {axis!r}")
+    return mesh.groups[axis]
+
+
+def all_reduce(x: torch.Tensor, axis: str, op: str = "sum", mesh=None):
+    """`x` reduced over the ranks of `axis` (op "sum" or "max"), in a new
+    tensor (`x` keeps its values)."""
+    mesh = get_mesh() if mesh is None else mesh
+    out = x.clone()
+    if x.device.type != "meta":
+        _leaves(x, mesh)
+        dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
+                                 "max": dist.ReduceOp.MAX}[op],
+                        group=_axis_group(mesh, axis))
+        mesh.counts["all_reduce"] += 1
+    return out
+
+
+def all_gather(x: torch.Tensor, axis: str, dim: int, mesh=None):
+    """The ranks' `x` along `axis` concatenated along `dim`, in rank
+    order (`all_gather` with `tiled=True`)."""
+    mesh = get_mesh() if mesh is None else mesh
+    group = _axis_group(mesh, axis)
+    n = mesh.shape[axis]
+    if x.device.type == "meta":
+        return torch.cat([x] * n, dim=dim)
+    _leaves(x, mesh)
+    x = x.contiguous()
+    bufs = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(bufs, x, group=group)
+    mesh.counts["all_gather"] += 1
+    return torch.cat(bufs, dim=dim)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axis, mesh=ctx.mesh), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return all_reduce(x, axis, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    """`x`, replicated over `axis`: the identity, whose gradient is summed
+    over the axis's ranks."""
+    return _CopyTo.apply(x, axis, get_mesh() if mesh is None else mesh)
+
+
+def reduce_from(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    """The sum of `x` over the ranks of `axis`; the gradient passes to
+    every rank's `x` unchanged."""
+    return _ReduceFrom.apply(x, axis, get_mesh() if mesh is None else mesh)
 
 
 def set_mesh(mesh):

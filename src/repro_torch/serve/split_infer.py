@@ -121,16 +121,22 @@ class ServeSession:
     `prefill`, both sides' live caches.
 
     `seed_or_params` is an int seed (random params drawn on the device
-    from a `torch.Generator`) or a full-model param tree."""
+    from a `torch.Generator`) or a full-model param tree.  `model`, when
+    given, is the plan's model with its group specs replaced
+    (`dataclasses.replace`): the sharded paths are switched on so, e.g.
+    `ep_axis` on the MoE specs or `decode_kv_shard` on the attention ones,
+    with a `launch.mesh.make_mesh_compat` mesh registered by
+    `nn.dist.set_mesh`."""
 
-    def __init__(self, plan: ServePlan, seed_or_params, *, device=None):
+    def __init__(self, plan: ServePlan, seed_or_params, *, device=None,
+                 model=None):
         self.device = resolve_device(device)
         self.plan = plan
         self.cfg = plan.config()
         ok, why = supports_split_serving(self.cfg)
         if not ok:
             raise ValueError(f"{self.cfg.name}: {why}")
-        self.model = build_model(self.cfg)
+        self.model = build_model(self.cfg) if model is None else model
         n_layers = self.model.flat_layers()
         self.cut = plan.cut if plan.cut is not None else min(
             self.cfg.default_cut, max(1, n_layers // 2))

@@ -226,17 +226,19 @@ def checkpoint_round_trip(fleet, out_dir: str) -> dict:
             "gathered": tree_leaves(fresh.gather_state())}
 
 
-def start(world: int, out_dir: str) -> list:
-    """Start `world` ranks of this file (see `collect`)."""
+def start(world: int, out_dir: str, cmd: list | None = None) -> list:
+    """Start `world` ranks of this file, or of the script and leading
+    arguments `cmd`, each given RANK WORLD OUT_DIR after them (see
+    `collect`)."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [os.path.abspath(__file__)] if cmd is None else cmd
     procs = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.log"), "w") as log:
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), str(r),
-                 str(world), out_dir], env=env, stdout=log,
-                stderr=subprocess.STDOUT))
+                [sys.executable, *cmd, str(r), str(world), out_dir],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
     return procs
 
 
