@@ -27,6 +27,8 @@ Phases, each of which ends the run with a nonzero exit on any error:
    Mistral-Large's group of 12, InternVL2-2B's 384-row prefill (16 over
    8), Whisper-base's decoder prefill and, non-causal, its encoder over
    1,500 frames (fp32 and bf16, against SDPA with is_causal=False), and
+   phi4-mini's long-context prefill (12,288 rows within its 8,192-row
+   window, held in query blocks, beside SDPA with the window mask), and
    the examples' training attention:
    the 100M driver's 8 over 4 heads of 64 at seq 128, quickstart's 4
    over 2 of 32 at seq 32; the multimodal example's (64,20)|(64,20) x
@@ -150,36 +152,37 @@ Phases, each of which ends the run with a nonzero exit on any error:
 3j. LM split training, `Plan(mode="vanilla", model=lm_split_fns(model,
    cut))` over the physical wire, fp32, AdamW(1e-4), random weights from a
    seeded generator, batch 4 x seq 512 a turn of `lm_batch` tokens drawn
-   from the first 1,024 ids, 30 rounds: Mamba2-130M whole (24 layers, d
-   768, 437.1M parameters with the dense conv), cut 4, 2 clients
+   from the first 1,024 ids, 30 rounds: Mamba2-130M at full width (d 768,
+   the dense conv) cut to 12 of its 24 layers, cut 4, 2 clients
    round-robin with the p2p handoff; and phi4-mini at full width (d 3072,
-   24/8 heads of 128, SwiGLU 8192, vocab 200,064, tied) cut to 4 of its 32
-   layers (1,017.3M parameters: with their gradients and AdamW moments,
-   and the tied table held by the client and by the server, 32 layers
-   would not fit one 80 GB card), cut 2, 1 client.  Each: the loss falls,
+   24/8 heads of 128, SwiGLU 8192, vocab 200,064, tied) cut to 2 of its 32
+   layers (with their gradients and AdamW moments, and the tied table
+   held by the client and by the server, 32 layers would not fit one 80
+   GB card), cut 1, 1 client.  Both depths keep the whole run inside its
+   time limit.  Each: the loss falls,
    `wire_report` bills 4 x 512 x (d + 4) B each way a turn, Mamba2's
    handoff the analytic sum over its client's 37 leaves (105,380,640 B)
-   with `client_gb` exact, launches exact (rmsnorm 49 and ssd_scan 24 a
-   Mamba2 forward, rmsnorm 9 and flash_attention 4 a phi4-mini one,
+   with `client_gb` exact, launches exact (rmsnorm 25 and ssd_scan 12 a
+   Mamba2 forward, rmsnorm 5 and flash_attention 2 a phi4-mini one,
    rmsnorm_bwd 2 an rmsnorm in backward and nothing else there, the wire
    kernels 2 a turn plus the handoff's leaves),
    physical == fake bitwise over 3 rounds under deterministic algorithms,
    a round's time and one profiled round.  Then Mamba2 over 3 rounds
    pipelined at M=2 (its meter equal to round-robin's over the same 3
    rounds, the client forward twice a microbatch), in parallel, and as
-   `large_batch` over `FullFns` (the 218 leaves' pull and push, 438,203,812
-   B each); and reduced phi4-mini, Mamba2 and RecurrentGemma (a sequence
+   `large_batch` over `FullFns` (the 110 leaves' pull and push); and reduced phi4-mini, Mamba2 and RecurrentGemma (a sequence
    past its window) trained on the card == the plain CPU path over 3
    rounds.
 3k. The training CLI, `repro_torch.launch.train.main(argv)` in-process
    (its JSON line parsed, launch counters zeroed just before and read just
    after), in each config's own bf16 with the CLI's AdamW(1e-3, decay
-   0.01), batch 8 a client, ids below 1,024: Mamba2-130M whole, split
+   0.01), batch 8 a client, ids below 1,024: Mamba2-130M at 12 of its 24
+   layers, split
    over 2 clients at seq 512 with `--wire quantize_int8:physical,
    dp_noise:0.05` for 30 steps with `--ckpt`, then 3 steps each under
    `--schedule parallel`, `pipelined --microbatches 2`, at the default
    seq 64 (one 64-row SSD chunk), and as `--mode monolithic`, `fedavg
-   --local-steps 2` and `large_batch`; RecurrentGemma-2B cut to 11 of its
+   --local-steps 2` and `large_batch`; RecurrentGemma-2B cut to 8 of its
    26 layers (in bf16 with AdamW all 26 need about 77 GB of state before
    activations), split over 1
    client at seq 512 over the physical wire for 30 steps.  Each: launches
@@ -226,7 +229,8 @@ Phases, each of which ends the run with a nonzero exit on any error:
    Mistral-Large-123B cut to the
    deepest depth that leaves 8 GiB of the card free: prefill s, decode ms
    a step and tok/s, a profiled step's busy share and kernels, the peak.
-3o. Continuous batching: phi4-mini whole split at 4 over the physical
+3o. Continuous batching: phi4-mini at full width cut to 8 of its 32
+   layers, split at 4 over the physical
    wire with the fused entry, a `Batcher` of 8 slots serving a queue of
    12 tenants (seeded prompts of 16-256 tokens, 8-48 new tokens each),
    seated while a slot is free after every step: the bytes exactly
@@ -327,6 +331,28 @@ Phases, each of which ends the run with a nonzero exit on any error:
    deepest depth leaving 8 GiB free, over 2 clients where one layer does:
    the JSON line's wire_report and client_gb exact, launches exact, the
    loss falling, ms a step and the peak.
+3u. The long-context variant and the dry run's step functions: (a)
+   phi4-mini whole (32 layers, bf16) built with `long_context=True`
+   (every attention within its 8,192-row window, a ring of 8,192 rows):
+   the long_500k cache (B=1, max_len 524,288) held at exactly
+   1,073,741,824 B, 64x less than without the window; one 12,288-token
+   prompt (ids below 1,024) prefilled (32 flash launches in window mode)
+   and 32 greedy steps over the wrapped ring, launches exact; at 8,192
+   tokens, where the window does not bind, the first token the normal
+   model's and the prefill logits within 5% of its top logit; then 2
+   layers at full width (fp32, window 64, a 96-token prompt, 48 steps)
+   card == CPU token for token.  (b) `launch.dryrun`'s train, prefill and
+   serve steps for real on a (1, 1) ("data", "model") `DeviceMesh` over
+   a one-rank NCCL group, the params laid out by `param_shardings`
+   through `distribute_tensor` (each local shard the spec's shape): the
+   train step (the loss with remat, clip 1.0, AdamW 3e-4) on phi4-mini
+   at full width, B=1 x S=4,096, at the deepest depth leaving 8 GiB free
+   (the peak measured at 1 and 2 layers, linear in depth), 3 steps: the
+   loss falls, launches exact (rmsnorm and flash forward and again in
+   remat's recompute, rmsnorm's backward kernels), the peak leaves 8 GiB;
+   the dry run's per-device argument bytes at (1, 1) equal the bytes
+   held; the prefill and serve steps once; remat against none at 4
+   layers bitwise (loss and every gradient, deterministic algorithms).
    Each phase's wall seconds are printed on a line of its own.
 4. A `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
@@ -1256,6 +1282,111 @@ def check_flash(torch) -> tuple:
         del qb, kb, vb, y, qt, kt, vt, mask
         torch.cuda.empty_cache()
     return max_err, timings
+
+
+# phase 3u's long-context prefill: phi4-mini's GQA over 12,288 rows within
+# its 8,192-row long window, held in query blocks (the plain version's
+# whole (24, 12288, 12288) float32 score tensor would take 14.5 GB)
+FLASH_LONG = "phi4-mini long-context prefill (window 8192)"
+FLASH_LONG_SHAPE, FLASH_LONG_WINDOW, FLASH_LONG_BLOCK = \
+    (1, 12288, 24, 8, 128, 128), 8192, 2048
+
+
+def _flash_blocks(torch, q, k, v, window: int, block: int):
+    """The plain causal-window attention (`kernels.ref.grouped_attention`,
+    softmax in float32) one block of `block` query rows at a time, each
+    over the keys its window reaches."""
+    from repro_torch.kernels import ref
+
+    S = q.shape[1]
+    out = torch.empty_like(q)
+    for i0 in range(0, S, block):
+        i1 = min(S, i0 + block)
+        k0 = max(0, i0 - window + 1)
+        qp = torch.arange(i0, i1, device=q.device)[:, None]
+        kp = torch.arange(k0, i1, device=q.device)[None, :]
+        mask = (kp <= qp) & (kp > qp - window)
+        out[:, i0:i1] = ref.grouped_attention(
+            q[:, i0:i1], k[:, k0:i1], v[:, k0:i1], mask,
+            scale=1.0 / math.sqrt(q.shape[-1]))
+    return out
+
+
+def check_flash_long(torch) -> tuple:
+    """Flash attention at phase 3u's long-context prefill, fp32 within
+    rtol = atol = 2e-5 of the plain version and bf16 within the card
+    tests' float64 bound (one bf16 ulp plus a float32 sum's worst case
+    over the row's keys; the other cases' one ulp of the float32 plain
+    result does not hold over 8,192-key rows, PERF.md), both evaluated in
+    query blocks; timed beside the blocked plain version,
+    `scaled_dot_product_attention` with the window mask and the bound
+    over the unmasked pairs.  Returns (t, t_plain, t_lib, bound, err)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    b, s, h, kh, d, dv = FLASH_LONG_SHAPE
+    W, blk = FLASH_LONG_WINDOW, FLASH_LONG_BLOCK
+    gen = torch.Generator(device="cuda").manual_seed(12288)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, dv)))
+    kw = dict(causal=True, window=W)
+    want32 = _flash_blocks(torch, q, k, v, W, blk)
+    y32 = flash_attention(q, k, v, **kw)
+    err32 = (y32 - want32).abs().max().item()
+    if not torch.allclose(y32, want32, rtol=2e-5, atol=2e-5):
+        fail(f"flash_attention {FLASH_LONG} fp32: max abs err {err32:.3e}")
+    del want32, y32
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    del q, k, v
+    y = flash_attention(qb, kb, vb, **kw)
+    y_ref32 = _flash_blocks(torch, qb.float(), kb.float(), vb.float(), W,
+                            blk)
+    ulp1 = int(((y.float() - y_ref32).abs()
+                > _bf16_ulp(torch, y_ref32)).sum())
+    del y_ref32
+    # the float64 bound of the card tests (tests/test_torch_kernels.py,
+    # `_flash_f64_bound`): one bf16 ulp of the float64 result plus
+    # n_keys 2^-24 sum|p||v|/l, a float32 sum's worst case over the row's
+    # keys, which reach 8,192 here
+    q64, k64, v64 = (t.double() for t in (qb, kb, vb))
+    want64 = _flash_blocks(torch, q64, k64, v64, W, blk // 2)
+    cond = _flash_blocks(torch, q64, k64, v64.abs(), W, blk // 2)
+    del q64, k64, v64
+    n_keys = (torch.arange(s, device="cuda", dtype=torch.float64)
+              + 1).clamp_max(W)
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want64.abs().clamp_min(2.0 ** -126))) - 7)
+    bound = ulp + n_keys[None, :, None, None] * 2.0 ** -24 * cond
+    beyond = int(((y.double() - want64).abs() > bound).sum())
+    del want64, cond, ulp, bound
+    if beyond:
+        fail(f"flash_attention {FLASH_LONG} bf16: {beyond} outputs beyond "
+             "the float64 bound")
+    y_plain = _flash_blocks(torch, qb, kb, vb, W, blk)
+    err = (y.float() - y_plain.float()).abs().max().item()
+    del y_plain
+    t = time_ms(torch, [lambda: flash_attention(qb, kb, vb, **kw)], calls=4,
+                reps=5)
+    t_plain = time_ms(torch, [lambda: _flash_blocks(torch, qb, kb, vb, W,
+                                                    blk)], calls=1, reps=3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (qb, kb, vb))
+    mask = ref.causal_mask(s, s, window=W, device="cuda")
+    t_lib = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)], calls=4, reps=5)
+    bd = flash_bound(b, s, h, d, True, W, nbytes(qb, kb, vb), nbytes(y), dv)
+    print(f"flash_attention {FLASH_LONG} q {(b, s, h, d)} k {(b, s, kh, d)} "
+          f"v {(b, s, kh, dv)}: fp32 max abs err {err32:.3e} (2e-5), bf16 "
+          f"within the float64 bound ({ulp1} of {y.numel():,} outputs "
+          f"beyond 1 bf16 ulp of the float32 plain result), max abs err "
+          f"{err:.3e} against the bf16 plain output; kernel {t:.4f} ms, plain (in {blk}-row query blocks) "
+          f"{t_plain:.4f} ms, library (scaled_dot_product_attention, window "
+          f"mask) {t_lib:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}, unmasked "
+          f"pairs only); {versus(t, t_lib, bd)}; {card_line()}")
+    del qb, kb, vb, y, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return t, t_plain, t_lib, bd, err
 
 
 def time_events_ms(torch, fn, reps: int = 10) -> float:
@@ -2913,7 +3044,7 @@ def pipelined_m1_equals_round_robin(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 3j: LM split training (Mamba2-130M whole, phi4-mini at full width)
+# phase 3j: LM split training (Mamba2-130M and phi4-mini at full width)
 # ---------------------------------------------------------------------------
 
 # batch x sequence a turn (Mamba2's 512 rows are two SSD chunks), rounds
@@ -2924,12 +3055,13 @@ LB, LS, L_ROUNDS = 4, 512, 30
 # ids that recur about once in 30 rounds, and 30 AdamW steps from a random
 # init learn nothing there (chip_lm_vocab.py measures both; PERF.md)
 LM_DATA_VOCAB = 1024
-# arch -> (layers kept, None for all; cut; clients).  phi4-mini keeps 4
-# of its 32 layers: at full width in fp32 its 1,017M parameters (the
-# 614.6M-row tied embedding held by the client and, as `tied_head`, by
-# the server) with their gradients and AdamW moments fill about 40 GB,
-# and 32 layers would not fit one 80 GB card
-LM_RUNS = {"mamba2_130m": (None, 4, 2), "phi4_mini_3_8b": (4, 2, 1)}
+# arch -> (layers kept, None for all; cut; clients).  Mamba2-130M keeps
+# 12 of its 24 layers and phi4-mini 2 of its 32, at full width, to keep
+# the whole run inside its time limit; in fp32 phi4-mini's 32 layers
+# would not fit one 80 GB card anyway (the 614.6M-row tied embedding held
+# by the client and, as `tied_head`, by the server, with their gradients
+# and AdamW moments)
+LM_RUNS = {"mamba2_130m": (12, 4, 2), "phi4_mini_3_8b": (2, 1, 1)}
 # the LM paths: (arch, mode, schedule, rounds); the other schedules and
 # the baseline run 3 rounds of Mamba2
 LM_PATHS = [("mamba2_130m", "vanilla", None, L_ROUNDS),
@@ -3326,14 +3458,16 @@ def lm_phase(torch) -> dict:
 # others
 CLI_B, CLI_S, CLI_STEPS, CLI_SHORT = 8, 512, 30, 3
 CLI_WIRE = "quantize_int8:physical,dp_noise:0.05"
-# RecurrentGemma-2B keeps 11 of its 26 layers: (rglru, rglru, attn) x 3 +
-# (rglru, rglru), the full model's tail.  In bf16 with AdamW, whose
-# functional update holds the old and the new fp32 moments at once, a
-# stored parameter takes about 22 bytes (weight, gradient and new weight
-# in bf16, four fp32 moments), so the full model's 3.51B (the untied
-# 655M-row embedding and head) need about 77 GB before activations and
-# the (8, 512, 256000) logits; 11 layers peak near 67 GiB (PERF.md)
-CLI_RG_LAYERS = 11
+# RecurrentGemma-2B keeps 8 of its 26 layers: (rglru, rglru, attn) x 2 +
+# (rglru, rglru), the full model's tail (the CLI cuts at 3, a super-block
+# boundary); Mamba2-130M 12 of its 24.  Both
+# are depth cuts that keep the whole run inside its time limit.  In bf16
+# with AdamW, whose functional update holds the old and the new fp32
+# moments at once, a stored parameter takes about 22 bytes (weight,
+# gradient and new weight in bf16, four fp32 moments), so RecurrentGemma's
+# 3.51B (the untied 655M-row embedding and head) would need about 77 GB
+# before activations and the (8, 512, 256000) logits (PERF.md)
+CLI_RG_LAYERS, CLI_MAMBA2_LAYERS = 8, 12
 # the CLI's batches span the whole vocabulary, as the reference's do, and
 # 30 steps from a random init learn nothing there (chip_lm_vocab.py); the
 # runs here draw their ids below LM_DATA_VOCAB, as phase 3j's do
@@ -3342,15 +3476,16 @@ CLI_DATA_VOCAB = LM_DATA_VOCAB
 
 def cli_config(torch, arch):
     """The full-width config a CLI run of phase 3k trains, in its own
-    dtype (bf16): RecurrentGemma cut to `CLI_RG_LAYERS` layers."""
+    dtype (bf16): RecurrentGemma cut to `CLI_RG_LAYERS` layers, Mamba2 to
+    `CLI_MAMBA2_LAYERS`."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    if arch == "recurrentgemma_2b":
-        cfg = dataclasses.replace(cfg, n_layers=CLI_RG_LAYERS)
-    return cfg
+    depth = {"recurrentgemma_2b": CLI_RG_LAYERS,
+             "mamba2_130m": CLI_MAMBA2_LAYERS}.get(arch)
+    return dataclasses.replace(cfg, n_layers=depth) if depth else cfg
 
 
 # (path, arch, argv, steps): the Mamba2 runs, then RecurrentGemma.  The
@@ -4343,6 +4478,10 @@ def mono_path(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 BAT_PATH = "batcher_serving"
+# phi4-mini at full width cut to 8 of its 32 layers (the client's 4 and 4
+# server layers): a step's host time and the solo streams' grow with the
+# depth, and the whole run must stay inside its time limit
+BAT_LAYERS = 8
 BAT_SLOTS, BAT_TENANTS = 8, 12
 BAT_PROMPTS, BAT_NEW = (16, 256), (8, 48)
 BAT_MAX_LEN = BAT_PROMPTS[1] + BAT_NEW[1] + 1
@@ -4473,7 +4612,7 @@ def batcher_path(torch) -> dict:
     from repro_torch.models import build_model
     from repro_torch.serve import Batcher, ServePlan, ServeSession
 
-    cfg = _config("phi4_mini_3_8b")
+    cfg = dataclasses.replace(_config("phi4_mini_3_8b"), n_layers=BAT_LAYERS)
     tenants = bat_tenants()
     budgets = [n for _, n in tenants]
     print(f"continuous batching: {cfg.name} {cfg.n_layers} layers, cut {CUT}, "
@@ -5718,7 +5857,8 @@ def fleet_path(torch, mode: str, schedule: str | None = None) -> dict:
 
 
 def fleet_cli(torch) -> dict:
-    """The training CLI with `--fleet` (Mamba2-130M whole, bf16, split
+    """The training CLI with `--fleet` (Mamba2-130M at `cli_config`'s
+    depth, bf16, split
     over 2 clients, the parallel schedule, CLI_SHORT steps) against the
     same run without it, under deterministic algorithms: the JSON lines
     equal but for their wall seconds; launches exact."""
@@ -6201,6 +6341,350 @@ def sharded_phase(torch, gspmd_launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3u: the long-context variant and the dry run's step functions
+# ---------------------------------------------------------------------------
+
+U_ARCH = "phi4_mini_3_8b"
+U_PATH = "phi4_mini_3_8b_long_context_serving"
+U_TRAIN_PATH = "phi4_mini_3_8b_dryrun_train_step"
+# (a): a prompt past the 8,192-row window, then greedy decode over the
+# ring, which has wrapped; a prompt the window does not bind; the
+# long_500k cache's length
+U_PROMPT, U_DECODE, U_SHORT, U_LONG_LEN = 12288, 32, 8192, 524288
+# the long-context model against the normal one where the window does not
+# bind: logits within this share of the top logit (phase 3o's bound; the
+# window-mode kernel may tile the keys in another order)
+U_REL = BAT_SOLO_REL
+# the reduced card == CPU check: 2 layers at full width (fp32), a 64-row
+# window, a prompt past it and decode steps that wrap the ring again
+U_REDUCED = dict(n_layers=2, long_window=64)
+U_RED_PROMPT, U_RED_DECODE = 96, 48
+# (b): the dry run's train step at B=1 x S=4096, 3 AdamW(3e-4) steps at the
+# deepest depth leaving FAM_FREE_GIB free; remat against none at 4 layers
+U_TRAIN_B, U_TRAIN_S, U_TRAIN_STEPS, U_REMAT_LAYERS = 1, 4096, 3, 4
+# the depths whose one-step peaks set the line the depth is read off:
+# deep enough that AdamW's update, not the float32 log-softmax over the
+# 200,064 logits, sets the peak (at 1 and 2 layers it is the logits, and
+# their slope predicted 28 layers where 28 ran out of memory)
+U_PROBE = (8, 12)
+
+
+def _ring_bytes(caches) -> int:
+    from repro_torch.nn.module import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(caches)
+               if hasattr(t, "numel"))
+
+
+def _greedy(torch, model, params, tokens, decode: int, device):
+    """Prefill `tokens` (1, S) into a fresh cache, then `decode` greedy
+    steps: (logits of the prefill, the 1 + decode tokens, caches)."""
+    from repro_torch.serve import greedy_decode_scan
+
+    caches = model.init_cache(1, tokens.shape[1] + decode + 1, device)
+    with torch.no_grad():
+        logits, caches = model.prefill(params, {"tokens": tokens}, caches)
+        tok0 = torch.argmax(logits[:, -1], -1)[:, None]
+        rest, caches = greedy_decode_scan(model, params, caches, tok0, decode)
+    return logits, torch.cat([tok0, rest], 1), caches
+
+
+def long_context_path(torch) -> dict:
+    """Phase 3u (a): phi4-mini whole in its long-context variant (bf16,
+    window 8,192), a 12,288-token prompt and 32 greedy steps over the
+    wrapped ring; the long_500k ring's bytes; the window not binding at
+    8,192 tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    cfg = _config(U_ARCH)
+    W, L = cfg.long_window, cfg.n_layers
+    model, normal = build_model(cfg, long_context=True), build_model(cfg)
+    ring = model.init_cache(1, U_LONG_LEN, "meta")
+    nb, nb_full = _ring_bytes(ring), _ring_bytes(normal.init_cache(
+        1, U_LONG_LEN, "meta"))
+    want = 2 * L * W * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    print(f"long-context {cfg.name}: window {W}; the long_500k cache (B=1, "
+          f"max_len {U_LONG_LEN}) is a ring of {ring[0][0]['0']['k'].shape[1]}"
+          f" rows, {nb:,} B in bf16 ({nb_full // nb}x as large without the "
+          "window)")
+    if ring[0][0]["0"]["k"].shape[1] != W or nb != want \
+            or nb != 1_073_741_824 or nb_full != 64 * nb:
+        fail(f"long_500k ring: {nb} B ({nb_full} without the window), "
+             f"expected {want} = 1,073,741,824 and 64x that")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = normal.init(gen, "cuda")        # both variants take them
+    gen.manual_seed(SEED + 1)
+    prompt = torch.randint(0, LM_DATA_VOCAB, (1, U_PROMPT), generator=gen,
+                           device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, toks, caches = _greedy(torch, model, params, prompt, U_DECODE,
+                                   "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    hold_launches(launches, {**NO_OTHER_KERNEL, "wire_quant": 0,
+                             "wire_dequant": 0, "ssd_scan": 0,
+                             "rmsnorm_bwd": 0,
+                             "rmsnorm": (2 * L + 1) * (1 + U_DECODE),
+                             "flash_attention": L})
+    c0 = caches[0][0]["0"]
+    if c0["k"].shape[1] != W or c0["pos"] != U_PROMPT + U_DECODE:
+        fail(f"ring after decode: {c0['k'].shape[1]} rows at pos "
+             f"{c0['pos']}")
+    if not bool(torch.isfinite(logits[:, -1]).all()) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        fail("long-context prefill: non-finite logits or tokens outside "
+             "the vocabulary")
+    print(f"  prompt {U_PROMPT} + {U_DECODE} greedy steps in {wall:.3f} s "
+          f"(flash {L} launches in window mode, rmsnorm "
+          f"{launches['rmsnorm']}), ring wrapped to pos {c0['pos']}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; tokens "
+          f"{toks[0, :8].tolist()}...")
+    del logits, caches
+    torch.cuda.empty_cache()
+
+    short = prompt[:, :U_SHORT]
+    lg_l, tok_l, _ = _greedy(torch, model, params, short, 0, "cuda")
+    lg_n, tok_n, _ = _greedy(torch, normal, params, short, 0, "cuda")
+    rel = ((lg_l.float() - lg_n.float()).abs().max()
+           / lg_n.float().abs().max()).item()
+    print(f"  window not binding at {U_SHORT} tokens: first token "
+          f"{tok_l[0, 0].item()} (normal model {tok_n[0, 0].item()}), "
+          f"prefill logits {'bitwise equal' if torch.equal(lg_l, lg_n) else ''}"
+          f" within {rel:.3e} of the top logit ({U_REL})")
+    if not torch.equal(tok_l, tok_n) or rel > U_REL:
+        fail("long-context and normal models disagree where the window "
+             f"does not bind: tokens {tok_l.tolist()} vs {tok_n.tolist()}, "
+             f"logits {rel:.3e} of the top")
+    del params, lg_l, lg_n
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ring_bytes_long_500k": nb,
+            "prefill_and_decode_s": wall}
+
+
+def reduced_long_against_cpu(torch):
+    """Phase 3u (a): phi4-mini at 2 layers, full width, fp32, window 64,
+    a 96-token prompt and 48 greedy steps (the ring wraps at prefill and
+    again in decode): the card's tokens equal the CPU's plain path's."""
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import tree_map
+
+    cfg = dataclasses.replace(_config(U_ARCH), dtype=torch.float32,
+                              **U_REDUCED)
+    model = build_model(cfg, long_context=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = model.init(gen, "cuda")
+    prompt = torch.randint(0, LM_DATA_VOCAB, (1, U_RED_PROMPT),
+                           generator=gen, device="cuda")
+    _, card, _ = _greedy(torch, model, params, prompt, U_RED_DECODE, "cuda")
+    params = tree_map(lambda t: t.cpu(), params)
+    _, cpu, _ = _greedy(torch, model, params, prompt.cpu(), U_RED_DECODE,
+                        "cpu")
+    if not torch.equal(card.cpu(), cpu):
+        fail(f"reduced long-context model: card tokens {card.tolist()} != "
+             f"CPU tokens {cpu.tolist()}")
+    print(f"reduced long-context phi4-mini (2 layers, full width, window "
+          f"{cfg.long_window}), card == CPU over {U_RED_PROMPT} + "
+          f"{U_RED_DECODE} tokens: {cpu[0, :12].tolist()}...")
+
+
+def _u_train(torch, cfg, mesh, steps: int, gen_seed: int = SEED):
+    """The dry run's train step (`launch.dryrun.build_train_step`: the
+    loss with remat, its gradient, clip_by_global_norm(1.0), AdamW(3e-4))
+    on `cfg` at B=1 x S=4096, its params laid out by `param_shardings`
+    through `distribute_tensor` on the one-rank mesh: (losses, peak
+    bytes, the locals (params, opt state, batch), the model)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import optim
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import tree_leaves, tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+    params = model.init(gen, "cuda")
+    specs = meshlib.spec_leaves(meshlib.param_pspecs(params, mesh))
+    shards = meshlib.param_shardings(params, mesh)
+    it = iter(specs)
+
+    def place(t, sharding):
+        local = distribute_tensor(t, *sharding).to_local()
+        want = meshlib.local_shape(tuple(t.shape), next(it), mesh)
+        if tuple(local.shape) != want:
+            fail(f"distribute_tensor: local shape {tuple(local.shape)} != "
+                 f"{want}")
+        return local
+    params = tree_map(place, params, shards)
+    opt = optim.adamw(3e-4)
+    opt_state = opt.init(params)
+    batch = lm_batch(gen, U_TRAIN_B, U_TRAIN_S, LM_DATA_VOCAB)
+    step = dryrun.build_train_step(model, opt)
+    losses = []
+    for _ in range(steps):
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for t in
+               tree_leaves((params, opt_state, batch)))
+    return losses, torch.cuda.max_memory_allocated(), held, \
+        (model, params, batch)
+
+
+def dryrun_steps(torch) -> dict:
+    """Phase 3u (b): the dry run's train, prefill and serve steps for
+    real, on a (1, 1) ("data", "model") `DeviceMesh` over a one-rank NCCL
+    group (destroyed at the end, failed or not)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import InputShape
+    from repro_torch.core.split import _grads, _leaf_params
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import tree_leaves, tree_paths
+
+    full = _config(U_ARCH)
+    L_full = full.n_layers
+    total = torch.cuda.get_device_properties(0).total_memory
+    room = total - FAM_FREE_GIB * 2 ** 30
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        make_mesh_compat((1, 1), ("data", "model"))   # the NCCL group
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        # the depth: one step at U_PROBE layers each, where AdamW's update
+        # sets the peak, extrapolated linearly; then one layer less at a
+        # time until the counted run leaves FAM_FREE_GIB free
+        peaks = {n: _u_train(torch, dataclasses.replace(full, n_layers=n),
+                             mesh, 1)[1] for n in U_PROBE}
+        lo, hi = U_PROBE
+        per_layer = (peaks[hi] - peaks[lo]) / (hi - lo)
+        n = min(L_full, int(lo + (room - peaks[lo]) // per_layer))
+        print(f"dry-run train step ({full.name}, B={U_TRAIN_B} x "
+              f"S={U_TRAIN_S}, bf16, AdamW, remat): peak "
+              f"{peaks[lo] / 2**30:.2f} GiB at {lo} layers, "
+              f"{peaks[hi] / 2**30:.2f} at {hi}, so {n} of {L_full} layers "
+              f"leave {FAM_FREE_GIB} GiB free")
+        while True:
+            cfg = dataclasses.replace(full, n_layers=n)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                losses, peak, held, run = _u_train(torch, cfg, mesh,
+                                                   U_TRAIN_STEPS)
+            except torch.OutOfMemoryError:
+                peak = None
+            if peak is not None and peak <= room:
+                break
+            run = None            # the failed run's tensors go first
+            print(f"  {n} layers: " + ("out of memory" if peak is None
+                                       else f"peak {peak / 2**30:.2f} GiB")
+                  + f", leaving less than {FAM_FREE_GIB} GiB; one less")
+            n -= 1
+        wall = time.perf_counter() - t0
+        model, params, batch = run
+        launches = ops.launch_counts()
+        S = U_TRAIN_STEPS
+        hold_launches(launches, {**NO_OTHER_KERNEL, "wire_quant": 0,
+                                 "wire_dequant": 0, "ssd_scan": 0,
+                                 "rmsnorm": S * (4 * n + 1),
+                                 "rmsnorm_bwd": S * 2 * (2 * n + 1),
+                                 "flash_attention": S * 2 * n})
+        if not losses[-1] < losses[0] or not all(map(math.isfinite,
+                                                     losses)):
+            fail(f"dry-run train step: losses {losses} do not fall")
+        _, _, nbytes = dryrun.combo_args(
+            cfg, InputShape("train_1x4k", U_TRAIN_S, U_TRAIN_B, "train"),
+            mesh)
+        args = nbytes["params"] + nbytes["opt_state"] + nbytes["batch"]
+        print(f"  {n} layers: losses {losses}, {wall:.2f} s for "
+              f"{S} steps with init, peak {peak / 2**30:.2f} GiB of "
+              f"{total / 2**30:.2f}; launches {launches}; the dry run's "
+              f"per_device_bytes.arguments at (1, 1) {args:,} B, held "
+              f"{held:,} B")
+        if args != held:
+            fail(f"dry run's arguments {args} B != the {held} B held")
+
+        prefill = dryrun.build_prefill_step(model)
+        serve = dryrun.build_serve_step(model)
+        with torch.no_grad():
+            nxt = prefill(params, {"tokens": batch["tokens"]})
+            caches = model.init_cache(1, U_TRAIN_S + 1, "cuda")
+            model.prefill(params, {"tokens": batch["tokens"]}, caches)
+            tok = torch.argmax(nxt[:, -1], -1)[:, None]
+            logits, caches = serve(params, tok, caches)
+        torch.cuda.synchronize()
+        if tuple(nxt.shape) != (1, 1, full.vocab) or tuple(
+                logits.shape) != (1, 1, full.vocab) or not bool(
+                torch.isfinite(logits).all() & torch.isfinite(nxt).all()):
+            fail(f"prefill / serve steps: {tuple(nxt.shape)}, "
+                 f"{tuple(logits.shape)}")
+        print(f"  prefill step -> next-token logits {tuple(nxt.shape)}, "
+              f"serve step -> {tuple(logits.shape)} at pos "
+              f"{caches[0][0]['0']['pos']}, both finite")
+        del model, params, batch, caches, nxt, logits
+
+        # remat against none at U_REMAT_LAYERS: the same arithmetic
+        cfg4 = dataclasses.replace(full, n_layers=U_REMAT_LAYERS)
+        model4 = build_model(cfg4)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        p4 = model4.init(gen, "cuda")
+        b4 = lm_batch(gen, U_TRAIN_B, U_TRAIN_S, LM_DATA_VOCAB)
+        torch.use_deterministic_algorithms(True)
+        try:
+            out = {}
+            for remat in (True, False):
+                p = _leaf_params(p4)
+                loss = model4.loss(p, b4, remat=remat)
+                out[remat] = (loss.detach(), tree_leaves(_grads(loss, p)))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        differ = [("/".join(path), (a.float() - b.float()).abs().max().item())
+                  for path, a, b in zip(tree_paths(p4), out[True][1],
+                                        out[False][1]) if not torch.equal(a, b)]
+        same = torch.equal(out[True][0], out[False][0]) and not differ
+        print(f"  remat vs none at {U_REMAT_LAYERS} layers: loss "
+              f"{out[True][0].item()} / {out[False][0].item()}, "
+              f"{len(out[True][1])} gradients "
+              + ("all bitwise equal" if same else f"differ at {differ}"))
+        if not same:
+            fail(f"remat changed the loss or the gradients: {differ}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    return {"launches": launches, "layers": n, "losses": losses,
+            "peak_gib": peak / 2 ** 30, "arguments_bytes": args}
+
+
+def long_context_phase(torch) -> dict:
+    """Phase 3u: (a) long-context serving, its reduced card == CPU check,
+    then (b) the dry run's step functions."""
+    out = {U_PATH: long_context_path(torch)}
+    reduced_long_against_cpu(torch)
+    out[U_TRAIN_PATH] = dryrun_steps(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -6251,10 +6735,11 @@ def main():
         gen.manual_seed(1234)
         return (check_wire(torch, gen), check_splitcat(torch, gen),
                 check_splitcat_dense(torch, gen), check_rmsnorm(torch),
-                check_ssd(torch), check_flash(torch), check_grads(torch))
+                check_ssd(torch), check_flash(torch), check_flash_long(torch),
+                check_grads(torch))
     ((wire, payloads), (sc_err, (t, t_plain, t_lib, b)),
      (dn_err, (td, td_plain, td_lib, bd)), (rn_err, rn_t), (ssd_err, ssd_t),
-     (fa_err, fa_t), (bwd, bwd_bf16)) = phase("2", check_kernels)
+     (fa_err, fa_t), fa_long, (bwd, bwd_bf16)) = phase("2", check_kernels)
 
     # phase 3: each main path, then its small-input reference check
     run = phase("3", main_path, torch)
@@ -6301,6 +6786,7 @@ def main():
     fleet = phase("3s", fleet_phase, torch)
     sharded = phase("3t", sharded_phase, torch,
                     moe[EP_ARCH]["launches"])
+    longctx = phase("3u", long_context_phase, torch)
 
     # the wire launches per payload add up to what each path was held to
     paths = (("serving", run), ("training", train), ("ssm_serving", ssm),
@@ -6314,7 +6800,7 @@ def main():
              *((MOE_RUNS[arch].path, r) for arch, r in moe.items()),
              *mono.items(), (BAT_PATH, bat), (FIG3_PATH, fig3),
              *examples.items(), *vlm.items(), *encdec.items(),
-             *fleet.items(), *sharded.items())
+             *fleet.items(), *sharded.items(), *longctx.items())
     for path, res in paths:
         for i, name in enumerate(("wire_quant", "wire_dequant")):
             want = sum(p[-1][i] for p in payloads if p[0] == path)
@@ -6379,7 +6865,11 @@ def main():
          "non_causal_whisper_encoder": dict(zip(
              ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
               "max_abs_err"),
-             (*fa_enc[:3], *fa_enc[3], fa_enc[4])))},
+             (*fa_enc[:3], *fa_enc[3], fa_enc[4]))),
+         "long_context_window_8192": dict(zip(
+             ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "max_abs_err"),
+             (*fa_long[:3], *fa_long[3], fa_long[4])))},
     ]
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
@@ -6408,7 +6898,9 @@ def main():
           "(4,4096,1,256) bf16, window 2048 (mla_prefill: DeepSeek-V2's q/k "
           "(4,128,128,192), v (4,128,128,128) bf16, causal; "
           "non_causal_whisper_encoder: Whisper-base's encoder q/k/v "
-          "(4,1500,8,64) bf16, non-causal); the backward "
+          "(4,1500,8,64) bf16, non-causal; long_context_window_8192: "
+          "phase 3u's phi4-mini q (1,12288,24,128), k/v (1,12288,8,128) "
+          "bf16, window 8192); the backward "
           "times of "
           "rmsnorm, ssd_scan and flash_attention at the LM training "
           "shapes (4,512,768), x (4,512,24,64) from a zero state and q "

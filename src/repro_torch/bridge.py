@@ -199,6 +199,18 @@ def lm_tree_to_ref(tree, *, axis: int = 0):
     return _in_groups(tree, stack)
 
 
+def lm_caches_to_ref(caches: list) -> list:
+    """An LM's decode caches (a list of groups, each a list of per-repeat
+    caches) stacked into the reference's layout: each group one cache
+    whose leaves lead with the repeat axis.  A ring's host `pos` stays
+    the int it is (the reference keeps one a repeat)."""
+    def stack(*reps):
+        if isinstance(reps[0], torch.Tensor):
+            return torch.stack(reps)
+        return reps[0]
+    return [_map(stack, *g) for g in caches]
+
+
 def lm_tree_from_ref(tree, *, axis: int = 0):
     """Inverse of `lm_tree_to_ref`: each stacked group unbound along
     `axis` into the port's list of repeats (copies, not views)."""

@@ -1,3 +1,3 @@
-from repro_torch.configs.base import (INPUT_SHAPES, PORTED_ARCH_IDS,
-                                      ArchConfig, InputShape,
+from repro_torch.configs.base import (ARCH_IDS, INPUT_SHAPES, ArchConfig,
+                                      InputShape, all_configs,
                                       get_config)  # noqa: F401

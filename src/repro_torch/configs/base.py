@@ -13,11 +13,12 @@ from typing import Any
 
 import torch
 
-# arch ids whose config module the port carries so far
-PORTED_ARCH_IDS = ["phi4_mini_3_8b", "mamba2_130m", "recurrentgemma_2b",
-                   "qwen3_moe_30b_a3b", "deepseek_v2_236b", "chatglm3_6b",
-                   "qwen1_5_32b", "mistral_large_123b", "internvl2_2b",
-                   "whisper_base"]
+# every arch id, in the reference's order (`repro/configs/base.py:125`)
+ARCH_IDS = [
+    "qwen1_5_32b", "mamba2_130m", "mistral_large_123b", "deepseek_v2_236b",
+    "recurrentgemma_2b", "internvl2_2b", "qwen3_moe_30b_a3b", "chatglm3_6b",
+    "phi4_mini_3_8b", "whisper_base",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,9 +138,12 @@ INPUT_SHAPES = {
 
 def get_config(arch_id: str) -> ArchConfig:
     arch_id = arch_id.replace("-", "_")
-    if arch_id not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"{arch_id}: not ported yet; the port serves {PORTED_ARCH_IDS} "
-            "and the other architectures come with later slices")
+    if arch_id not in ARCH_IDS:
+        raise ValueError(f"{arch_id}: no such architecture; the known ones "
+                         f"are {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.CONFIG
+
+
+def all_configs() -> dict:
+    return {a: get_config(a) for a in ARCH_IDS}

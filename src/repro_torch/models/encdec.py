@@ -146,14 +146,16 @@ class EncDec:
                                A.cross_attn_kv(p["cross_attn"], ac, enc_out))
         return self._head(params, x)
 
-    def forward(self, params, batch):
+    def forward(self, params, batch, **_):
         """{"audio_feats": (B, n_frames, D), "tokens": (B, S)} -> logits
-        (B, S, V)."""
+        (B, S, V).  Keywords such as `remat` are accepted and ignored, as
+        the reference's are."""
         enc_out = self.encode(params, batch["audio_feats"])
         return self.decode_full(params, batch["tokens"], enc_out)
 
-    def loss(self, params, batch):
-        """Mean next-token cross-entropy in float32 over `labels`."""
+    def loss(self, params, batch, **_):
+        """Mean next-token cross-entropy in float32 over `labels`
+        (keywords ignored, as in `forward`)."""
         lp = torch.log_softmax(self.forward(params, batch).float(), dim=-1)
         nll = -lp.gather(-1, batch["labels"].long()[..., None])[..., 0]
         return nll.mean()

@@ -36,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import attention as A
@@ -108,7 +109,8 @@ def _block_spec(cfg: ArchConfig, kind: str, *, window=None,
     raise ValueError(kind)
 
 
-def make_groups(cfg: ArchConfig) -> list[GroupSpec]:
+def make_groups(cfg: ArchConfig, *,
+                long_context: bool = False) -> list[GroupSpec]:
     """The SSM family: one group of Mamba2 blocks (no channel mixer).  The
     dense family: one group of identical attn + MLP blocks.  The MoE
     family: a group of `first_dense` attention (or MLA) blocks with a
@@ -117,7 +119,15 @@ def make_groups(cfg: ArchConfig) -> list[GroupSpec]:
     layer pattern (RecurrentGemma's rglru, rglru, attn, the attention
     local within the window) repeated n_layers // len(pattern) times,
     plus a remainder group of the pattern's first n_layers % len(pattern)
-    blocks; a cut falls on a super-block boundary (`split_params`)."""
+    blocks; a cut falls on a super-block boundary (`split_params`).
+
+    `long_context=True` builds the long-context variant: where the config
+    has a `long_window`, every attention block attends within it (the
+    decode ring holds that many rows).  No parameter changes shape, so
+    the variant takes the normal model's parameters as they are."""
+    window = cfg.window
+    if long_context and cfg.long_window:
+        window = cfg.long_window
     if cfg.family == "ssm":
         return [GroupSpec((_block_spec(cfg, "mamba2"),), cfg.n_layers)]
     if cfg.family not in ("dense", "moe", "hybrid", "vlm") or cfg.encdec:
@@ -127,7 +137,7 @@ def make_groups(cfg: ArchConfig) -> list[GroupSpec]:
             "models.encdec.EncDec")
     if cfg.pattern:
         n_full, rem = divmod(cfg.n_layers, len(cfg.pattern))
-        specs = tuple(_block_spec(cfg, k, window=cfg.window
+        specs = tuple(_block_spec(cfg, k, window=window
                                   if k == "attn" else None)
                       for k in cfg.pattern)
         groups = [GroupSpec(specs, n_full)]
@@ -139,13 +149,12 @@ def make_groups(cfg: ArchConfig) -> list[GroupSpec]:
         groups = []
         if cfg.first_dense:
             groups.append(GroupSpec(
-                (_block_spec(cfg, kind, window=cfg.window),),
-                cfg.first_dense))
+                (_block_spec(cfg, kind, window=window),), cfg.first_dense))
         groups.append(GroupSpec(
-            (_block_spec(cfg, kind, window=cfg.window, moe_layer=True),),
+            (_block_spec(cfg, kind, window=window, moe_layer=True),),
             cfg.n_layers - cfg.first_dense))
         return groups
-    return [GroupSpec((_block_spec(cfg, kind, window=cfg.window),),
+    return [GroupSpec((_block_spec(cfg, kind, window=window),),
                       cfg.n_layers)]
 
 
@@ -159,12 +168,24 @@ def group_init(gen, g: GroupSpec, device=None) -> list:
             for _ in range(g.n_repeat)]
 
 
-def group_apply(params: list, g: GroupSpec, x):
+def _repeat_apply(layer_params: dict, g: GroupSpec, x):
+    for i, spec in enumerate(g.specs):
+        x = T.block_apply(layer_params[str(i)], spec, x)
+    return x
+
+
+def group_apply(params: list, g: GroupSpec, x, *, remat: bool = False):
     """The no-cache forward of a group: its repeats in order, each
-    running the group's specs in order."""
+    running the group's specs in order.  `remat=True` checkpoints each
+    repeat (one layer, or one super-block of a composite group): its
+    activations are recomputed in backward instead of stored.  The
+    blocks draw no randomness, so no RNG state is kept."""
     for layer_params in params:
-        for i, spec in enumerate(g.specs):
-            x = T.block_apply(layer_params[str(i)], spec, x)
+        if remat:
+            x = checkpoint(_repeat_apply, layer_params, g, x,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _repeat_apply(layer_params, g, x)
     return x
 
 
@@ -261,18 +282,19 @@ class LM:
             return L.embedding_attend(params["embed"], x)
         return L.dense_apply(params["head"], x)
 
-    def forward(self, params, batch):
+    def forward(self, params, batch, *, remat: bool = False):
         """{"tokens": (B, S)} (a VLM's also "patch_embeds") -> logits
-        (B, S, V)."""
+        (B, S, V); `remat` as in `group_apply`."""
         x = self.embed(params, batch)
         for g, gp in zip(self.groups, params["groups"]):
-            x = group_apply(gp, g, x)
+            x = group_apply(gp, g, x, remat=remat)
         return self._text(self.head(params, x))
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, remat: bool = False):
         """Mean next-token cross-entropy in float32 over `labels`, over the
         positions `loss_mask` keeps when given."""
-        lp = torch.log_softmax(self.forward(params, batch).float(), dim=-1)
+        lp = torch.log_softmax(self.forward(params, batch,
+                                            remat=remat).float(), dim=-1)
         nll = -lp.gather(-1, batch["labels"].long()[..., None])[..., 0]
         mask = batch.get("loss_mask")
         if mask is not None:
@@ -359,22 +381,24 @@ class LM:
                         g, n_repeat=(hi - cut) // g.layers_per_repeat))
         return out
 
-    def apply_client(self, client_params, batch, cut: int):
+    def apply_client(self, client_params, batch, cut: int, *,
+                     remat: bool = False):
         """The client half's no-cache forward: embed + layers [0, cut)
         -> the cut activation (B, S, D)."""
         x = self.embed(client_params, batch)
         for g, gp in zip(self._groups_for_range(cut, "client"),
                          client_params["groups"]):
-            x = group_apply(gp, g, x)
+            x = group_apply(gp, g, x, remat=remat)
         return x
 
-    def apply_server(self, server_params, act, cut: int):
+    def apply_server(self, server_params, act, cut: int, *,
+                     remat: bool = False):
         """The server half's no-cache forward: layers [cut, L) + final
         norm + head on the cut activation -> logits (B, S, V)."""
         x = act
         for g, gp in zip(self._groups_for_range(cut, "server"),
                          server_params["groups"]):
-            x = group_apply(gp, g, x)
+            x = group_apply(gp, g, x, remat=remat)
         return self.server_head(server_params, x)
 
     def server_head(self, server_params, x):
@@ -450,5 +474,6 @@ def replace_specs(model: LM, *, attn: dict | None = None,
         for g in model.groups))
 
 
-def build_lm(cfg: ArchConfig) -> LM:
-    return LM(cfg=cfg, groups=tuple(make_groups(cfg)))
+def build_lm(cfg: ArchConfig, *, long_context: bool = False) -> LM:
+    return LM(cfg=cfg, groups=tuple(make_groups(cfg,
+                                                long_context=long_context)))

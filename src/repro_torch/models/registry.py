@@ -1,4 +1,4 @@
-"""Model registry (port of `repro/models/registry.py:12-66`)."""
+"""Model registry (port of `repro/models/registry.py`)."""
 from __future__ import annotations
 
 import torch
@@ -11,10 +11,13 @@ from repro_torch.models.lm import build_lm
 WHISPER_TEXT_LEN = 448
 
 
-def build_model(cfg: ArchConfig):
+def build_model(cfg: ArchConfig, *, long_context: bool = False):
+    """The model of `cfg`; `long_context=True` gives an LM its
+    long-context variant (`models.lm.make_groups`).  An encoder-decoder
+    model has none and ignores it, as the reference's does."""
     if cfg.encdec:
         return build_encdec(cfg)
-    return build_lm(cfg)
+    return build_lm(cfg, long_context=long_context)
 
 
 def text_len(cfg: ArchConfig, seq_len: int) -> int:
@@ -60,4 +63,19 @@ def supports_split_serving(cfg: ArchConfig) -> tuple[bool, str]:
     if cfg.encdec:
         return False, "encdec archs have no decoder layer cut; serve " \
                       "monolithically"
+    return True, ""
+
+
+def supports_shape(cfg: ArchConfig, shape: InputShape) -> tuple[bool, str]:
+    """(supported, reason-if-not): the reference's skip rule.  Only
+    `long_500k` is refused, to an attention arch with no sliding-window
+    long-context variant; the SSM and hybrid families carry no full
+    attention and take it."""
+    if shape.name == "long_500k":
+        if cfg.family in ("ssm", "hybrid"):
+            return True, ""
+        if cfg.long_window:
+            return True, ""
+        return False, ("full-attention arch without a sliding-window "
+                       "long-context variant")
     return True, ""

@@ -97,13 +97,28 @@ class AttnConfig:
 # RoPE
 # ---------------------------------------------------------------------------
 
-def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
-                                         device=device) / dim))
+def rope_freqs(dim: int, theta: float, device=None, *,
+               folded: bool = True) -> torch.Tensor:
+    """1 / theta^(2i / dim) from float32 exponents.  `folded`: the power
+    and its reciprocal in float64, rounded once to float32, the bits XLA's
+    constant folding gives the reference's rope in its compiled layer
+    scans; a float32 power differs from them in the last bit at some
+    widths (96, 192, 256 at theta 1e4), and at the long-context cursors
+    (~5.2e5) that moves an angle by up to ~1e-3 rad.  The cache paths
+    (prefill, decode) take these.  `folded=False`, the float32 power, is
+    the no-cache training forward's (`gqa_apply`, `mla_apply`), whose
+    positions stay below its sequence length: the LM fits over the int8
+    wire were measured against it, and with the folded bits one int8
+    level of a cut gradient flips there and 3-round trajectories part by
+    1.2e-3 (the float32 sums of the two frameworks straddle it)."""
+    e = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    if folded:
+        return (1.0 / theta ** e.double()).float()
+    return 1.0 / (theta ** e)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
-               fraction: float = 1.0) -> torch.Tensor:
+               fraction: float = 1.0, folded: bool = True) -> torch.Tensor:
     """x: (B, S, H, hd); positions: (B, S) or (S,)."""
     hd = x.shape[-1]
     rot = int(hd * fraction)
@@ -111,7 +126,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
     if rot == 0:
         return x
     x_rot, x_pass = x[..., :rot], x[..., rot:]
-    freqs = rope_freqs(rot, theta, x.device)
+    freqs = rope_freqs(rot, theta, x.device, folded=folded)
     if positions.ndim == 1:
         positions = positions[None, :]
     ang = positions[..., None].float() * freqs           # (B, S, rot/2)
@@ -288,18 +303,19 @@ def gqa_decode(params, cfg: AttnConfig, x, cache, *, qkv=None):
     return y, cache
 
 
-def _attend(params, cfg: AttnConfig, x, positions, mask):
-    """The full-sequence attention: q/k/v with rope (none for "bidir"),
-    attention and the output projection.  Returns (y, k, v), k and v
-    after rope."""
+def _attend(params, cfg: AttnConfig, x, positions, mask, *,
+            folded: bool = True):
+    """The full-sequence attention: q/k/v with rope (none for "bidir";
+    `folded` as in `rope_freqs`), attention and the output projection.
+    Returns (y, k, v), k and v after rope."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, cfg, x)
     bidir = cfg.kind == "bidir"
     if not bidir:
         q = apply_rope(q, positions, theta=cfg.rope_theta,
-                       fraction=cfg.rope_fraction)
+                       fraction=cfg.rope_fraction, folded=folded)
         k = apply_rope(k, positions, theta=cfg.rope_theta,
-                       fraction=cfg.rope_fraction)
+                       fraction=cfg.rope_fraction, folded=folded)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     if mask is None:
         out = ops.flash_attention(q, k, v, causal=not bidir,
@@ -317,7 +333,7 @@ def gqa_apply(params, cfg: AttnConfig, x, *, positions=None, mask=None):
     (B, S, T) `mask` takes the plain `grouped_attention`."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
-    return _attend(params, cfg, x, positions, mask)[0]
+    return _attend(params, cfg, x, positions, mask, folded=False)[0]
 
 
 def gqa_prefill(params, cfg: AttnConfig, x, cache):
@@ -471,19 +487,20 @@ def _mla_q(params, cfg: AttnConfig, x):
     return q[..., :dn], q[..., dn:]                      # nope, rope parts
 
 
-def _mla_kv(params, cfg: AttnConfig, x, positions):
+def _mla_kv(params, cfg: AttnConfig, x, positions, folded: bool = True):
     """The compressed rows a cache keeps: post-norm c_kv (B, S, r) and the
-    rope'd k_pe (B, S, dr)."""
+    rope'd k_pe (B, S, dr) (`folded` as in `rope_freqs`)."""
     r = cfg.kv_lora_rank
     kv = L.dense_apply(params["wkv_a"], x)               # (B, S, r + dr)
     # the rmsnorm kernel reads dense rows: c_kv's slice is copied out
     c_kv = L.rmsnorm_apply(params["kv_norm"], kv[..., :r].contiguous())
     k_pe = apply_rope(kv[..., r:][:, :, None, :], positions,
-                      theta=cfg.rope_theta)[:, :, 0, :]
+                      theta=cfg.rope_theta, folded=folded)[:, :, 0, :]
     return c_kv, k_pe
 
 
-def _mla_attend(params, cfg: AttnConfig, x, positions, mask):
+def _mla_attend(params, cfg: AttnConfig, x, positions, mask, *,
+                folded: bool = True):
     """The full-sequence MLA: k and v decompressed from c_kv, standard
     multi-head attention at scale 1/sqrt(dn + dr).  Returns (y, c_kv,
     k_pe)."""
@@ -491,8 +508,8 @@ def _mla_attend(params, cfg: AttnConfig, x, positions, mask):
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     q_nope, q_pe = _mla_q(params, cfg, x)
-    q_pe = apply_rope(q_pe, positions, theta=cfg.rope_theta)
-    c_kv, k_pe = _mla_kv(params, cfg, x, positions)
+    q_pe = apply_rope(q_pe, positions, theta=cfg.rope_theta, folded=folded)
+    c_kv, k_pe = _mla_kv(params, cfg, x, positions, folded)
     k_nope = L.dense_apply(params["wk_b"], c_kv).reshape(B, S, H, dn)
     v = L.dense_apply(params["wv_b"], c_kv).reshape(B, S, H, dv)
     q = torch.cat([q_nope, q_pe], dim=-1)
@@ -512,7 +529,7 @@ def mla_apply(params, cfg: AttnConfig, x, *, positions=None, mask=None):
     explicit mask takes the plain `grouped_attention`."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
-    return _mla_attend(params, cfg, x, positions, mask)[0]
+    return _mla_attend(params, cfg, x, positions, mask, folded=False)[0]
 
 
 def mla_init_cache(cfg: AttnConfig, batch: int, max_len: int, device=None):

@@ -103,3 +103,24 @@ def param_count(params: Params) -> int:
 
 def param_bytes(params: Params) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(params))
+
+
+def map_with_path(fn: Callable[[tuple, Any], Any], params: Params) -> Params:
+    """`tree_map` where `fn` also receives the leaf's path: a tuple of
+    strings, a dict key or a list / tuple index as `str` (the reference's
+    `_path_elem_str`), e.g. ("groups", "0", "0", "mixer", "wq", "w")."""
+    def walk(path, t):
+        if isinstance(t, dict):
+            return {k: walk(path + (str(k),), t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(path + (str(i),), v)
+                           for i, v in enumerate(t))
+        return fn(path, t)
+    return walk((), params)
+
+
+def tree_paths(params: Params) -> list[tuple[str, ...]]:
+    """The leaves' paths in `tree_leaves` order, e.g. ('embed', 'table')."""
+    out: list = []
+    map_with_path(lambda path, _: out.append(path), params)
+    return out

@@ -38,7 +38,7 @@ from repro.serve import ServePlan as JServePlan
 from repro.serve import ServeSession as JServeSession
 from repro.serve import greedy_decode_scan as jgreedy_decode_scan
 from repro_torch import bridge
-from repro_torch.configs import PORTED_ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import build_model
 from repro_torch.nn.module import param_count, tree_map
@@ -181,12 +181,12 @@ def _fields(cfg):
 
 def test_new_configs_match_reference():
     """Every field equal to the reference's (dtype by name), registered
-    in `PORTED_ARCH_IDS`; at full width on meta tensors the reference's
+    in `ARCH_IDS`; at full width on meta tensors the reference's
     parameter count (ChatGLM3 with its QKV biases, Qwen1.5-32B MHA 40/40,
     Mistral-Large at 88 layers and d 12,288)."""
     counts = {}
     for arch in NEW:
-        assert arch in PORTED_ARCH_IDS
+        assert arch in ARCH_IDS
         cfg_t, cfg_j = get_config(arch), jget_config(arch)
         assert _fields(cfg_t) == _fields(cfg_j)
         params = build_model(cfg_t).init(torch.Generator(), "meta")

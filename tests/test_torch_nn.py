@@ -83,7 +83,7 @@ def test_unported_families_raise():
     from repro_torch.models import supports_split_serving
     from repro_torch.serve import ServePlan, ServeSession
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="no such architecture"):
         get_config("gpt_j_6b")
     whisper = get_config("whisper_base").reduced()
     assert not supports_split_serving(whisper)[0]
